@@ -1,0 +1,333 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+  python3 chip_smoke.py        (from the repository root)
+
+Phases, each of which fails the run:
+  1. device  — the card's name and power limit; build the CUDA kernels
+     from this checkout's sources;
+  2. kernel  — the session kernel against its plain PyTorch version on
+     the card, ``chosen`` equal, on small generated sessions;
+  3. main path — ``execute_allocate(snap)`` with no device at full width
+     (50k pods x 10k nodes, then 10k x 1k): it must run through the
+     kernel (launch count > 0, executor ``cuda``) and equal the port's
+     PyTorch specification on the same snapshot; latency, kernel time
+     and pods/s are printed beside the card's name and power limit.
+Then one JSON line listing each kernel with its launches, its match with
+the plain version, its time, the plain version's time, its bound by
+bytes and operations and its latency floor (the serial chain of a step,
+timed link by link by the step probe), and as the last line the device
+record.
+
+Exits non-zero, printing no result, when no GPU is present.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and f32 operations/s
+#: outside the tensor cores at one operation per instruction — the sheet's
+#: 67 TFLOP/s counts a fused multiply-add as two, and the kernel is built
+#: with --fmad=false, so it issues none
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 33.5e12
+
+
+def mask_ops(R: int) -> int:
+    """f32 operations one step needs on every node, counted from
+    vt::masked_score (session_math.cuh): the fit, 3 per lane (sub, add,
+    compare) and 2 more per scalar lane; pod count 1; class 1; the -inf
+    select 1; the argmax compare 1."""
+    return 3 * R + 2 * max(R - 2, 0) + 4
+
+
+def score_ops(R: int) -> int:
+    """f32 operations of vt::node_score on one node, needed only where the
+    task's class may go: binpack 7 per lane (add, two compares, max, mul,
+    div, select) and 1 per further lane to sum them, then 2 (divide by the
+    weight sum, scale); least-requested 33 over its two lanes; its floor 2;
+    balanced 8; the weighted total 4.  Terms fixed per task (lane
+    weights, their sum) are left out, and a division counts as one
+    operation though it takes several instructions: the count is a floor."""
+    return 8 * R + 48
+
+
+MAIN_CONFIG = "50k_pods_10k_nodes_gang_predicates"
+SECOND_CONFIG = "10k_pods_1k_nodes_fairshare"
+WARM_RUNS = 5
+
+#: phase 2 sessions: the equivalence shapes of the JAX package's Pallas
+#: tests, plus one gang session with predicates at 2,000 x 1,000
+KERNEL_CASES = [
+    dict(n_tasks=300, n_nodes=150, gang_size=4, seed=0),
+    dict(n_tasks=300, n_nodes=150, gang_size=4, seed=1),
+    dict(n_tasks=300, n_nodes=150, gang_size=4, seed=2),
+    dict(n_tasks=256, n_nodes=130, gang_size=8, seed=3, label_classes=4, taint_fraction=0.25),
+    dict(n_tasks=400, n_nodes=16, gang_size=5, seed=4, node_cpu_milli=16_000,
+         node_mem_mib=32_768),
+    dict(n_tasks=64, n_nodes=1, gang_size=2, seed=5),
+    dict(n_tasks=2_000, n_nodes=1_000, gang_size=8, seed=7, label_classes=8,
+         taint_fraction=0.1),
+]
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"chip_smoke: {what}")
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+
+
+def pass_inputs(snap, device):
+    """One pass's kernel operands on ``device``, every task active."""
+    import torch
+
+    from volcano_tpu_torch.ops.session_kernel import prepare_session_arrays
+
+    arrays, _, _ = prepare_session_arrays(snap)
+    taskrow = torch.from_numpy(arrays["taskrow"]).to(device)
+    taskrow[:, -1] = 1.0
+    return (
+        taskrow,
+        torch.from_numpy(arrays["cf_u8"]).to(device),
+        torch.from_numpy(arrays["nd"]).to(device),
+        torch.from_numpy(arrays["tol"]).to(device),
+    )
+
+
+def kernel_ms(fn, reps: int) -> float:
+    """Mean device ms of ``fn()`` over ``reps`` launches (CUDA events),
+    after one warm-up launch."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def pass_bound_ms(inputs, chosen, n_nodes: int) -> tuple:
+    """(ms by bytes, ms by operations, class-feasible share) of one pass
+    on these inputs: each input read once and the output written once
+    over HBM; the f32 operations the data needs — the mask on each of the
+    ``n_nodes`` real nodes for every active task, the score only on the
+    nodes its class may go to — and the share of real nodes scored."""
+    taskrow, cf = inputs[0], inputs[1]
+    R = taskrow.shape[1] - 2
+    n_bytes = sum(x.numel() * x.element_size() for x in inputs)
+    n_bytes += chosen.numel() * chosen.element_size()
+    cls = taskrow[:, R].long()
+    live = (taskrow[:, R + 1] > 0) & (cls >= 0) & (cls < cf.shape[0])
+    per_class = (cf != 0).sum(1)
+    active = int(live.sum())
+    scored = int(per_class[cls[live]].sum())
+    ops = active * n_nodes * mask_ops(R) + scored * score_ops(R)
+    share = scored / max(active * n_nodes, 1)
+    return n_bytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3, share
+
+
+def latency_floor_ms(taskrow) -> tuple:
+    """(ms, probe) — the pass's latency floor: T steps, each the serial
+    chain of session_pass_kernel that no node count removes (the two
+    warp_argmax halves, two block barriers, two shared-memory round trips,
+    the next-row load), with each link timed by the step probe on the
+    card (second of two probe runs, caches warm)."""
+    from volcano_tpu_torch.ops.session_kernel import step_latency_probe
+
+    step_latency_probe(taskrow)
+    p = step_latency_probe(taskrow)
+    cycles = (p["argmax_all"] + p["argmax_one"] + 2 * p["barrier"]
+              + 2 * p["smem_round_trip"] + p["row_stage"])
+    return taskrow.shape[0] * cycles * p["ns_per_cycle"] / 1e6, dict(p, step_cycles=cycles)
+
+
+def phase_build() -> None:
+    from volcano_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    path = _build.build()
+    print(f"build: {time.perf_counter() - t0:.3f} s for {path}")
+    if _build.BUILD_LOG is not None:
+        seconds, log = _build.BUILD_LOG
+        print(f"build: nvcc {seconds:.3f} s")
+        for line in log.splitlines():
+            if "ptxas info" in line or "spill" in line:
+                print(f"  {line.strip()}")
+
+
+def phase_kernel_vs_plain() -> None:
+    import torch
+
+    from volcano_tpu_torch.ops.session_kernel import session_pass_cuda, session_pass_reference
+    from volcano_tpu_torch.ops.synthetic import generate_snapshot
+
+    for case in KERNEL_CASES:
+        inputs = pass_inputs(generate_snapshot(**case), "cuda")
+        got = session_pass_cuda(*inputs)
+        torch.cuda.synchronize()
+        want = session_pass_reference(*inputs)
+        check(torch.equal(got, want), f"kernel != plain version on {case}")
+        print(f"kernel == plain: {case} ({int((got >= 0).sum())} placed)")
+
+
+def phase_main_path(name: str, card: str, compare_plain: bool) -> dict:
+    import numpy as np
+    import torch
+
+    from volcano_tpu_torch.ops import session_kernel
+    from volcano_tpu_torch.ops.executor import execute_allocate, last_allocate_executor
+    from volcano_tpu_torch.ops.kernels import run_packed
+    from volcano_tpu_torch.ops.session_kernel import (
+        prepare_session_arrays,
+        session_pass_cuda,
+        session_pass_reference,
+    )
+    from volcano_tpu_torch.ops.synthetic import BASELINE_CONFIGS, generate_snapshot
+
+    snap = generate_snapshot(**BASELINE_CONFIGS[name])
+
+    # the main path, with the launch count read just before and after
+    torch.cuda.synchronize()
+    session_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = execute_allocate(snap)
+    first_s = time.perf_counter() - t0
+    launches = session_kernel.LAUNCHES
+    executor = last_allocate_executor()
+    check(launches > 0, f"{name}: the session kernel was not launched")
+    check(executor == "cuda", f"{name}: executor {executor!r}, expected 'cuda'")
+    check(out.shape == (snap.n_tasks,), f"{name}: assignment shape {out.shape}")
+
+    t0 = time.perf_counter()
+    spec = run_packed(snap, device="cuda")
+    spec_s = time.perf_counter() - t0
+    check(np.array_equal(out, spec), f"{name}: assignment != torch spec run_packed")
+    placed = int((out >= 0).sum())
+    print(f"{name}: assignment == torch spec ({spec_s:.3f} s to compute the spec); "
+          f"placed {placed}/{snap.n_tasks}; first session {first_s * 1e3:.3f} ms; "
+          f"launches {launches}")
+
+    # warm sessions, each paying its full host prepare
+    lat, prep = [], []
+    for _ in range(WARM_RUNS):
+        snap.__dict__.pop("_feas_classes_cache", None)
+        t0 = time.perf_counter()
+        prepare_session_arrays(snap)
+        prep.append(time.perf_counter() - t0)
+        snap.__dict__.pop("_feas_classes_cache", None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = execute_allocate(snap)
+        lat.append(time.perf_counter() - t0)
+        check(np.array_equal(again, out), f"{name}: warm session differs from the first")
+    med_ms = statistics.median(lat) * 1e3
+    prep_ms = statistics.median(prep) * 1e3
+
+    inputs = pass_inputs(snap, "cuda")
+    pass_ms = kernel_ms(lambda: session_pass_cuda(*inputs), reps=3)
+    print(f"{name}: session median {med_ms:.3f} ms, max {max(lat) * 1e3:.3f} ms over "
+          f"{WARM_RUNS} warm runs (host prepare {prep_ms:.3f} ms); kernel {pass_ms:.3f} ms "
+          f"per pass; {snap.n_tasks / (med_ms / 1e3):.1f} pods/s; card {card}")
+
+    record = dict(launches=launches, ms=pass_ms)
+    if compare_plain:
+        chosen = session_pass_cuda(*inputs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain = session_pass_reference(*inputs)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = int((chosen.long() - plain.long()).abs().max())
+        check(err == 0, f"{name}: kernel != plain version at full width")
+        by_bytes, by_ops, share = pass_bound_ms(inputs, chosen, snap.n_nodes)
+        bound_ms, bound_by = max((by_bytes, "bytes"), (by_ops, "operations"))
+        floor_ms, probe = latency_floor_ms(inputs[0])
+        record.update(max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by, latency_floor_ms=floor_ms)
+        # the check on the derived floor: every task inactive, so each step
+        # is only the block-wide argmax, two barriers and the row load
+        idle = (inputs[0].clone(),) + inputs[1:]
+        idle[0][:, -1] = 0.0
+        idle_ms = kernel_ms(lambda: session_pass_cuda(*idle), reps=3)
+        # one node per thread: the same tasks over 1,024 nodes
+        narrow = dict(BASELINE_CONFIGS[name], n_nodes=1_000)
+        narrow_inputs = pass_inputs(generate_snapshot(**narrow), "cuda")
+        narrow_ms = kernel_ms(lambda: session_pass_cuda(*narrow_inputs), reps=3)
+        steps = snap.n_tasks
+        print(f"{name}: plain version {plain_ms:.3f} ms per pass; bound {by_bytes:.6f} ms "
+              f"by bytes, {by_ops:.6f} ms by operations ({share:.4f} of the real nodes "
+              f"scored), latency floor {floor_ms:.3f} ms ({floor_ms * 1e6 / steps:.1f} ns "
+              f"per step); card {card}")
+        print(f"{name}: step probe, SM cycles: warp_argmax all warps "
+              f"{probe['argmax_all']:.1f}, warp 0 alone {probe['argmax_one']:.1f}; barrier "
+              f"{probe['barrier']:.1f}; shared round trip {probe['smem_round_trip']:.1f}; "
+              f"row stage {probe['row_stage']:.1f}; step {probe['step_cycles']:.1f} at "
+              f"{probe['ns_per_cycle']:.4f} ns per cycle")
+        print(f"{name}: idle pass (every task inactive) {idle_ms:.3f} ms "
+              f"({idle_ms * 1e6 / steps:.1f} ns per step); same tasks over 1,024 nodes "
+              f"{narrow_ms:.3f} ms per pass ({narrow_ms * 1e6 / steps:.1f} ns per step); "
+              f"full width {pass_ms * 1e6 / steps:.1f} ns per step; card {card}")
+    return record
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs a GPU", file=sys.stderr)
+        return 1
+    import volcano_tpu_torch  # noqa: F401 — without the checkout, fail before any output
+
+    card = card_line()
+    print(f"card: {card}")
+    phase_build()
+    phase_kernel_vs_plain()
+    main_rec = phase_main_path(MAIN_CONFIG, card, compare_plain=True)
+    phase_main_path(SECOND_CONFIG, card, compare_plain=False)
+
+    kernels = [
+        {
+            "name": "session_pass",
+            "route": "cuda",
+            "source": "volcano_tpu_torch/csrc/session_kernel.cu",
+            "replaces": "volcano_tpu/ops/pallas_session.py:123",
+            "launches": main_rec["launches"],
+            "max_abs_err": main_rec["max_abs_err"],
+            "ms": main_rec["ms"],
+            "plain_ms": main_rec["plain_ms"],
+            "bound_ms": main_rec["bound_ms"],
+            "bound_by": main_rec["bound_by"],
+            "latency_floor_ms": main_rec["latency_floor_ms"],
+            "library_ms": None,
+        }
+    ]
+    print(card)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

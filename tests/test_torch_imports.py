@@ -1,0 +1,79 @@
+"""The port stands alone: it imports no JAX and nothing of volcano_tpu.
+
+A fresh interpreter with ``jax`` blocked and a meta-path finder that
+refuses ``volcano_tpu`` and its submodules (but not
+``volcano_tpu_torch``) imports every module of the port and runs an
+allocate session on the CPU."""
+
+from __future__ import annotations
+
+import ast
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+CHILD = r"""
+import importlib, importlib.abc, sys
+
+sys.modules["jax"] = None
+
+
+class RefuseReference(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "volcano_tpu" or name.startswith("volcano_tpu."):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+
+sys.meta_path.insert(0, RefuseReference())
+for name in [m for m in sys.modules if m == "volcano_tpu" or m.startswith("volcano_tpu.")]:
+    del sys.modules[name]
+
+for mod in ("volcano_tpu_torch", "volcano_tpu_torch.api.resource",
+            "volcano_tpu_torch.ops", "volcano_tpu_torch.ops.packing",
+            "volcano_tpu_torch.ops.synthetic", "volcano_tpu_torch.ops.kernels",
+            "volcano_tpu_torch.ops._build", "volcano_tpu_torch.ops.session_kernel",
+            "volcano_tpu_torch.ops.dispatch", "volcano_tpu_torch.ops.executor"):
+    importlib.import_module(mod)
+
+from volcano_tpu_torch.ops.executor import execute_allocate, last_allocate_executor
+from volcano_tpu_torch.ops.synthetic import generate_snapshot
+
+out = execute_allocate(generate_snapshot(n_tasks=48, n_nodes=12, gang_size=4, seed=1),
+                       device="cpu")
+assert last_allocate_executor() == "torch-scan"
+assert "jax" not in {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
+print("placed", int((out >= 0).sum()), "of", len(out))
+"""
+
+
+def test_port_imports_and_runs_without_jax_or_reference():
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD], cwd=ROOT, capture_output=True, text=True,
+        timeout=120, env=dict(os.environ, PYTHONPATH=ROOT),
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "placed 48 of 48"
+
+
+def test_port_sources_import_neither_jax_nor_reference():
+    """Static twin of the subprocess check: no import statement in the
+    port or in chip_smoke.py names jax or volcano_tpu."""
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, filenames in os.walk(os.path.join(ROOT, "volcano_tpu_torch")):
+        files += [os.path.join(dirpath, f) for f in filenames if f.endswith(".py")]
+    assert len(files) > 5
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "volcano_tpu"), (path, name)

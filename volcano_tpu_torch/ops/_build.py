@@ -1,0 +1,97 @@
+"""Build the port's CUDA kernel library from the repository's sources at
+first use, and load it with ctypes.
+
+The library is one ``nvcc`` call over a plain-C-interface source (no
+PyTorch headers, no ninja): seconds, not minutes.  The shared object
+goes into ``volcano_tpu_torch/csrc/_build/`` under a name keyed by a hash
+of the sources and the flags, so an edited source or flag rebuilds and
+an unchanged one loads the library already there.  A failed build
+raises with nvcc's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Optional, Tuple
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+BUILD_DIR = os.path.join(CSRC, "_build")
+
+#: nvcc flags: Hopper's arch-specific target; no FMA contraction and no
+#: fast math, so the f32 arithmetic rounds as the reference's does;
+#: ``-Xptxas=-v`` reports registers, shared memory and spills per kernel
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas=-v",
+)
+
+#: the source nvcc compiles, and the header it includes
+SOURCE = "session_kernel.cu"
+HEADERS = ("session_math.cuh",)
+
+#: (build seconds, nvcc output) of a build made by this process
+BUILD_LOG: Optional[Tuple[float, str]] = None
+
+
+def find_nvcc() -> str:
+    """nvcc from ``$CUDA_HOME/bin``, then ``/usr/local/cuda/bin``, then PATH."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for path in candidates:
+        if os.access(path, os.X_OK):
+            return path
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin, PATH)")
+    return found
+
+
+def library_path() -> str:
+    """Where the library lives for the current sources and flags."""
+    h = hashlib.sha256()
+    for fn in (SOURCE, *HEADERS):
+        with open(os.path.join(CSRC, fn), "rb") as f:
+            h.update(fn.encode() + b"\0" + f.read())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"libsession_{h.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Build the library unless it is built already; return its path.
+    Raises RuntimeError with nvcc's output when the build fails."""
+    global BUILD_LOG
+    path = library_path()
+    if os.path.exists(path):
+        return path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    # build into a private temporary and rename it into place, so a
+    # concurrent loader never maps a half-written library
+    tmp = f"{path}.{os.getpid()}.tmp"
+    t0 = time.monotonic()
+    try:
+        proc = subprocess.run(
+            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, SOURCE)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        BUILD_LOG = (time.monotonic() - t0, proc.stdout)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}")
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return path
+
+
+def load() -> ctypes.CDLL:
+    """The library, built first if needed."""
+    return ctypes.CDLL(build())

@@ -1,0 +1,38 @@
+"""The allocate session's entry point.
+
+The local route of ``volcano_tpu/ops/executor.py``: PackedSnapshot in,
+assignment out, through the dispatcher.  The compute-plane sidecar
+route is not part of this package yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from volcano_tpu_torch.ops import dispatch
+from volcano_tpu_torch.ops.kernels import DEFAULT_WEIGHTS, ScoreWeights
+from volcano_tpu_torch.ops.packing import PackedSnapshot
+
+
+def execute_allocate(
+    snap: PackedSnapshot,
+    weights: Optional[ScoreWeights] = None,
+    gang_rounds: int = 3,
+    device: Optional[Union[str, torch.device]] = None,
+) -> np.ndarray:
+    """PackedSnapshot → assignment[n_tasks] (node index or -1).  Runs on
+    ``cuda`` unless ``device`` names another device; raises when no GPU
+    is present and no device is named."""
+    return dispatch.run_packed_auto(
+        snap, weights=weights or DEFAULT_WEIGHTS, gang_rounds=gang_rounds, device=device
+    )
+
+
+def last_allocate_executor() -> str:
+    """Name of the executor the most recent execute_allocate ran
+    ('cuda' or 'torch-scan'); read it right after the call, same
+    thread."""
+    return dispatch.last_executor()
