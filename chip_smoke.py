@@ -6,18 +6,23 @@
 Phases, each of which fails the run:
   1. device  — the card's name and power limit; build the CUDA kernels
      from this checkout's sources;
-  2. kernel  — the session kernel against its plain PyTorch version on
-     the card, ``chosen`` equal, on small generated sessions;
-  3. main path — ``execute_allocate(snap)`` with no device at full width
-     (50k pods x 10k nodes, then 10k x 1k): it must run through the
-     kernel (launch count > 0, executor ``cuda``) and equal the port's
-     PyTorch specification on the same snapshot; latency, kernel time
-     and pods/s are printed beside the card's name and power limit.
+  2. kernel  — each kernel against its plain PyTorch version on the card:
+     the session kernel (``chosen`` equal) on small generated sessions,
+     the preempt kernel (``evicted``, ``pipelined`` and its counts equal)
+     on small generated sessions and on copies edited to reach each of
+     its branches (PREEMPT_EDITS);
+  3. main paths — ``execute_allocate(snap)`` with no device at full width
+     (50k pods x 10k nodes, then 10k x 1k), and ``execute_preempt(pk)``
+     with no device on 100k pods (90k victims + 10k preemptors) x 10k
+     nodes: each must run through its kernel (launch count > 0, executor
+     ``cuda``) and equal the port's PyTorch specification (and, for
+     preempt, the plain pass) on the same session; latency, kernel time,
+     bounds and latency floor are printed beside the card's name and
+     power limit.
 Then one JSON line listing each kernel with its launches, its match with
 the plain version, its time, the plain version's time, its bound by
-bytes and operations and its latency floor (the serial chain of a step,
-timed link by link by the step probe), and as the last line the device
-record.
+bytes and operations and its latency floor (the serial chain, timed link
+by link by the step probe), and as the last line the device record.
 
 Exits non-zero, printing no result, when no GPU is present.
 """
@@ -29,6 +34,8 @@ import statistics
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and f32 operations/s
 #: outside the tensor cores at one operation per instruction — the sheet's
@@ -57,8 +64,34 @@ def score_ops(R: int) -> int:
     return 8 * R + 48
 
 
+#: f32 operations per occupied victim slot of one fired preempt attempt,
+#: counted from vt::victim_eligible (preempt_math.cuh): the evicted test,
+#: the gang allowance (compare, subtract, compare, or), priority, queue
+#: and job compares, and three ands; the sum over eligible slots is left
+#: out, so the count is a floor
+ELIG_OPS = 11
+
+
+def validate_ops(R: int) -> int:
+    """f32 operations of vt::node_validates on one node, plus the masked
+    select and the argmax compare: the fit, 3 per lane (add, add,
+    compare) and 2 more per scalar lane; class, pod count, victim count."""
+    return 3 * R + 2 * max(R - 2, 0) + 5
+
+
+#: dependent global loads in the serial chain of preempt_pass_kernel,
+#: counted from csrc/preempt_kernel.cu: every slot thread 0 walks reads
+#: its schedule row, then the job's cursor/ready/waiting/min_available
+#: (2); a fired attempt adds the task row, the sweep of one node (victim
+#: job, then its job-table row) and the drain (the node's column, then
+#: its victims' job rows): 5 more, beside 2 block barriers, 2 shared
+#: round trips and the two argmax halves
+SLOT_LOADS = 2
+FIRED_LOADS = 5
+
 MAIN_CONFIG = "50k_pods_10k_nodes_gang_predicates"
 SECOND_CONFIG = "10k_pods_1k_nodes_fairshare"
+PREEMPT_CONFIG = "100k_pods_10k_nodes_preempt"
 WARM_RUNS = 5
 
 #: phase 2 sessions: the equivalence shapes of the JAX package's Pallas
@@ -74,6 +107,92 @@ KERNEL_CASES = [
     dict(n_tasks=2_000, n_nodes=1_000, gang_size=8, seed=7, label_classes=8,
          taint_fraction=0.1),
 ]
+
+
+#: phase 2 preempt sessions: generate_preempt_packed arguments, with uneven
+#: K (victims not a multiple of nodes) and two queue counts
+PREEMPT_CASES = [
+    dict(n_victims=300, n_nodes=64, n_preemptors=64, seed=0),
+    dict(n_victims=905, n_nodes=100, n_preemptors=120, seed=3),
+    dict(n_victims=2_503, n_nodes=300, n_preemptors=400, gang_size=4, n_queues=2, seed=5),
+    dict(n_victims=9_000, n_nodes=1_000, n_preemptors=1_000, seed=7),
+]
+
+
+def _edit_sensitive(pk):
+    """Victim jobs with 1 < min_available < size: a gang allowance flips
+    mid-pass once a job is down to its floor."""
+    n_vjobs = int(pk.vic_job.max()) + 1
+    pk.job_min_avail[:n_vjobs] = np.maximum(pk.job_ready0[:n_vjobs] - 1, 2)
+
+
+def _edit_equal_priority(pk):
+    """Every job at one priority: no victim is ever eligible."""
+    pk.job_prio[:] = 100
+
+
+def _edit_pod_limit(pk):
+    """Half the nodes at their pod-count limit."""
+    N = pk.base.n_nodes
+    full = np.arange(N) % 2 == 0
+    pk.base.node_max_tasks[:N][full] = pk.base.node_task_count[:N][full]
+
+
+def _edit_request_rows(pk, n_rows: int):
+    """``n_rows`` distinct preemptor request rows (n_rows > 64: the kernel
+    scores inline), each a whole-millicore and whole-MiB request."""
+    P = pk.base.n_tasks
+    i = np.arange(P) % n_rows
+    pk.base.task_resreq[:P, 0] = 2_000 + 40 * i
+    pk.base.task_resreq[:P, 1] = 1_024 + 256 * (i % 7)
+
+
+def _edit_labels(pk):
+    """Label zones and a tainted fifth of the nodes: several feasibility
+    classes."""
+    N, P = pk.base.n_nodes, pk.base.n_tasks
+    pk.base.node_label_bits[:N, 0] = np.uint32(1) << (np.arange(N) % 3).astype(np.uint32)
+    pk.base.task_sel_bits[:P, 0] = np.uint32(1) << (np.arange(P) // 8 % 3).astype(np.uint32)
+    pk.base.node_taint_bits[:N, 1] = np.where(np.arange(N) % 5 == 0, 1 << 31, 0)
+    pk.base.task_tol_bits[:P, 1] = np.where(np.arange(P) // 8 % 2 == 0, 1 << 31, 0)
+
+
+def _edit_rollback(pk):
+    """Every third preemptor job needs more tasks than it has: its phase 1
+    evicts and pipelines, then is discarded and rolled back."""
+    rows = np.flatnonzero(pk.job_ptask_end > pk.job_ptask_start)[::3]
+    pk.job_min_avail[rows] = pk.job_ptask_end[rows] - pk.job_ptask_start[rows] + 1
+
+
+#: phase 2 edited sessions: (name, base arguments, edit)
+PREEMPT_EDITS = [
+    ("sensitive-gang", dict(n_victims=2_400, n_nodes=300, n_preemptors=400, seed=11),
+     _edit_sensitive),
+    ("equal-priority", dict(n_victims=905, n_nodes=100, n_preemptors=120, seed=12),
+     _edit_equal_priority),
+    ("pod-count-limit", dict(n_victims=905, n_nodes=100, n_preemptors=120, seed=13),
+     _edit_pod_limit),
+    ("score-classes", dict(n_victims=2_400, n_nodes=300, n_preemptors=400, seed=14),
+     lambda pk: _edit_request_rows(pk, 5)),
+    ("inline-score", dict(n_victims=2_400, n_nodes=300, n_preemptors=400, seed=15),
+     lambda pk: _edit_request_rows(pk, 100)),
+    ("feasibility-classes", dict(n_victims=2_400, n_nodes=300, n_preemptors=400, seed=16),
+     _edit_labels),
+    ("rollback", dict(n_victims=2_400, n_nodes=300, n_preemptors=400, seed=17),
+     _edit_rollback),
+]
+
+
+def preempt_sessions():
+    """(name, PreemptPacked) of every phase 2 preempt session."""
+    from volcano_tpu_torch.ops.synthetic import generate_preempt_packed
+
+    out = [(f"generated {case}", generate_preempt_packed(**case)) for case in PREEMPT_CASES]
+    for name, case, edit in PREEMPT_EDITS:
+        pk = generate_preempt_packed(**case)
+        edit(pk)
+        out.append((name, pk))
+    return out
 
 
 def check(ok: bool, what: str) -> None:
@@ -185,8 +304,181 @@ def phase_kernel_vs_plain() -> None:
         print(f"kernel == plain: {case} ({int((got >= 0).sum())} placed)")
 
 
+def preempt_inputs(pk, device):
+    """One preempt pass's kernel operands on ``device``, and its dims."""
+    from volcano_tpu_torch.ops.preempt_kernel import prepare_preempt_arrays, ship_arrays
+
+    arrays, dims, _ = prepare_preempt_arrays(pk)
+    return ship_arrays(arrays, device), dims
+
+
+def run_preempt_pass(fn, inputs):
+    """(evicted, pipelined, stats list) of one pass of ``fn``."""
+    import torch
+
+    stats = torch.zeros(4, dtype=torch.int32, device=inputs[0].device)
+    ev, pipe = fn(*inputs, stats=stats)
+    torch.cuda.synchronize()
+    return ev, pipe, stats.cpu().tolist()
+
+
+def phase_preempt_kernel_vs_plain() -> None:
+    import torch
+
+    from volcano_tpu_torch.ops.preempt_kernel import (
+        preempt_pass_cuda,
+        preempt_pass_reference,
+        STATS,
+    )
+
+    for name, pk in preempt_sessions():
+        inputs, dims = preempt_inputs(pk, "cuda")
+        ev, pipe, stats = run_preempt_pass(preempt_pass_cuda, inputs)
+        ev_ref, pipe_ref, stats_ref = run_preempt_pass(preempt_pass_reference, inputs)
+        check(torch.equal(ev, ev_ref) and torch.equal(pipe, pipe_ref),
+              f"preempt kernel != plain version on {name}")
+        check(stats == stats_ref, f"preempt kernel counts {stats} != plain {stats_ref} on {name}")
+        counts = ", ".join(f"{k} {v}" for k, v in zip(STATS, stats))
+        print(f"preempt kernel == plain: {name} (K {dims['K']}, SC {dims['SC']}, C "
+              f"{dims['C']}; {counts}; pipelined {int((pipe >= 0).sum())})")
+
+
+def phase_preempt_main_path(card: str) -> dict:
+    import torch
+
+    from volcano_tpu_torch.ops import preempt_kernel
+    from volcano_tpu_torch.ops.executor import execute_preempt, last_preempt_executor
+    from volcano_tpu_torch.ops.preempt_kernel import (
+        prepare_preempt_arrays,
+        preempt_pass_cuda,
+        preempt_pass_reference,
+        STATS,
+    )
+    from volcano_tpu_torch.ops.preempt_pack import preempt_dense
+    from volcano_tpu_torch.ops.synthetic import BASELINE_CONFIGS, generate_preempt_packed
+
+    name = PREEMPT_CONFIG
+    kwargs = {k: v for k, v in BASELINE_CONFIGS[name].items() if k != "preempt"}
+    pk = generate_preempt_packed(**kwargs)
+    P, V = pk.base.n_tasks, pk.n_victims
+
+    # the main path, with the launch count read just before and after
+    torch.cuda.synchronize()
+    preempt_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    evicted, pipelined = execute_preempt(pk)
+    first_s = time.perf_counter() - t0
+    launches = preempt_kernel.LAUNCHES
+    executor = last_preempt_executor()
+    check(launches > 0, f"{name}: the preempt kernel was not launched")
+    check(executor == "cuda", f"{name}: executor {executor!r}, expected 'cuda'")
+    check(evicted.shape == (V,) and pipelined.shape == (P,), f"{name}: output shapes")
+
+    t0 = time.perf_counter()
+    spec_ev, spec_pipe = preempt_dense(pk, device="cuda")
+    spec_s = time.perf_counter() - t0
+    check(np.array_equal(evicted, spec_ev) and np.array_equal(pipelined, spec_pipe),
+          f"{name}: execute_preempt != torch spec preempt_dense")
+    n_ev, n_pipe = int(evicted.sum()), int((pipelined >= 0).sum())
+    check(n_ev > 0 and n_pipe > 0, f"{name}: the pass preempted nothing")
+    print(f"{name}: (evicted, pipelined) == torch spec preempt_dense ({spec_s:.3f} s to "
+          f"compute the spec); evicted {n_ev}/{V}, pipelined {n_pipe}/{P}; first session "
+          f"{first_s * 1e3:.3f} ms; launches {launches}")
+
+    # warm sessions, each paying its full host prepare
+    def drop_caches():
+        pk.base.__dict__.pop("_feas_classes_cache", None)
+        pk.__dict__.pop("_score_class_cache", None)
+
+    lat, prep = [], []
+    for _ in range(WARM_RUNS):
+        drop_caches()
+        t0 = time.perf_counter()
+        prepare_preempt_arrays(pk)
+        prep.append(time.perf_counter() - t0)
+        drop_caches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = execute_preempt(pk)
+        lat.append(time.perf_counter() - t0)
+        check(np.array_equal(again[0], evicted) and np.array_equal(again[1], pipelined),
+              f"{name}: warm session differs from the first")
+    med_ms = statistics.median(lat) * 1e3
+    prep_ms = statistics.median(prep) * 1e3
+
+    inputs, dims = preempt_inputs(pk, "cuda")
+    pass_ms = kernel_ms(lambda: preempt_pass_cuda(*inputs), reps=3)
+    print(f"{name}: session median {med_ms:.3f} ms, max {max(lat) * 1e3:.3f} ms over "
+          f"{WARM_RUNS} warm runs (host prepare {prep_ms:.3f} ms); kernel {pass_ms:.3f} ms "
+          f"per pass; {launches} launch per session; card {card}")
+
+    # the plain version on the same operands, and the counts of the pass
+    ev, pipe, stats = run_preempt_pass(preempt_pass_cuda, inputs)
+    t0 = time.perf_counter()
+    ev_ref, pipe_ref, stats_ref = run_preempt_pass(preempt_pass_reference, inputs)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = max(int((ev.long() - ev_ref.long()).abs().max()),
+              int((pipe.long() - pipe_ref.long()).abs().max()))
+    check(err == 0 and stats == stats_ref, f"{name}: preempt kernel != plain version")
+    vic_slot = prepare_preempt_arrays(pk)[2]
+    check(np.array_equal(ev.cpu().numpy()[vic_slot[:V], pk.vic_node[:V]] > 0, evicted),
+          f"{name}: plain pass != execute_preempt")
+    counts = dict(zip(STATS, stats))
+
+    by_bytes, by_ops = preempt_bound_ms(inputs, (ev, pipe), counts["fired"], pk.base.n_nodes,
+                                        dims)
+    bound_ms, bound_by = max((by_bytes, "bytes"), (by_ops, "operations"))
+    floor_ms, probe, per_fired, per_slot = preempt_latency_floor_ms(
+        inputs, counts["fired"])
+    binding = max((floor_ms, "latency floor"), (by_ops, "operations"), (by_bytes, "bytes"))[1]
+    S = inputs[0].shape[0]
+    print(f"{name}: {S} slots; " + ", ".join(f"{k} {v}" for k, v in counts.items())
+          + f"; K {dims['K']}, NK {dims['NK']}, J {dims['J']}, C {dims['C']}, SC {dims['SC']}")
+    print(f"{name}: plain version {plain_ms:.3f} ms per pass; bound {by_bytes:.6f} ms by "
+          f"bytes, {by_ops:.6f} ms by operations; latency floor {floor_ms:.3f} ms "
+          f"({per_fired:.1f} cycles per fired attempt, {per_slot:.1f} per slot at "
+          f"{probe['ns_per_cycle']:.4f} ns per cycle); binding: {binding}; card {card}")
+    return dict(launches=launches, ms=pass_ms, max_abs_err=err, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, latency_floor_ms=floor_ms)
+
+
+def preempt_bound_ms(inputs, outputs, fired: int, n_nodes: int, dims) -> tuple:
+    """(ms by bytes, ms by operations) of one preempt pass on these
+    inputs: each operand read once and each output written once over
+    HBM; the f32 operations this run's data needs — for each attempt
+    that fired, eligibility on every occupied victim slot of the real
+    nodes and validation on every real node, and the static score once
+    per score class (per fired attempt when it is scored inline)."""
+    vjob = inputs[6]
+    R, SC = dims["R"], dims["SC"]
+    n_bytes = sum(x.numel() * x.element_size() for x in (*inputs, *outputs))
+    occupied = int((vjob[:, :n_nodes] >= 0).sum())
+    score_rows = SC if SC > 0 else fired
+    ops = (fired * (occupied * ELIG_OPS + n_nodes * validate_ops(R))
+           + score_rows * n_nodes * score_ops(R))
+    return n_bytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+
+
+def preempt_latency_floor_ms(inputs, fired: int) -> tuple:
+    """(ms, probe, cycles per fired attempt, cycles per slot) — the preempt
+    pass's latency floor: every slot's walk (SLOT_LOADS dependent loads)
+    plus, per fired attempt, FIRED_LOADS more, two block barriers, two
+    shared round trips and the two argmax halves, each link timed by the
+    step probe on the card (a dependent load is its row stage, over the
+    pass's task rows; second of two probe runs, caches warm)."""
+    from volcano_tpu_torch.ops.session_kernel import step_latency_probe
+
+    ptask = inputs[1]
+    step_latency_probe(ptask)
+    p = step_latency_probe(ptask)
+    per_slot = SLOT_LOADS * p["row_stage"]
+    per_fired = (FIRED_LOADS * p["row_stage"] + 2 * p["barrier"] + 2 * p["smem_round_trip"]
+                 + p["argmax_all"] + p["argmax_one"])
+    cycles = inputs[0].shape[0] * per_slot + fired * per_fired
+    return cycles * p["ns_per_cycle"] / 1e6, p, per_fired, per_slot
+
+
 def phase_main_path(name: str, card: str, compare_plain: bool) -> dict:
-    import numpy as np
     import torch
 
     from volcano_tpu_torch.ops import session_kernel
@@ -297,8 +589,10 @@ def main() -> int:
     print(f"card: {card}")
     phase_build()
     phase_kernel_vs_plain()
+    phase_preempt_kernel_vs_plain()
     main_rec = phase_main_path(MAIN_CONFIG, card, compare_plain=True)
     phase_main_path(SECOND_CONFIG, card, compare_plain=False)
+    pre_rec = phase_preempt_main_path(card)
 
     kernels = [
         {
@@ -314,7 +608,21 @@ def main() -> int:
             "bound_by": main_rec["bound_by"],
             "latency_floor_ms": main_rec["latency_floor_ms"],
             "library_ms": None,
-        }
+        },
+        {
+            "name": "preempt_pass",
+            "route": "cuda",
+            "source": "volcano_tpu_torch/csrc/preempt_kernel.cu",
+            "replaces": "volcano_tpu/ops/preempt_pallas.py:95",
+            "launches": pre_rec["launches"],
+            "max_abs_err": pre_rec["max_abs_err"],
+            "ms": pre_rec["ms"],
+            "plain_ms": pre_rec["plain_ms"],
+            "bound_ms": pre_rec["bound_ms"],
+            "bound_by": pre_rec["bound_by"],
+            "latency_floor_ms": pre_rec["latency_floor_ms"],
+            "library_ms": None,
+        },
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

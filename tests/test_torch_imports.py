@@ -3,7 +3,7 @@
 A fresh interpreter with ``jax`` blocked and a meta-path finder that
 refuses ``volcano_tpu`` and its submodules (but not
 ``volcano_tpu_torch``) imports every module of the port and runs an
-allocate session on the CPU."""
+allocate session and a preempt pass on the CPU."""
 
 from __future__ import annotations
 
@@ -35,17 +35,24 @@ for mod in ("volcano_tpu_torch", "volcano_tpu_torch.api.resource",
             "volcano_tpu_torch.ops", "volcano_tpu_torch.ops.packing",
             "volcano_tpu_torch.ops.synthetic", "volcano_tpu_torch.ops.kernels",
             "volcano_tpu_torch.ops._build", "volcano_tpu_torch.ops.session_kernel",
+            "volcano_tpu_torch.ops.preempt_pack", "volcano_tpu_torch.ops.preempt_kernel",
             "volcano_tpu_torch.ops.dispatch", "volcano_tpu_torch.ops.executor"):
     importlib.import_module(mod)
 
-from volcano_tpu_torch.ops.executor import execute_allocate, last_allocate_executor
-from volcano_tpu_torch.ops.synthetic import generate_snapshot
+from volcano_tpu_torch.ops.executor import (
+    execute_allocate, execute_preempt, last_allocate_executor, last_preempt_executor,
+)
+from volcano_tpu_torch.ops.synthetic import generate_preempt_packed, generate_snapshot
 
 out = execute_allocate(generate_snapshot(n_tasks=48, n_nodes=12, gang_size=4, seed=1),
                        device="cpu")
 assert last_allocate_executor() == "torch-scan"
+evicted, pipelined = execute_preempt(
+    generate_preempt_packed(n_victims=90, n_nodes=10, n_preemptors=16, seed=2), device="cpu")
+assert last_preempt_executor() == "dense"
 assert "jax" not in {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
 print("placed", int((out >= 0).sum()), "of", len(out))
+print("evicted", int(evicted.sum()), "pipelined", int((pipelined >= 0).sum()))
 """
 
 
@@ -55,7 +62,7 @@ def test_port_imports_and_runs_without_jax_or_reference():
         timeout=120, env=dict(os.environ, PYTHONPATH=ROOT),
     )
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "placed 48 of 48"
+    assert proc.stdout.strip().splitlines() == ["placed 48 of 48", "evicted 10 pipelined 10"]
 
 
 def test_port_sources_import_neither_jax_nor_reference():

@@ -1,11 +1,12 @@
 """PyTorch + CUDA port of volcano-tpu's device compute core.
 
-The allocate session runs on an NVIDIA GPU through a hand-written CUDA
-greedy-scan kernel (``csrc/session_kernel.cu``), held bit for bit
-against the JAX package's kernels.  The package imports no JAX and
-nothing of ``volcano_tpu``; it keeps its own copies of the numpy-only
-modules it needs.
+The allocate session and the preempt pass run on an NVIDIA GPU through
+hand-written CUDA kernels (``csrc/session_kernel.cu``,
+``csrc/preempt_kernel.cu``), held bit for bit against the JAX package's
+kernels.  The package imports no JAX and nothing of ``volcano_tpu``; it
+keeps its own copies of the numpy-only modules it needs.
 
-Entry point: ``volcano_tpu_torch.ops.executor.execute_allocate``.  It
-runs on ``cuda`` unless the caller passes ``device="cpu"``.
+Entry points: ``volcano_tpu_torch.ops.executor.execute_allocate`` and
+``execute_preempt``.  They run on ``cuda`` unless the caller passes
+``device="cpu"``.
 """

@@ -32,6 +32,7 @@
 
 #include <cuda_runtime.h>
 
+#include "block_argmax.cuh"
 #include "session_math.cuh"
 
 namespace {
@@ -39,22 +40,7 @@ namespace {
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 
-// (value, index) order of the argmax: larger value wins, ties go to the
-// lower node index (the reference's first-max tie-break).
-__device__ __forceinline__ void take_better(float& bv, int& bi, float ov, int oi) {
-  if (ov > bv || (ov == bv && oi < bi)) {
-    bv = ov;
-    bi = oi;
-  }
-}
-
-__device__ __forceinline__ void warp_argmax(float& bv, int& bi) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-    const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-    take_better(bv, bi, ov, oi);
-  }
-}
+using vt::warp_argmax;
 
 __global__ void __launch_bounds__(kThreads, 1)
 session_pass_kernel(const float* __restrict__ taskrow,  // [T, R+2]: resreq, class, active

@@ -1,12 +1,17 @@
 """Device session kernels and snapshot packing, in PyTorch and CUDA.
 
   packing        PackedSnapshot and its npz persistence (numpy)
-  synthetic      BASELINE-config snapshot generators (numpy)
+  synthetic      BASELINE-config session generators (numpy)
   kernels        the PyTorch specification; the ``torch-scan`` executor
   session_kernel the CUDA greedy-scan kernel, its wrapper, plain version
                  and on-device gang fixpoint; the ``cuda`` executor
-  dispatch       executor selection + validity gate
-  executor       ``execute_allocate``, the entry point
+  preempt_pack   PreemptPacked and ``preempt_dense``, the preempt pass's
+                 PyTorch specification; the ``dense`` executor
+  preempt_kernel the CUDA preempt kernel, its wrapper, plain version and
+                 host packing; the preempt ``cuda`` executor
+  dispatch       executor selection + validity gates
+  executor       ``execute_allocate`` and ``execute_preempt``, the entry
+                 points
 
 Importing this package builds and loads nothing: the kernel library is
 compiled at the first launch (``ops/_build.py``).

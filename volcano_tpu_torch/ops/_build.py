@@ -1,12 +1,12 @@
 """Build the port's CUDA kernel library from the repository's sources at
 first use, and load it with ctypes.
 
-The library is one ``nvcc`` call over a plain-C-interface source (no
-PyTorch headers, no ninja): seconds, not minutes.  The shared object
-goes into ``volcano_tpu_torch/csrc/_build/`` under a name keyed by a hash
-of the sources and the flags, so an edited source or flag rebuilds and
-an unchanged one loads the library already there.  A failed build
-raises with nvcc's output.
+The library is one ``nvcc`` call over every ``csrc/*.cu`` source, each
+with a plain C interface (no PyTorch headers, no ninja): seconds, not
+minutes.  The shared object goes into ``volcano_tpu_torch/csrc/_build/``
+under a name keyed by a hash of every source, every header and the
+flags, so an edit to any of them rebuilds and an unchanged tree loads
+the library already there.  A failed build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -32,9 +32,12 @@ NVCC_FLAGS = (
     "-Xptxas=-v",
 )
 
-#: the source nvcc compiles, and the header it includes
-SOURCE = "session_kernel.cu"
-HEADERS = ("session_math.cuh",)
+
+def sources(ext: str = ".cu") -> Tuple[str, ...]:
+    """The ``csrc`` files with extension ``ext`` by name, sorted: by
+    default the .cu files nvcc compiles."""
+    return tuple(sorted(fn for fn in os.listdir(CSRC) if fn.endswith(ext)))
+
 
 #: (build seconds, nvcc output) of a build made by this process
 BUILD_LOG: Optional[Tuple[float, str]] = None
@@ -56,13 +59,13 @@ def find_nvcc() -> str:
 
 
 def library_path() -> str:
-    """Where the library lives for the current sources and flags."""
+    """Where the library lives for the current sources, headers and flags."""
     h = hashlib.sha256()
-    for fn in (SOURCE, *HEADERS):
+    for fn in (*sources(), *sources(".cuh")):
         with open(os.path.join(CSRC, fn), "rb") as f:
             h.update(fn.encode() + b"\0" + f.read())
     h.update("\0".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"libsession_{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"libvtkernels_{h.hexdigest()[:16]}.so")
 
 
 def build() -> str:
@@ -79,7 +82,7 @@ def build() -> str:
     t0 = time.monotonic()
     try:
         proc = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, SOURCE)],
+            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *(os.path.join(CSRC, fn) for fn in sources())],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         BUILD_LOG = (time.monotonic() - t0, proc.stdout)

@@ -1,4 +1,4 @@
-"""Executor selection for the allocate session.
+"""Executor selection for the allocate session and the preempt pass.
 
 The counterpart of ``select_executor``/``run_packed_auto`` in
 ``volcano_tpu/ops/dispatch.py``, reduced to the two executors the port
@@ -15,6 +15,19 @@ A GPU session outside the kernel's envelope raises ``ValueError``: the
 int-exact and wide-session rungs are still to be ported, and the plain
 version is not run in their place.  Every output passes the validity
 gate before it is returned.
+
+The preempt pass (``select_preempt_executor``/``run_preempt_auto``, the
+counterpart of the JAX package's) has two executors as well:
+
+  * ``cuda`` — the CUDA preempt kernel (ops/preempt_kernel.py) for a
+    classic-tier session ({priority, gang, conformance}, no DRF) inside
+    the f32 envelope, on a GPU;
+  * ``dense`` — the PyTorch specification ``preempt_dense`` on the same
+    device, for ``device="cpu"`` and for the reference's own reasons: a
+    DRF or weakened preemptable tier, or a session outside the f32
+    envelope.
+
+A session the kernel cannot take raises; nothing degrades to ``dense``.
 """
 
 from __future__ import annotations
@@ -32,6 +45,8 @@ from volcano_tpu_torch.ops.kernels import (
     ScoreWeights,
 )
 from volcano_tpu_torch.ops.packing import PackedSnapshot
+from volcano_tpu_torch.ops.preempt_kernel import preempt_f32_exact, run_preempt_cuda
+from volcano_tpu_torch.ops.preempt_pack import preempt_dense, PreemptPacked
 from volcano_tpu_torch.ops.session_kernel import (
     fits_shared_memory,
     node_width,
@@ -100,3 +115,59 @@ def run_packed_auto(
     if not _assignment_valid(snap, out):
         raise RuntimeError(f"{executor} returned an invalid assignment")
     return out
+
+
+# ---- the preempt pass ----
+
+def select_preempt_executor(
+    pk: PreemptPacked, device: Optional[Union[str, torch.device]] = None
+) -> str:
+    """Which executor run_preempt_auto uses: 'cuda' | 'dense'."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return "dense"
+    # the kernel models the classic {priority, gang, conformance}
+    # preemptable tier only; drf-preemptable (and weakened-filter)
+    # sessions run the dense formulation
+    if not (pk.use_prio and pk.use_gang and pk.use_conf) or pk.use_drf:
+        return "dense"
+    if not preempt_f32_exact(pk):
+        return "dense"
+    return "cuda"
+
+
+#: executor run_preempt_auto last ran (read right after the call, same thread)
+_last_preempt_executor = ""
+
+
+def last_preempt_executor() -> str:
+    return _last_preempt_executor
+
+
+def _preempt_valid(pk: PreemptPacked, evicted, pipelined) -> bool:
+    """Sanity gate on a preempt executor's output: the right lengths and
+    every pipelined value a real node index or -1."""
+    ev, pipe = np.asarray(evicted), np.asarray(pipelined)
+    if ev.shape != (pk.n_victims,) or pipe.shape != (pk.base.n_tasks,):
+        return False
+    return bool(((pipe >= -1) & (pipe < pk.base.n_nodes)).all())
+
+
+def run_preempt_auto(
+    pk: PreemptPacked,
+    weights: ScoreWeights = DEFAULT_WEIGHTS,
+    device: Optional[Union[str, torch.device]] = None,
+):
+    """PreemptPacked → (evicted[V] bool, pipelined[P] i32) through the
+    executor :func:`select_preempt_executor` picks."""
+    global _last_preempt_executor
+    dev = resolve_device(device)
+    executor = select_preempt_executor(pk, dev)
+    _last_preempt_executor = executor
+    if executor == "cuda":
+        evicted, pipelined = run_preempt_cuda(pk, weights=weights, device=dev)
+    else:
+        evicted, pipelined = preempt_dense(pk, weights=weights, device=dev)
+    if not _preempt_valid(pk, evicted, pipelined):
+        raise RuntimeError(f"{executor} returned an invalid preempt result")
+    return evicted, pipelined

@@ -1,13 +1,14 @@
-"""The allocate session's entry point.
+"""The entry points of the allocate session and the preempt pass.
 
 The local route of ``volcano_tpu/ops/executor.py``: PackedSnapshot in,
-assignment out, through the dispatcher.  The compute-plane sidecar
-route is not part of this package yet.
+assignment out, and PreemptPacked in, (evicted, pipelined) out, through
+the dispatcher.  The compute-plane sidecar route is not part of this
+package yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -15,6 +16,7 @@ import torch
 from volcano_tpu_torch.ops import dispatch
 from volcano_tpu_torch.ops.kernels import DEFAULT_WEIGHTS, ScoreWeights
 from volcano_tpu_torch.ops.packing import PackedSnapshot
+from volcano_tpu_torch.ops.preempt_pack import PreemptPacked
 
 
 def execute_allocate(
@@ -36,3 +38,20 @@ def last_allocate_executor() -> str:
     ('cuda' or 'torch-scan'); read it right after the call, same
     thread."""
     return dispatch.last_executor()
+
+
+def execute_preempt(
+    pk: PreemptPacked,
+    weights: Optional[ScoreWeights] = None,
+    device: Optional[Union[str, torch.device]] = None,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """PreemptPacked → (evicted[V] bool, pipelined[P] i32, -1 = none).
+    Runs on ``cuda`` unless ``device`` names another device; raises when
+    no GPU is present and no device is named."""
+    return dispatch.run_preempt_auto(pk, weights=weights or DEFAULT_WEIGHTS, device=device)
+
+
+def last_preempt_executor() -> str:
+    """Name of the executor the most recent execute_preempt ran ('cuda'
+    or 'dense'); read it right after the call, same thread."""
+    return dispatch.last_preempt_executor()

@@ -1,9 +1,9 @@
-"""Synthetic packed-snapshot generators for the allocate configs of
-BASELINE.json.
+"""Synthetic packed-session generators for the configs of BASELINE.json.
 
-A copy of ``generate_snapshot`` from ``volcano_tpu/ops/synthetic.py``:
-generation is numpy ``RandomState(seed)`` in the same call order, so the
-same arguments give byte-identical arrays in both packages.
+Copies of ``generate_snapshot`` and ``generate_preempt_packed`` from
+``volcano_tpu/ops/synthetic.py``: generation is numpy
+``RandomState(seed)`` in the same call order, so the same arguments give
+byte-identical arrays in both packages.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import numpy as np
 
 from volcano_tpu_torch.api.resource import MIN_MEMORY, MIN_MILLI_CPU
 from volcano_tpu_torch.ops.packing import _bucket, MIB, PackedSnapshot
+from volcano_tpu_torch.ops.preempt_pack import PreemptPacked
 
 
 def generate_snapshot(
@@ -104,11 +105,172 @@ def generate_snapshot(
     return snap
 
 
-#: The allocate configs of BASELINE.json (name → generator kwargs).
+#: The configs of BASELINE.json (name → generator kwargs).
 BASELINE_CONFIGS = {
     "1k_pods_100_nodes_binpack": dict(n_tasks=1_000, n_nodes=100, gang_size=1),
     "10k_pods_1k_nodes_fairshare": dict(n_tasks=10_000, n_nodes=1_000, gang_size=4),
     "50k_pods_10k_nodes_gang_predicates": dict(
         n_tasks=50_000, n_nodes=10_000, gang_size=8, label_classes=8, taint_fraction=0.1
     ),
+    "100k_pods_10k_nodes_preempt": dict(
+        # 90k Running victims saturating node cpu + 10k pending
+        # high-priority gang preemptors, 4 queues, measured through the
+        # preempt pass (generator: generate_preempt_packed; the
+        # ``preempt`` marker routes it)
+        preempt=True,
+        n_victims=90_000,
+        n_nodes=10_000,
+        n_preemptors=10_000,
+    ),
 }
+
+
+def generate_preempt_packed(
+    n_victims: int,
+    n_nodes: int,
+    n_preemptors: int,
+    gang_size: int = 8,
+    victim_job_size: int = 8,
+    n_queues: int = 4,
+    blocked_job_fraction: float = 0.2,
+    seed: int = 0,
+    node_cpu_milli: int = 64_000,
+    node_mem_mib: int = 262_144,
+) -> PreemptPacked:
+    """BASELINE config 5: a preemption-pressure cluster for the preempt
+    pass (100k pods = Running victims + pending high-priority gangs over
+    10k nodes, 2-level queue hierarchy root-{a,b}/q{0,1}).
+
+    Victims saturate node cpu (``victims_per_node`` × 7000m of 64000m →
+    1000m idle), preemptors ask 6000m each, so nearly every placement
+    must evict one victim — the pass is real preemption, not allocation
+    through idle headroom.  ``blocked_job_fraction`` of victim jobs sit
+    at their minAvailable floor, so the gang plugin vetoes their
+    eviction (gang.go:75-94) and eligibility filtering is exercised.
+    In-queue semantics: victim/preemptor jobs spread across ``n_queues``
+    queues and preemptors may only evict same-queue victims
+    (preempt.go:86-143).
+
+    Returns a PreemptPacked — the packed form IS the session input for
+    preempt_dense and the CUDA preempt kernel."""
+    rng = np.random.RandomState(seed)
+    R, W = 2, 2
+    P = n_preemptors
+
+    n_pjobs = max(1, P // gang_size)
+    n_vjobs = max(1, n_victims // victim_job_size)
+    J = n_vjobs + n_pjobs
+
+    # ---- base snapshot: preemptor tasks + nodes ----
+    T_pad = _bucket(P)
+    N_pad = _bucket(n_nodes)
+    base = PackedSnapshot()
+    base.resource_names = ["cpu", "memory"]
+    base.tolerance = np.array([MIN_MILLI_CPU, MIN_MEMORY / MIB], dtype=np.float32)
+    base.n_tasks, base.n_nodes, base.n_jobs = P, n_nodes, J
+
+    base.task_resreq = np.zeros((T_pad, R), dtype=np.float32)
+    base.task_resreq[:P, 0] = 6000
+    base.task_resreq[:P, 1] = 8192
+    base.task_job = np.zeros(T_pad, dtype=np.int32)
+    base.task_job[:P] = n_vjobs + np.minimum(np.arange(P) // gang_size, n_pjobs - 1)
+    base.task_sel_bits = np.zeros((T_pad, W), dtype=np.uint32)
+    base.task_tol_bits = np.zeros((T_pad, W), dtype=np.uint32)
+    base.task_has_preferences = np.zeros(T_pad, dtype=bool)
+
+    # victims: spread round-robin over nodes; per-node list order IS the
+    # eviction order (inverse task order — youngest first)
+    vic_node_of = np.arange(n_victims) % n_nodes
+    vic_job_of = np.minimum(np.arange(n_victims) // victim_job_size, n_vjobs - 1)
+    vic_cpu = np.full(n_victims, 7000.0, dtype=np.float32)
+    vic_mem = np.full(n_victims, 16384.0, dtype=np.float32)
+
+    used = np.zeros((N_pad, R), dtype=np.float32)
+    np.add.at(used[:, 0], vic_node_of, vic_cpu)
+    np.add.at(used[:, 1], vic_node_of, vic_mem)
+
+    base.node_alloc = np.zeros((N_pad, R), dtype=np.float32)
+    base.node_alloc[:n_nodes, 0] = node_cpu_milli
+    base.node_alloc[:n_nodes, 1] = node_mem_mib
+    base.node_used = used
+    base.node_idle = base.node_alloc - used
+    base.node_idle[n_nodes:] = 0
+    base.node_label_bits = np.zeros((N_pad, W), dtype=np.uint32)
+    base.node_taint_bits = np.zeros((N_pad, W), dtype=np.uint32)
+    base.node_ok = np.zeros(N_pad, dtype=bool)
+    base.node_ok[:n_nodes] = True
+    base.node_task_count = np.zeros(N_pad, dtype=np.int32)
+    counts = np.bincount(vic_node_of, minlength=n_nodes).astype(np.int32)
+    base.node_task_count[:n_nodes] = counts
+    base.node_max_tasks = np.zeros(N_pad, dtype=np.int32)
+    base.node_max_tasks[:n_nodes] = 110
+
+    J_pad = _bucket(J, minimum=16)
+    base.job_min_available = np.zeros(J_pad, dtype=np.int32)
+    base.job_ready_count = np.zeros(J_pad, dtype=np.int32)
+    base.task_uids = [f"p{i}" for i in range(P)]
+    base.node_names = [f"n{i}" for i in range(n_nodes)]
+    base.job_uids = [f"vj{i}" for i in range(n_vjobs)] + [
+        f"pj{i}" for i in range(n_pjobs)
+    ]
+
+    pk = PreemptPacked(base=base)
+    pk.ptask_uids = list(base.task_uids)
+    pk.node_names = list(base.node_names)
+    pk.node_fi0 = base.node_idle.copy()  # no releasing/pipelined at open
+
+    # victims sorted node-major (per-node order = eviction order)
+    order = np.argsort(vic_node_of, kind="stable")
+    pk.n_victims = n_victims
+    pk.vic_resreq = np.stack([vic_cpu[order], vic_mem[order]], axis=1)
+    pk.vic_node = vic_node_of[order].astype(np.int32)
+    pk.vic_job = vic_job_of[order].astype(np.int32)
+    pk.vic_uids = [f"v{i}" for i in order]
+    pk.vic_names = [f"ns/victim-{i}" for i in order]
+
+    # job tables: victim jobs (rows 0..n_vjobs-1) then preemptor jobs
+    pk.n_jobs = J
+    pk.job_prio = np.concatenate(
+        [np.zeros(n_vjobs, dtype=np.int64), np.full(n_pjobs, 100, dtype=np.int64)]
+    )
+    vj_sizes = np.bincount(vic_job_of, minlength=n_vjobs).astype(np.int32)
+    blocked = rng.rand(n_vjobs) < blocked_job_fraction
+    vj_min = np.where(blocked, vj_sizes, 1).astype(np.int32)
+    # The host's phase-2 sweep iterates the GLOBAL under-request list
+    # inside the per-queue loop (preempt.go:146-175), consuming one task
+    # of every still-starving job per earlier queue — so a gang in queue
+    # q has only gang_size - q tasks left for its own phase 1.  Keep
+    # minAvailable low enough that later queues' gangs can still commit.
+    p_min = max(1, gang_size - (n_queues - 1))
+    pk.job_min_avail = np.concatenate(
+        [vj_min, np.full(n_pjobs, p_min, dtype=np.int32)]
+    )
+    pk.job_ready0 = np.concatenate(
+        [vj_sizes, np.zeros(n_pjobs, dtype=np.int32)]
+    )
+    pk.job_waiting0 = np.zeros(J, dtype=np.int32)
+    # 2-level hierarchy root-{a,b}/q{0,1} flattened to queue rows
+    pk.job_queue = (np.arange(J) % n_queues).astype(np.int32)
+    pk.job_uids = list(base.job_uids)
+
+    pk.job_ptask_start = np.zeros(J, dtype=np.int32)
+    pk.job_ptask_end = np.zeros(J, dtype=np.int32)
+    for pj in range(n_pjobs):
+        j = n_vjobs + pj
+        pk.job_ptask_start[j] = pj * gang_size
+        # the last job absorbs any remainder tasks (task_job clamps to
+        # n_pjobs-1 above), so its range must extend to P
+        pk.job_ptask_end[j] = P if pj == n_pjobs - 1 else (pj + 1) * gang_size
+
+    # schedule: per queue, starving (preemptor) jobs in job order, then
+    # the global under-request sweep (preempt.go:86-143, :146-175)
+    pjob_rows = [n_vjobs + pj for pj in range(n_pjobs)]
+    sched = []
+    for q in range(n_queues):
+        for j in pjob_rows:
+            if pk.job_queue[j] == q:
+                sched.append((1, j))
+        for j in pjob_rows:
+            sched.append((2, j))
+    pk.schedule = np.array(sched, dtype=np.int32)
+    return pk
