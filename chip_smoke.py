@@ -7,7 +7,12 @@ Phases, each of which fails the run:
   1. device  — the card's name and power limit; build the CUDA kernels
      from this checkout's sources;
   2. kernel  — each kernel against its plain PyTorch version on the card:
-     the session kernel (``chosen`` equal) on small generated sessions,
+     the session kernel (``chosen`` equal; its fast steps equal to the
+     repeated rows counted on the host) on small generated sessions and
+     on LIST_CASES (no predicates at
+     10,000 nodes, 16,384 nodes where the masked-score plane does not
+     fit, inactive rows inside gangs, repeated rows after a -1 pick),
+     each with the plane the wrapper picks and again with the plane off;
      the preempt kernel (``evicted``, ``pipelined`` and its counts equal)
      on small generated sessions and on copies edited to reach each of
      its branches (PREEMPT_EDITS);
@@ -16,9 +21,10 @@ Phases, each of which fails the run:
      with no device on 100k pods (90k victims + 10k preemptors) x 10k
      nodes: each must run through its kernel (launch count > 0, executor
      ``cuda``) and equal the port's PyTorch specification (and, for
-     preempt, the plain pass) on the same session; latency, kernel time,
-     bounds and latency floor are printed beside the card's name and
-     power limit.
+     preempt, the plain pass) on the same session; the session kernel's
+     fast steps must equal the repeated rows counted on the host; latency,
+     kernel time (plane on and off), bounds, latency floor and the probes
+     are printed beside the card's name and power limit.
 Then one JSON line listing each kernel with its launches, its match with
 the plain version, its time, the plain version's time, its bound by
 bytes and operations and its latency floor (the serial chain, timed link
@@ -106,6 +112,35 @@ KERNEL_CASES = [
     dict(n_tasks=64, n_nodes=1, gang_size=2, seed=5),
     dict(n_tasks=2_000, n_nodes=1_000, gang_size=8, seed=7, label_classes=8,
          taint_fraction=0.1),
+]
+
+
+def _edit_inactive_in_gangs(taskrow):
+    """Every third row inactive, inside the gangs."""
+    taskrow[::3, -1] = 0.0
+
+
+def _edit_repeat_after_miss(taskrow):
+    """Every fifth gang of 8 asks more cpu than any node has: its repeated
+    rows each follow a -1 pick."""
+    import torch
+
+    rows = (torch.arange(taskrow.shape[0], device=taskrow.device) // 8) % 5 == 0
+    taskrow[rows, 0] = 1e7
+
+
+#: phase 2 sessions that reach the list kernel's own paths: (name,
+#: generate_snapshot arguments, edit of the task rows or None)
+LIST_CASES = [
+    # no predicates: one list of every node, ~10 positions a thread, so
+    # the fast path rescores one of them
+    ("no-predicates", dict(n_tasks=400, n_nodes=10_000, gang_size=8, seed=21), None),
+    # 16,384 nodes at R = 2: the plane does not fit beside the node state
+    ("plane-off", dict(n_tasks=300, n_nodes=16_384, gang_size=4, seed=22), None),
+    ("inactive-in-gangs", dict(n_tasks=600, n_nodes=1_000, gang_size=8, seed=23,
+                               label_classes=4, taint_fraction=0.1), _edit_inactive_in_gangs),
+    ("repeat-after-miss", dict(n_tasks=600, n_nodes=1_000, gang_size=8, seed=24,
+                               label_classes=4), _edit_repeat_after_miss),
 ]
 
 
@@ -216,12 +251,47 @@ def pass_inputs(snap, device):
     arrays, _, _ = prepare_session_arrays(snap)
     taskrow = torch.from_numpy(arrays["taskrow"]).to(device)
     taskrow[:, -1] = 1.0
-    return (
-        taskrow,
-        torch.from_numpy(arrays["cf_u8"]).to(device),
-        torch.from_numpy(arrays["nd"]).to(device),
-        torch.from_numpy(arrays["tol"]).to(device),
+    return (taskrow,) + tuple(
+        torch.from_numpy(arrays[k]).to(device)
+        for k in ("cf_u8", "nd", "tol", "cls_off", "cls_nodes")
     )
+
+
+def plane_len(inputs) -> int:
+    """The wrapper's plane for these operands (0: the plane is off)."""
+    from volcano_tpu_torch.ops.session_kernel import plan_shared_memory
+
+    taskrow, cf, _, _, cls_off, _ = inputs
+    return plan_shared_memory(taskrow.shape[1] - 2, cf.shape[1],
+                              int((cls_off[1:] - cls_off[:-1]).max()))
+
+
+def plane_off_launch(inputs):
+    """``fn(stats=None)`` launching one pass of the session kernel on
+    ``inputs`` with the plane off (every step sweeps its list), planned
+    once as the wrapper plans its launches."""
+    from volcano_tpu_torch.ops.kernels import DEFAULT_WEIGHTS
+    from volcano_tpu_torch.ops.session_kernel import _launch, launch_plan
+
+    taskrow, cf, nd, _, _, cls_nodes = inputs
+    plan = launch_plan(taskrow, cf, nd, cls_nodes, 0)._replace(plane_len=0)
+    return lambda stats=None: _launch(*inputs, DEFAULT_WEIGHTS, None, stats, plan)
+
+
+def run_session_pass(inputs, plane_off: bool = False):
+    """(chosen, [full, fast]) of one kernel pass: through the wrapper,
+    with the plane it picks, or with the plane off."""
+    import torch
+
+    from volcano_tpu_torch.ops.session_kernel import session_pass_cuda
+
+    stats = torch.zeros(2, dtype=torch.int32, device=inputs[0].device)
+    if plane_off:
+        chosen = plane_off_launch(inputs)(stats)
+    else:
+        chosen = session_pass_cuda(*inputs, stats=stats)
+    torch.cuda.synchronize()
+    return chosen, stats.cpu().tolist()
 
 
 def kernel_ms(fn, reps: int) -> float:
@@ -241,38 +311,58 @@ def kernel_ms(fn, reps: int) -> float:
 
 
 def pass_bound_ms(inputs, chosen, n_nodes: int) -> tuple:
-    """(ms by bytes, ms by operations, class-feasible share) of one pass
-    on these inputs: each input read once and the output written once
-    over HBM; the f32 operations the data needs — the mask on each of the
-    ``n_nodes`` real nodes for every active task, the score only on the
-    nodes its class may go to — and the share of real nodes scored."""
-    taskrow, cf = inputs[0], inputs[1]
+    """(ms by bytes, ms by operations, listed share) of one pass on these
+    inputs.
+
+    Bytes: each operand the pass reads once — task rows, node planes,
+    tolerance, class lists; not ``cf``, which the lists replace — and
+    ``chosen`` written once, over HBM.  Operations, counted from what this
+    run's data needs: a task sweeps only its class's list, so each listed
+    node costs the mask without the class test (mask_ops(R) - 1) and the
+    score; a task whose row equals the row before changes nothing but the
+    previous pick, so it needs that node rescored (where there was a pick)
+    and one argmax compare per listed node.  The share is that of the
+    ``n_nodes`` real nodes listed for the active tasks."""
+    import torch
+
+    taskrow, cf, nd, tol, cls_off, cls_nodes = inputs
     R = taskrow.shape[1] - 2
-    n_bytes = sum(x.numel() * x.element_size() for x in inputs)
-    n_bytes += chosen.numel() * chosen.element_size()
-    cls = taskrow[:, R].long()
+    n_bytes = sum(x.numel() * x.element_size()
+                  for x in (taskrow, nd, tol, cls_off, cls_nodes, chosen))
+    cls = taskrow[:, R].long()  # truncated toward zero, as the kernel's class is
     live = (taskrow[:, R + 1] > 0) & (cls >= 0) & (cls < cf.shape[0])
-    per_class = (cf != 0).sum(1)
-    active = int(live.sum())
-    scored = int(per_class[cls[live]].sum())
-    ops = active * n_nodes * mask_ops(R) + scored * score_ops(R)
-    share = scored / max(active * n_nodes, 1)
+    lens = (cls_off[1:] - cls_off[:-1]).long()
+    listed = torch.where(live, lens[cls.clamp(0, cf.shape[0] - 1)], 0)
+    bits = taskrow.contiguous().view(torch.int32)
+    repeat = torch.zeros_like(live)
+    repeat[1:] = (bits[1:] == bits[:-1]).all(1)
+    picked = torch.zeros_like(live)
+    picked[1:] = chosen[:-1] >= 0
+    node_ops = mask_ops(R) - 1 + score_ops(R)
+    ops = (int(listed[~repeat].sum()) * node_ops
+           + int(listed[repeat].sum()) + int((repeat & live & picked).sum()) * node_ops)
+    share = int(listed.sum()) / max(int(live.sum()) * n_nodes, 1)
     return n_bytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3, share
 
 
 def latency_floor_ms(taskrow) -> tuple:
-    """(ms, probe) — the pass's latency floor: T steps, each the serial
-    chain of session_pass_kernel that no node count removes (the two
-    warp_argmax halves, two block barriers, two shared-memory round trips,
-    the next-row load), with each link timed by the step probe on the
-    card (second of two probe runs, caches warm)."""
+    """(ms, probe) — the pass's latency floor as first defined: T steps,
+    each the serial chain of the first session kernel that no node count
+    removes (the two warp_argmax halves, two block barriers, two
+    shared-memory round trips, the next-row load), with each link timed
+    by the step probe on the card (second of two probe runs, caches
+    warm).  ``chain_ms`` in the probe is the list kernel's own chain: the
+    same links without the row load, which it makes a step ahead."""
     from volcano_tpu_torch.ops.session_kernel import step_latency_probe
 
     step_latency_probe(taskrow)
     p = step_latency_probe(taskrow)
-    cycles = (p["argmax_all"] + p["argmax_one"] + 2 * p["barrier"]
-              + 2 * p["smem_round_trip"] + p["row_stage"])
-    return taskrow.shape[0] * cycles * p["ns_per_cycle"] / 1e6, dict(p, step_cycles=cycles)
+    chain = (p["argmax_all"] + p["argmax_one"] + 2 * p["barrier"]
+             + 2 * p["smem_round_trip"])
+    cycles = chain + p["row_stage"]
+    to_ms = taskrow.shape[0] * p["ns_per_cycle"] / 1e6
+    return cycles * to_ms, dict(p, step_cycles=cycles, chain_cycles=chain,
+                                chain_ms=chain * to_ms)
 
 
 def phase_build() -> None:
@@ -292,16 +382,29 @@ def phase_build() -> None:
 def phase_kernel_vs_plain() -> None:
     import torch
 
-    from volcano_tpu_torch.ops.session_kernel import session_pass_cuda, session_pass_reference
+    from volcano_tpu_torch.ops.session_kernel import repeated_rows, session_pass_reference
     from volcano_tpu_torch.ops.synthetic import generate_snapshot
 
-    for case in KERNEL_CASES:
+    sessions = [(f"generated {case}", case, None) for case in KERNEL_CASES] + LIST_CASES
+    for name, case, edit in sessions:
         inputs = pass_inputs(generate_snapshot(**case), "cuda")
-        got = session_pass_cuda(*inputs)
-        torch.cuda.synchronize()
+        if edit is not None:
+            edit(inputs[0])
+        T = inputs[0].shape[0]
+        plane = plane_len(inputs)
+        check((plane == 0) == (name == "plane-off"), f"{name}: plane of {plane} scores")
         want = session_pass_reference(*inputs)
-        check(torch.equal(got, want), f"kernel != plain version on {case}")
-        print(f"kernel == plain: {case} ({int((got >= 0).sum())} placed)")
+        # with the plane, the fast steps are the rows equal to the row before
+        fast = repeated_rows(inputs[0]) if plane else 0
+        got, stats = run_session_pass(inputs)
+        check(torch.equal(got, want), f"session kernel != plain version on {name}")
+        check(stats == [T - fast, fast], f"{name}: kernel counts {stats}, {fast} repeated rows")
+        if plane:  # the same kernel with the plane off
+            off, off_stats = run_session_pass(inputs, plane_off=True)
+            check(torch.equal(off, want), f"session kernel, plane off, != plain on {name}")
+            check(off_stats == [T, 0], f"{name}: plane-off counts {off_stats}")
+        print(f"kernel == plain: {name} ({int((got >= 0).sum())} placed; plane "
+              f"{plane}{' and off' if plane else ''}; full {stats[0]}, fast {stats[1]})")
 
 
 def preempt_inputs(pk, device):
@@ -486,6 +589,8 @@ def phase_main_path(name: str, card: str, compare_plain: bool) -> dict:
     from volcano_tpu_torch.ops.kernels import run_packed
     from volcano_tpu_torch.ops.session_kernel import (
         prepare_session_arrays,
+        repeated_rows,
+        score_latency_probe,
         session_pass_cuda,
         session_pass_reference,
     )
@@ -536,10 +641,25 @@ def phase_main_path(name: str, card: str, compare_plain: bool) -> dict:
           f"{WARM_RUNS} warm runs (host prepare {prep_ms:.3f} ms); kernel {pass_ms:.3f} ms "
           f"per pass; {snap.n_tasks / (med_ms / 1e3):.1f} pods/s; card {card}")
 
+    # the fast path's share, against the repeated rows counted on the host,
+    # and the same kernel with the plane off (every step sweeps its list)
+    plane = plane_len(inputs)
+    chosen, stats = run_session_pass(inputs)
+    repeats = repeated_rows(inputs[0])
+    check(plane > 0 and stats == [snap.n_tasks - repeats, repeats],
+          f"{name}: kernel counts {stats}, plane {plane}, {repeats} repeated rows")
+    off, off_stats = run_session_pass(inputs, plane_off=True)
+    check(torch.equal(off, chosen) and off_stats == [snap.n_tasks, 0],
+          f"{name}: plane-off pass differs from the pass with the plane ({off_stats})")
+    off_ms = kernel_ms(plane_off_launch(inputs), reps=3)
+    lens = (inputs[4][1:] - inputs[4][:-1]).float()
+    print(f"{name}: fast steps {stats[1]}/{snap.n_tasks} ({stats[1] / snap.n_tasks:.4f}) == "
+          f"repeated rows on the host; class lists {inputs[4].numel() - 1}, mean "
+          f"{float(lens.mean()):.1f} nodes, longest {int(lens.max())} (plane {plane}); "
+          f"plane off {off_ms:.3f} ms per pass, plane on {pass_ms:.3f}; card {card}")
+
     record = dict(launches=launches, ms=pass_ms)
     if compare_plain:
-        chosen = session_pass_cuda(*inputs)
-        torch.cuda.synchronize()
         t0 = time.perf_counter()
         plain = session_pass_reference(*inputs)
         torch.cuda.synchronize()
@@ -550,9 +670,11 @@ def phase_main_path(name: str, card: str, compare_plain: bool) -> dict:
         bound_ms, bound_by = max((by_bytes, "bytes"), (by_ops, "operations"))
         floor_ms, probe = latency_floor_ms(inputs[0])
         record.update(max_abs_err=err, plain_ms=plain_ms, bound_ms=bound_ms,
-                      bound_by=bound_by, latency_floor_ms=floor_ms)
+                      bound_by=bound_by, latency_floor_ms=floor_ms,
+                      chain_floor_ms=probe["chain_ms"], fast_step_share=stats[1] / snap.n_tasks)
         # the check on the derived floor: every task inactive, so each step
-        # is only the block-wide argmax, two barriers and the row load
+        # is only the block-wide argmax, two barriers and the repeated-row
+        # test (the row itself is copied a step ahead)
         idle = (inputs[0].clone(),) + inputs[1:]
         idle[0][:, -1] = 0.0
         idle_ms = kernel_ms(lambda: session_pass_cuda(*idle), reps=3)
@@ -563,13 +685,20 @@ def phase_main_path(name: str, card: str, compare_plain: bool) -> dict:
         steps = snap.n_tasks
         print(f"{name}: plain version {plain_ms:.3f} ms per pass; bound {by_bytes:.6f} ms "
               f"by bytes, {by_ops:.6f} ms by operations ({share:.4f} of the real nodes "
-              f"scored), latency floor {floor_ms:.3f} ms ({floor_ms * 1e6 / steps:.1f} ns "
+              f"listed), latency floor {floor_ms:.3f} ms ({floor_ms * 1e6 / steps:.1f} ns "
               f"per step); card {card}")
         print(f"{name}: step probe, SM cycles: warp_argmax all warps "
               f"{probe['argmax_all']:.1f}, warp 0 alone {probe['argmax_one']:.1f}; barrier "
               f"{probe['barrier']:.1f}; shared round trip {probe['smem_round_trip']:.1f}; "
               f"row stage {probe['row_stage']:.1f}; step {probe['step_cycles']:.1f} at "
-              f"{probe['ns_per_cycle']:.4f} ns per cycle")
+              f"{probe['ns_per_cycle']:.4f} ns per cycle; the list kernel's own chain "
+              f"(row load a step ahead) {probe['chain_cycles']:.1f} cycles, "
+              f"{probe['chain_ms']:.3f} ms per pass")
+        sp = score_latency_probe(inputs[2], inputs[0], inputs[3])
+        sp = score_latency_probe(inputs[2], inputs[0], inputs[3])
+        print(f"{name}: score probe, SM cycles per node on one thread: planes from L2 "
+              f"{sp['l2']:.1f}, from L1 {sp['l1']:.1f}, in registers {sp['score']:.1f}; all "
+              f"1024 threads at once from registers {sp['block']:.1f}")
         print(f"{name}: idle pass (every task inactive) {idle_ms:.3f} ms "
               f"({idle_ms * 1e6 / steps:.1f} ns per step); same tasks over 1,024 nodes "
               f"{narrow_ms:.3f} ms per pass ({narrow_ms * 1e6 / steps:.1f} ns per step); "
@@ -607,6 +736,8 @@ def main() -> int:
             "bound_ms": main_rec["bound_ms"],
             "bound_by": main_rec["bound_by"],
             "latency_floor_ms": main_rec["latency_floor_ms"],
+            "chain_floor_ms": main_rec["chain_floor_ms"],
+            "fast_step_share": main_rec["fast_step_share"],
             "library_ms": None,
         },
         {

@@ -53,7 +53,8 @@ def pass_inputs(arrays):
     R = taskrow.shape[1] - 2
     taskrow[:, R + 1] = 1.0
     return (taskrow, torch.from_numpy(arrays["cf_u8"]), torch.from_numpy(arrays["nd"]),
-            torch.from_numpy(arrays["tol"]))
+            torch.from_numpy(arrays["tol"]), torch.from_numpy(arrays["cls_off"]),
+            torch.from_numpy(arrays["cls_nodes"]))
 
 
 @pytest.mark.parametrize("case", ["random-0", "predicates", "capacity-pressure", "single-node"])
@@ -170,17 +171,18 @@ def test_wrapper_runs_plain_version_on_cpu_without_launching():
 
 def test_wrapper_rejects_bad_operands():
     arrays, _, _ = prepare_session_arrays(generate_snapshot(**PALLAS_CASES["random-0"]))
-    taskrow, cf, nd, tol = pass_inputs(arrays)
+    taskrow, cf, nd, tol, cls_off, cls_nodes = pass_inputs(arrays)
+    lists = (cls_off, cls_nodes)
     with pytest.raises(ValueError, match="cf"):
-        session_pass_cuda(taskrow, cf.to(torch.float32), nd, tol)
+        session_pass_cuda(taskrow, cf.to(torch.float32), nd, tol, *lists)
     with pytest.raises(ValueError, match="nd"):
-        session_pass_cuda(taskrow, cf, nd[:, :-1], tol)
+        session_pass_cuda(taskrow, cf, nd[:, :-1], tol, *lists)
     with pytest.raises(ValueError, match="contiguous"):
-        session_pass_cuda(taskrow, cf, nd.t().contiguous().t(), tol)
+        session_pass_cuda(taskrow, cf, nd.t().contiguous().t(), tol, *lists)
     # node state beyond one block's shared memory is refused before launch
     NK = 20_480  # 3 x 20,480 x 4 bytes > 227 KB
     with pytest.raises(ValueError, match="shared memory"):
         session_pass_cuda(
             taskrow, torch.zeros(cf.shape[0], NK, dtype=torch.uint8),
-            torch.zeros(8, NK), tol,
+            torch.zeros(8, NK), tol, *lists,
         )

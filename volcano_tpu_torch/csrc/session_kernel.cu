@@ -5,22 +5,44 @@
 // nodes it fits, score them (binpack + least-requested + balanced), pick
 // the lowest-index argmax and add the task to that node's state.  Results
 // are bit-identical to ops/kernels.py _assign_step; the per-node
-// arithmetic lives in session_math.cuh.
+// arithmetic lives in session_math.cuh, the step's control logic in
+// session_step.cuh.
 //
 // What bounds it: the scan is sequential — task k+1's scores depend on
-// task k's pick — so every step is a full pass over the nodes followed
-// by a block-wide argmax.  The work is f32 operations (about 70 per
-// node per task, six of them IEEE divisions); the bytes are small
-// (inputs are read once into L2, node state never leaves shared
-// memory).  The design keeps all state on one SM:
+// task k's pick — so every step is a sweep followed by a block-wide
+// argmax.  The work is f32 operations (about 70 per scored node, six of
+// them IEEE divisions) issued by one SM; the bytes are small (inputs are
+// read once into L2, node state never leaves shared memory).  The design
+// keeps all state on one SM and cuts the per-step work to what the step
+// needs:
 //   * one block of 1024 threads runs the whole pass as a loop over
-//     tasks, threads striding over nodes — the loop takes the place of
-//     the TPU's sequential grid;
+//     tasks — the loop takes the place of the TPU's sequential grid;
+//   * class-compacted node lists: a step sweeps only the nodes of the
+//     task's feasibility class (cls_nodes[cls_off[c] : cls_off[c+1]],
+//     ascending), threads striding over list positions; a node outside
+//     the class is never loaded or scored;
+//   * the read-only node planes come in list order (lnd = nd[:,
+//     cls_nodes], gathered by the wrapper), so a position's planes load
+//     beside its node id, not after it, and neighbouring threads read
+//     neighbouring words;
 //   * used lanes [R, NK] and pod counts [NK] stay resident in dynamic
-//     shared memory for the whole pass ((R+1)*NK*4 bytes, 120 KB at 10k
-//     nodes); the read-only node planes stream from global memory / L2;
-//   * the argmax is warp shuffles, then one warp over the 32 warp
-//     results; thread 0 applies the update and stages the next task row.
+//     shared memory for the whole pass ((R+1)*NK*4 bytes);
+//   * the repeated-row fast path of the Pallas kernel: when the plane of
+//     masked scores over the longest list fits beside the node state, it
+//     lives in shared memory too, and a task whose row equals the
+//     previous row bit for bit rescores only the previous pick (one
+//     thread); every other thread keeps its best of the last step in
+//     registers, and only the pick's warp redoes its warp argmax.  When
+//     the plane does not fit, the same kernel sweeps the list at every
+//     step (the wrapper decides from the sizes);
+//   * the next task row and its list bounds are copied a whole step
+//     ahead (cp.async, into a ring of three row buffers), off the serial
+//     chain: a load into registers would not do, since a block barrier
+//     waits for the thread's loads; the repeated-row test reads the
+//     landed row before the step's first barrier;
+//   * the argmax is warp shuffles over (value, key), then one warp over
+//     the 32 warp results; a key packs (list position, node id), so the
+//     pick carries its plane slot; thread 0 applies the update.
 // Two block barriers per task set the latency floor of a step.  One SM
 // of 132 does the work: spreading a pass over a cluster of SMs is the
 // next design step.
@@ -34,6 +56,7 @@
 
 #include "block_argmax.cuh"
 #include "session_math.cuh"
+#include "session_step.cuh"
 
 namespace {
 
@@ -42,92 +65,200 @@ constexpr int kWarps = kThreads / 32;
 
 using vt::warp_argmax;
 
+// Task rows in flight: row t is read in slot t % kSlots while row t+1
+// has landed and row t+2 is being copied.
+constexpr int kSlots = 3;
+
+// A 4-byte asynchronous copy from global to shared memory.  Unlike a load
+// into a register, it is not waited for at a block barrier (a barrier
+// completes every earlier load of the thread), only at cp.async.wait_all.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Read-only operands of one pass.
+struct PassIn {
+  const float* taskrow;   // [T, R+2]: resreq, class, active
+  int T;
+  const int* cls_off;     // [C+1] list bounds per class
+  int C;
+  const int* cls_nodes;   // [LT] node ids, ascending within a list
+  const float* lnd;       // [3R+2, LT]: nd[:, cls_nodes], the planes in list order
+  int LT;
+  const float* nd;        // [3R+2, NK]: base | alloc | used0 | count0, maxt
+  const float* tol;       // [R]
+  const int* done;        // [1] or null: skip the pass
+  int NK;
+  vt::Weights w;
+};
+
+// Outputs and scratch, allocated by the wrapper.
+struct PassOut {
+  int* tlist;   // [T, 2] scratch: each task's list start and length
+  int* chosen;  // [T] node index or -1
+  int* stats;   // [2] or null: full steps, fast steps
+};
+
+template <int R>
 __global__ void __launch_bounds__(kThreads, 1)
-session_pass_kernel(const float* __restrict__ taskrow,  // [T, R+2]: resreq, class, active
-                    int T, int R,
-                    const uint8_t* __restrict__ cf,  // [C, NK] class feasibility
-                    int C,
-                    const float* __restrict__ nd,  // [3R+2, NK]: base|alloc|used0|count0, maxt
-                    const float* __restrict__ tol,       // [R]
-                    const int* __restrict__ done,        // [1] or null: skip the pass
-                    int NK, vt::Weights w,
-                    int* __restrict__ chosen) {  // [T] node index or -1
+session_pass_kernel(PassIn in, PassOut out, int plane_len) {
+  constexpr int RC = R + 2;
   extern __shared__ float smem[];
-  float* used = smem;                         // [R, NK]
-  float* cnt = smem + static_cast<size_t>(R) * NK;  // [NK]
+  const int NK = in.NK;
+  float* used = smem;                                   // [R, NK]
+  float* cnt = smem + static_cast<size_t>(R) * NK;      // [NK]
+  float* plane = plane_len > 0 ? cnt + NK : nullptr;    // [plane_len] masked scores
   __shared__ float warp_v[kWarps];
-  __shared__ int warp_i[kWarps];
-  __shared__ float srow[vt::kMaxLanes + 2];  // the current task row
-  __shared__ float stol[vt::kMaxLanes];
+  __shared__ int warp_k[kWarps];
+  __shared__ float srow[kSlots][RC];  // task rows t, t+1 and t+2
+  __shared__ int slist[kSlots][2];    // their list start and length
+  __shared__ int ssame[kSlots];       // row equal to the row before it
+  __shared__ int spick;          // key of the last pick, kNoPick after -1
+  __shared__ float stol[R];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int RC = R + 2;
+  const int T = in.T;
 
-  if (done != nullptr && *done != 0) {
+  if (in.done != nullptr && *in.done != 0) {
     // the gang fixpoint settled: this round places nothing
-    for (int t = tid; t < T; t += kThreads) chosen[t] = -1;
+    for (int t = tid; t < T; t += kThreads) out.chosen[t] = -1;
+    if (out.stats != nullptr && tid < 2) out.stats[tid] = 0;
     return;
   }
 
-  const float* base = nd;
-  const float* alloc = nd + static_cast<size_t>(R) * NK;
-  const float* used0 = nd + static_cast<size_t>(2 * R) * NK;
-  const float* cnt0 = nd + static_cast<size_t>(3 * R) * NK;
-  const float* maxt = nd + static_cast<size_t>(3 * R + 1) * NK;
-
+  for (int t = tid; t < T; t += kThreads) {
+    vt::task_list(in.taskrow[static_cast<size_t>(t) * RC + R], in.C, in.cls_off,
+                  out.tlist[2 * t], out.tlist[2 * t + 1]);
+  }
+  const float* used0 = in.nd + static_cast<size_t>(2 * R) * NK;
   for (int i = tid; i < R * NK; i += kThreads) used[i] = used0[i];
-  for (int n = tid; n < NK; n += kThreads) cnt[n] = cnt0[n];
-  if (tid < R) stol[tid] = tol[tid];
-  if (tid < RC && T > 0) srow[tid] = taskrow[tid];
+  for (int n = tid; n < NK; n += kThreads) cnt[n] = used0[R * NK + n];
+  if (tid < R) stol[tid] = in.tol[tid];
+  __syncthreads();  // tlist is read below, by warp 0
+
+  const vt::NodeState ns{in.cls_nodes, in.lnd, in.LT, used, cnt, NK};
+
+  // warp 0 copies task k into slot k % kSlots: lane r < RC its column r,
+  // lanes RC and RC+1 its list start and length
+  auto fetch = [&](int k) {
+    if (k >= T) return;
+    const int slot = k % kSlots;
+    if (lane < RC) {
+      cp_async4(&srow[slot][lane], in.taskrow + static_cast<size_t>(k) * RC + lane);
+    } else if (lane < RC + 2) {
+      cp_async4(&slist[slot][lane - RC], out.tlist + 2 * k + lane - RC);
+    }
+    cp_async_commit();
+  };
+  if (warp == 0) {
+    fetch(0);
+    cp_async_wait_all();
+    fetch(1);
+    if (lane == 0) {
+      ssame[0] = 0;
+      spick = vt::kNoPick;
+    }
+  }
   __syncthreads();
 
-  for (int t = 0; t < T; ++t) {
-    const float act = srow[R + 1];
-    const int cls = static_cast<int>(srow[R]);
-    const uint8_t* cf_row =
-        (cls >= 0 && cls < C) ? cf + static_cast<size_t>(cls) * NK : nullptr;
+  float my_v = -INFINITY;  // this thread's best of its list positions
+  int my_k = vt::kNoPick;
+  int n_full = 0, n_fast = 0;  // thread 0's step counts
+  for (int t = 0, cur = 0; t < T; ++t, cur = cur + 1 == kSlots ? 0 : cur + 1) {
+    const int nxt = cur + 1 == kSlots ? 0 : cur + 1;
+    const float* row = srow[cur];
+    const float act = row[R + 1];
+    const int start = slist[cur][0];
+    const int len = slist[cur][1];
+    const bool fast = plane != nullptr && ssame[cur] != 0;
+    const int prev = spick;
+    const int owner = prev == vt::kNoPick ? -1 : vt::key_pos(prev) % kThreads;
 
-    float bv = -INFINITY;
-    int bi = INT_MAX;
-    if (act > 0.0f && cf_row != nullptr) {
-      for (int n = tid; n < NK; n += kThreads) {
-        const float v = vt::masked_score(R, srow, stol, act, cf_row[n] != 0, base + n,
-                                         alloc + n, used + n, NK, cnt[n], maxt[n], w);
-        if (v > bv) {  // ascending n: the first max of this thread's nodes
-          bv = v;
-          bi = n;
-        }
+    bool reduce = true;
+    if (!fast) {
+      if (act > 0.0f && len > 0) {
+        vt::sweep_list<R>(ns, start, len, tid, kThreads, -1, 0, plane, row, stol, act, in.w,
+                          my_v, my_k);
+      } else {
+        my_v = -INFINITY;
+        my_k = vt::kNoPick;
+      }
+    } else {
+      // only the previous pick changed: its owner rescores it; the other
+      // warps' results from the last step stand
+      reduce = owner >= 0 && warp == owner / 32;
+      if (tid == owner) {
+        vt::sweep_list<R>(ns, start, len, tid, kThreads, vt::key_pos(prev), vt::key_node(prev),
+                          plane, row, stol, act, in.w, my_v, my_k);
       }
     }
-    warp_argmax(bv, bi);
-    if (lane == 0) {
-      warp_v[warp] = bv;
-      warp_i[warp] = bi;
+    if (reduce) {
+      float bv = my_v;
+      int bk = my_k;
+      warp_argmax(bv, bk);
+      if (lane == 0) {
+        warp_v[warp] = bv;
+        warp_k[warp] = bk;
+      }
+    }
+    if (warp == 0 && t + 1 < T) {
+      // task t+1 has landed (copied a step ago): test it against task t,
+      // and start copying task t+2
+      cp_async_wait_all();
+      __syncwarp();
+      if (lane == 0) ssame[nxt] = vt::same_row(srow[nxt], row, RC);
+      fetch(t + 2);
     }
     __syncthreads();
 
     if (warp == 0) {
-      bv = warp_v[lane];
-      bi = warp_i[lane];
-      warp_argmax(bv, bi);
+      float bv = warp_v[lane];
+      int bk = warp_k[lane];
+      warp_argmax(bv, bk);
       if (lane == 0) {
         if (bv > -INFINITY) {  // some node is feasible
-          for (int r = 0; r < R; ++r) used[r * NK + bi] = used[r * NK + bi] + srow[r];
-          cnt[bi] = cnt[bi] + 1.0f;
-          chosen[t] = bi;
+          const int n = vt::key_node(bk);
+          vt::apply_pick<R>(used, cnt, NK, row, n);
+          out.chosen[t] = n;
+          spick = bk;
         } else {
-          chosen[t] = -1;
+          out.chosen[t] = -1;
+          spick = vt::kNoPick;
         }
-        if (t + 1 < T) {
-          const float* next = taskrow + static_cast<size_t>(t + 1) * RC;
-          for (int r = 0; r < RC; ++r) srow[r] = next[r];
+        if (fast) {
+          ++n_fast;
+        } else {
+          ++n_full;
         }
       }
     }
     __syncthreads();
   }
+  if (out.stats != nullptr && tid == 0) {
+    out.stats[0] = n_full;
+    out.stats[1] = n_fast;
+  }
+}
+
+template <int R>
+cudaError_t launch(const PassIn& in, const PassOut& out, int plane_len, cudaStream_t stream) {
+  const size_t smem = (static_cast<size_t>(R + 1) * in.NK + plane_len) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      session_pass_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  session_pass_kernel<R><<<1, kThreads, smem, stream>>>(in, out, plane_len);
+  return cudaGetLastError();
 }
 
 __device__ __forceinline__ long long global_ns() {
@@ -144,7 +275,8 @@ __device__ __forceinline__ long long global_ns() {
 //   [3] reps shared-memory store -> load round trips (the warp results,
 //       the node update)
 //   [4] thread 0 staging all T task rows into shared memory, each load's
-//       address dependent on the row before (the next-row load)
+//       address dependent on the row before (the next-row load of the
+//       first design, which loaded it on the chain)
 //   [5], [6] global-timer ns and SM cycles over the whole probe
 // Summed per step, these are the pass's latency floor.
 __global__ void __launch_bounds__(kThreads, 1)
@@ -203,6 +335,76 @@ step_probe_kernel(const float* __restrict__ taskrow, int T, int RC, int reps,
   }
 }
 
+// One node's load-and-score latency on one thread, in SM cycles per node,
+// each node's address dependent on the score before, and the score's
+// cost with the whole block scoring at once.  out:
+//   [0] thread 0: nodes 97 apart, planes from global memory (L2: each
+//       line new), reps nodes
+//   [1] thread 0: one node again and again (its lines in L1)
+//   [2] thread 0: one node's planes already in registers (the score alone)
+//   [3] all 1024 threads at once, each a chain of reps / 8 scores of its
+//       own node from registers (the sweep's issue limit, where it binds)
+template <int R>
+__global__ void __launch_bounds__(kThreads, 1)
+score_probe_kernel(const float* __restrict__ nd, const float* __restrict__ rr,
+                   const float* __restrict__ tol, int NK, int reps, vt::Weights w,
+                   long long* __restrict__ out) {
+  const float* base = nd;
+  const float* alloc = nd + static_cast<size_t>(R) * NK;
+  const float* used = nd + static_cast<size_t>(2 * R) * NK;
+  const float* cnt = nd + static_cast<size_t>(3 * R) * NK;
+  const float* maxt = nd + static_cast<size_t>(3 * R + 1) * NK;
+  const int tid = threadIdx.x;
+  float acc = 0.0f;
+  if (tid == 0) {
+    int n = 0;
+    long long t = clock64();
+    for (int i = 0; i < reps; ++i) {
+      const float v = vt::masked_score(R, rr, tol, 1.0f, true, base + n, alloc + n, used + n,
+                                       NK, cnt[n], maxt[n], w);
+      acc = acc + v;
+      n = (n + 97 + (v == 12345.5f ? 1 : 0)) % NK;
+    }
+    out[0] = clock64() - t;
+    n = 0;
+    t = clock64();
+    for (int i = 0; i < reps; ++i) {
+      const float v = vt::masked_score(R, rr, tol, 1.0f, true, base + n, alloc + n, used + n,
+                                       NK, cnt[n], maxt[n], w);
+      acc = acc + v;
+      n = v == 12345.5f ? 1 : 0;
+    }
+    out[1] = clock64() - t;
+  }
+  const int n = tid % NK;
+  float b[R], a[R], u[R];
+  for (int r = 0; r < R; ++r) {
+    b[r] = base[r * NK + n];
+    a[r] = alloc[r * NK + n];
+    u[r] = used[r * NK + n];
+  }
+  const float c = cnt[n], m = maxt[n];
+  if (tid == 0) {
+    const long long t = clock64();
+    for (int i = 0; i < reps; ++i) {
+      const float v = vt::masked_score(R, rr, tol, 1.0f, true, b, a, u, 1, c, m, w);
+      acc = acc + v;
+      u[0] = u[0] + (v == 12345.5f ? 1.0f : 0.0f);
+    }
+    out[2] = clock64() - t;
+  }
+  __syncthreads();
+  const long long t = clock64();
+  for (int i = 0; i < reps / 8; ++i) {
+    const float v = vt::masked_score(R, rr, tol, 1.0f, true, b, a, u, 1, c, m, w);
+    acc = acc + v;
+    u[0] = u[0] + (v == 12345.5f ? 1.0f : 0.0f);
+  }
+  __syncthreads();
+  if (tid == 0) out[3] = clock64() - t;
+  if (acc == 12345.5f) out[4] = 1;  // keep the chains live
+}
+
 }  // namespace
 
 // Launch the step probe on ``stream`` (out: 7 int64); returns the
@@ -216,24 +418,50 @@ extern "C" int vt_step_probe(const float* taskrow, int T, int RC, int reps, long
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launch one pass on ``stream``.  Returns the cudaError_t of the launch
-// (0 on success): a launch refused for its shared memory never runs, and
-// only cudaGetLastError reports it.
-extern "C" int vt_session_pass(const float* taskrow, int T, int R, const uint8_t* cf, int C,
-                               const float* nd, const float* tol, const int* done, int NK,
-                               float w_bp, float w_cpu, float w_mem, float w_scalar,
-                               float w_lr, float w_bal, int* chosen, void* stream,
-                               int device) {
+// Launch the score probe for R = 2 lanes on ``stream`` (out: 5 int64).
+// Returns the cudaError_t of the launch.
+extern "C" int vt_score_probe(const float* nd, const float* rr, const float* tol, int NK,
+                              int reps, float w_bp, float w_cpu, float w_mem, float w_scalar,
+                              float w_lr, float w_bal, long long* out, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = static_cast<size_t>(R + 1) * NK * sizeof(float);
-  err = cudaFuncSetAttribute(session_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
   const vt::Weights w{w_bp, w_cpu, w_mem, w_scalar, w_lr, w_bal};
-  session_pass_kernel<<<1, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      taskrow, T, R, cf, C, nd, tol, done, NK, w, chosen);
+  score_probe_kernel<2><<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(nd, rr, tol, NK,
+                                                                              reps, w, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Launch one pass on ``stream``.  ``lnd`` is nd[:, cls_nodes] ([3R+2, LT],
+// LT = len(cls_nodes)), gathered by the caller.  ``plane_len`` > 0 keeps a plane of that
+// many masked scores (at least the longest list) in shared memory for
+// the repeated-row fast path; 0 sweeps the list at every step.  Returns
+// the cudaError_t of the launch (0 on success): a launch refused for its
+// shared memory never runs, and only cudaGetLastError reports it;
+// cudaErrorInvalidValue for a lane count the library has no instance for
+// (2 <= R <= vt::kMaxLanes).
+extern "C" int vt_session_pass(const float* taskrow, int T, int R, const int* cls_off, int C,
+                               const int* cls_nodes, const float* lnd, int LT,
+                               const float* nd, const float* tol, const int* done, int NK, float w_bp, float w_cpu, float w_mem,
+                               float w_scalar, float w_lr, float w_bal, int plane_len,
+                               int* tlist, int* chosen, int* stats, void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const PassIn in{taskrow, T,  cls_off, C,    cls_nodes,
+                  lnd,     LT, nd,      tol,  done,
+                  NK,      vt::Weights{w_bp, w_cpu, w_mem, w_scalar, w_lr, w_bal}};
+  const PassOut out{tlist, chosen, stats};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (R) {
+    case 2: err = launch<2>(in, out, plane_len, s); break;
+    case 3: err = launch<3>(in, out, plane_len, s); break;
+    case 4: err = launch<4>(in, out, plane_len, s); break;
+    case 5: err = launch<5>(in, out, plane_len, s); break;
+    case 6: err = launch<6>(in, out, plane_len, s); break;
+    case 7: err = launch<7>(in, out, plane_len, s); break;
+    case 8: err = launch<8>(in, out, plane_len, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }
 
 extern "C" const char* vt_error_string(int err) {

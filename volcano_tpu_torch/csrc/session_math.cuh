@@ -107,14 +107,14 @@ VT_HD float node_score(int R, const float* rr, const float* alloc, const float* 
 }
 
 // The value the step's argmax runs over: the node score where the task
-// may go there, -inf where it may not.
+// may go there, -inf where it may not (and then the score is skipped).
 VT_HD float masked_score(int R, const float* rr, const float* tol, float act, bool cls_ok,
                          const float* base, const float* alloc, const float* used,
                          int stride, float cnt, float maxt, const Weights& w) {
   const bool feasible =
       fits(R, rr, tol, base, used, stride) && cnt < maxt && cls_ok && act > 0.0f;
-  const float total = node_score(R, rr, alloc, used, stride, w);
-  return feasible ? total : -INFINITY;
+  if (!feasible) return -INFINITY;
+  return node_score(R, rr, alloc, used, stride, w);
 }
 
 }  // namespace vt

@@ -1,9 +1,9 @@
 """Build the port's CUDA kernel library from the repository's sources at
 first use, and load it with ctypes.
 
-The library is one ``nvcc`` call over every ``csrc/*.cu`` source, each
-with a plain C interface (no PyTorch headers, no ninja): seconds, not
-minutes.  The shared object goes into ``volcano_tpu_torch/csrc/_build/``
+Every ``csrc/*.cu`` source, each with a plain C interface (no PyTorch
+headers, no ninja), compiles in its own ``nvcc`` process, all started
+together, and one more ``nvcc`` links the objects: seconds, not minutes.  The shared object goes into ``volcano_tpu_torch/csrc/_build/``
 under a name keyed by a hash of every source, every header and the
 flags, so an edit to any of them rebuilds and an unchanged tree loads
 the library already there.  A failed build raises with nvcc's output.
@@ -22,15 +22,18 @@ from typing import Optional, Tuple
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "_build")
 
-#: nvcc flags: Hopper's arch-specific target; no FMA contraction and no
-#: fast math, so the f32 arithmetic rounds as the reference's does;
-#: ``-Xptxas=-v`` reports registers, shared memory and spills per kernel
+#: nvcc flags of each source: Hopper's arch-specific target; no FMA
+#: contraction and no fast math, so the f32 arithmetic rounds as the
+#: reference's does; ``-Xptxas=-v`` reports registers, shared memory and
+#: spills per kernel
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas=-v",
 )
+#: nvcc flags of the link into one shared library
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 
 def sources(ext: str = ".cu") -> Tuple[str, ...]:
@@ -64,7 +67,7 @@ def library_path() -> str:
     for fn in (*sources(), *sources(".cuh")):
         with open(os.path.join(CSRC, fn), "rb") as f:
             h.update(fn.encode() + b"\0" + f.read())
-    h.update("\0".join(NVCC_FLAGS).encode())
+    h.update("\0".join((*NVCC_FLAGS, *LINK_FLAGS)).encode())
     return os.path.join(BUILD_DIR, f"libvtkernels_{h.hexdigest()[:16]}.so")
 
 
@@ -76,22 +79,36 @@ def build() -> str:
     if os.path.exists(path):
         return path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    # build into a private temporary and rename it into place, so a
-    # concurrent loader never maps a half-written library
+    # build into private temporaries and rename the library into place, so
+    # a concurrent loader never maps a half-written library
     tmp = f"{path}.{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{fn}.{os.getpid()}.o") for fn in sources()]
+    nvcc = find_nvcc()
     t0 = time.monotonic()
     try:
-        proc = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *(os.path.join(CSRC, fn) for fn in sources())],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        BUILD_LOG = (time.monotonic() - t0, proc.stdout)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{proc.stdout}")
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, fn), "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for fn, obj in zip(sources(), objs)
+        ]
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [code for code in (proc.returncode for proc in procs) if code != 0]
+        if not failed:
+            link = subprocess.run([nvcc, *LINK_FLAGS, "-o", tmp, *objs],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            logs.append(link.stdout)
+            if link.returncode != 0:
+                failed.append(link.returncode)
+        BUILD_LOG = (time.monotonic() - t0, "".join(logs))
+        if failed:
+            raise RuntimeError(f"nvcc failed (exit {failed[0]}):\n{BUILD_LOG[1]}")
         os.replace(tmp, path)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        for f in (tmp, *objs):
+            if os.path.exists(f):
+                os.remove(f)
     return path
 
 

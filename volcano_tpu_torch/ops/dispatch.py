@@ -7,7 +7,9 @@ has:
   * ``cuda`` — the CUDA greedy-scan kernel with its on-device gang
     fixpoint (ops/session_kernel.py), when the session runs on a GPU,
     sits inside the f32 floor-division envelope and its node state fits
-    one block's shared memory;
+    one block's shared memory (whether the masked-score plane of the
+    repeated-row fast path fits beside it is the kernel wrapper's choice,
+    by size, and never turns a session away);
   * ``torch-scan`` — the PyTorch specification (ops/kernels.py), when
     the caller asks for ``device="cpu"``.
 

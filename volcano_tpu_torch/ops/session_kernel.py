@@ -3,25 +3,33 @@ PyTorch version, and the gang fixpoint around it.
 
 The counterpart of ``volcano_tpu/ops/pallas_session.py``.  One pass is
 one launch of ``csrc/session_kernel.cu`` (a single 1024-thread block
-with node state resident in shared memory); ``schedule_session_cuda``
-runs the gang commit/discard fixpoint of ``schedule_session_pallas`` as
-torch ops around up to ``gang_rounds`` launches with no host sync in
-between — a device ``done`` flag makes the launches after a settled
-round return at once, as ``lax.while_loop`` stops early.  The session
-ships its arrays once and fetches ``assignment`` once.
+with node state resident in shared memory, sweeping only the nodes of
+each task's feasibility class); ``schedule_session_cuda`` runs the gang
+commit/discard fixpoint of ``schedule_session_pallas`` as torch ops
+around up to ``gang_rounds`` launches with no host sync in between — a
+device ``done`` flag makes the launches after a settled round return at
+once, as ``lax.while_loop`` stops early.  The session ships its arrays
+once and fetches ``assignment`` once.
 
 Array layout (``prepare_session_arrays``): the Pallas planes' bytes,
 with nodes flat instead of [NS, 128] — ``cf_u8`` [C, NK] and ``nd``
 [3R+2, NK] are ``prepare_pallas_arrays``' arrays reshaped; ``taskrow``
 holds the first ``n_tasks`` rows (the kernel needs no task-block
-padding); ``tol`` is [R].  NK stays a multiple of 128 nodes, so warps
-stride over whole node blocks.
+padding); ``tol`` is [R].  NK stays a multiple of 128 nodes.  Beside
+them, the class-compacted node lists the kernel sweeps: ``cls_off``
+[C+1] i32 and ``cls_nodes`` [sum L_c] i32, class c's nodes being
+``cls_nodes[cls_off[c]:cls_off[c+1]] == np.flatnonzero(cf_u8[c])``.
+
+Shared memory (``plan_shared_memory``): the node state, (R+1)*NK*4
+bytes, must fit one block (the executor's gate, ``fits_shared_memory``);
+the plane of masked scores over the longest list, max L_c * 4 bytes,
+joins it where it fits too, and turns on the repeated-row fast path.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -42,11 +50,16 @@ NODE_ALIGN = 128
 MAX_LANES = 8
 #: shared memory one block may use on sm_90 (227 KB)
 SMEM_LIMIT = 232_448
-#: the kernel's static shared memory: warp argmax slots, task row, tolerance
-_STATIC_SMEM = 32 * 4 * 2 + (MAX_LANES + 2) * 4 + MAX_LANES * 4
+#: the kernel's static shared memory: warp argmax slots (value, key), three
+#: task rows in flight with their list bounds and repeat flags, the last
+#: pick, tolerance
+_STATIC_SMEM = 32 * 4 * 2 + 3 * ((MAX_LANES + 2) * 4 + 2 * 4 + 4) + 4 + MAX_LANES * 4
 
-#: launches of the CUDA kernel by session_pass_cuda in this process
+#: launches of the CUDA kernel in this process
 LAUNCHES = 0
+
+#: the counts a pass writes into ``stats``
+STATS = ("full_steps", "fast_steps")
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -57,7 +70,7 @@ def node_width(n_nodes: int) -> int:
 
 
 def session_smem_bytes(R: int, NK: int) -> int:
-    """Dynamic shared memory of one pass: used lanes + pod counts."""
+    """Dynamic shared memory of the node state: used lanes + pod counts."""
     return (R + 1) * NK * 4
 
 
@@ -65,6 +78,39 @@ def fits_shared_memory(R: int, NK: int) -> bool:
     """The cuda executor's one gate: the node state of a pass must fit
     one block's shared memory."""
     return session_smem_bytes(R, NK) + _STATIC_SMEM <= SMEM_LIMIT
+
+
+def plan_shared_memory(R: int, NK: int, max_len: int) -> int:
+    """Masked-score plane length of a pass whose longest class list holds
+    ``max_len`` nodes: ``max_len`` where the plane fits beside the node
+    state (the repeated-row fast path runs), else 0 (every step sweeps
+    its list).  Decided by the sizes alone; raises where the node state
+    itself does not fit."""
+    if not fits_shared_memory(R, NK):
+        raise ValueError(
+            f"{NK} nodes x {R} lanes need {session_smem_bytes(R, NK)} bytes of shared "
+            f"memory; one block has {SMEM_LIMIT}"
+        )
+    fits = session_smem_bytes(R, NK) + max_len * 4 + _STATIC_SMEM <= SMEM_LIMIT
+    return max_len if fits else 0
+
+
+def class_lists(cf: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """[C, NK] class feasibility → (cls_off [C+1] i32, cls_nodes i32):
+    each class's feasible node ids, ascending, one list after another."""
+    cls, nodes = np.nonzero(cf)  # row-major: by class, then ascending node
+    cls_off = np.zeros(cf.shape[0] + 1, dtype=np.int32)
+    cls_off[1:] = np.cumsum(np.bincount(cls, minlength=cf.shape[0]))
+    return cls_off, nodes.astype(np.int32)
+
+
+def repeated_rows(taskrow: torch.Tensor) -> int:
+    """Rows equal bit for bit to the row before them: the steps a pass
+    with the masked-score plane takes on its fast path."""
+    if taskrow.shape[0] < 2:
+        return 0
+    bits = taskrow.contiguous().view(torch.int32)
+    return int((bits[1:] == bits[:-1]).all(1).sum())
 
 
 # ---- host packing ----
@@ -121,11 +167,14 @@ def prepare_session_arrays(snap: PackedSnapshot) -> Tuple[dict, int, int]:
             ),
         ]
     )
+    cls_off, cls_nodes = class_lists(cf)
     arrays = dict(
         taskrow=taskrow,
         cf_u8=cf,
         nd=nd,
         tol=snap.tolerance.astype(np.float32).reshape(R),
+        cls_off=cls_off,
+        cls_nodes=cls_nodes,
     )
     return arrays, T_act, NK
 
@@ -226,13 +275,17 @@ def session_pass_reference(
     cf: torch.Tensor,  # [C, NK] u8 class feasibility
     nd: torch.Tensor,  # [3R+2, NK] f32 — base | alloc | used0 | count0, maxt
     tol: torch.Tensor,  # [R] f32
+    cls_off: torch.Tensor,  # [C+1] i32 — class list bounds (checked, not used)
+    cls_nodes: torch.Tensor,  # [sum L_c] i32 — class lists (checked, not used)
     weights: ScoreWeights = DEFAULT_WEIGHTS,
     done: Optional[torch.Tensor] = None,  # [1] i32 — nonzero: place nothing
 ) -> torch.Tensor:
     """One greedy pass → chosen[T] i32 (node index or -1): a Python loop
-    over tasks on [NK] tensors.  The plain version of the CUDA kernel,
-    with the wrapper's signature."""
-    _check_pass_args(taskrow, cf, nd, tol, weights, done)
+    over tasks, each masking and scoring every node from ``cf`` — the
+    full-recompute specification.  The plain version of the CUDA kernel,
+    with the wrapper's operands; it takes no steps of the kernel's, so it
+    counts none."""
+    _check_pass_args(taskrow, cf, nd, tol, cls_off, cls_nodes, weights, done, None)
     T, RC = taskrow.shape
     R = RC - 2
     chosen = torch.full((T,), -1, dtype=torch.int32, device=taskrow.device)
@@ -262,8 +315,11 @@ def session_pass_reference(
 
 # ---- the kernel wrapper ----
 
-def _check_pass_args(taskrow, cf, nd, tol, weights, done) -> None:
-    """Validate one pass's operands; raise before anything launches."""
+def _check_pass_args(taskrow, cf, nd, tol, cls_off, cls_nodes, weights, done, stats) -> int:
+    """Validate one pass's operands; raise before anything launches.
+    Returns the longest class list (one device read on CUDA tensors)."""
+    if taskrow.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"a session pass takes cuda or cpu tensors, not {taskrow.device}")
     if weights.lr_int_exact:
         raise ValueError("the session kernel runs the f32 least-requested path only")
     if taskrow.dim() != 2 or not 2 <= taskrow.shape[1] - 2 <= MAX_LANES:
@@ -277,9 +333,13 @@ def _check_pass_args(taskrow, cf, nd, tol, weights, done) -> None:
         "cf": (cf, torch.uint8, tuple(cf.shape)),
         "nd": (nd, torch.float32, (3 * R + 2, NK)),
         "tol": (tol, torch.float32, (R,)),
+        "cls_off": (cls_off, torch.int32, (cf.shape[0] + 1,)),
+        "cls_nodes": (cls_nodes, torch.int32, (cls_nodes.numel(),)),
     }
     if done is not None:
         expect["done"] = (done, torch.int32, (1,))
+    if stats is not None:
+        expect["stats"] = (stats, torch.int32, (len(STATS),))
     for name, (x, dtype, shape) in expect.items():
         if x.dtype != dtype or tuple(x.shape) != shape:
             raise ValueError(
@@ -289,11 +349,30 @@ def _check_pass_args(taskrow, cf, nd, tol, weights, done) -> None:
             raise ValueError(f"{name} must be contiguous")
         if x.device != taskrow.device:
             raise ValueError(f"{name} is on {x.device}, taskrow on {taskrow.device}")
-    if not fits_shared_memory(R, NK):
-        raise ValueError(
-            f"{NK} nodes x {R} lanes need {session_smem_bytes(R, NK)} bytes of shared "
-            f"memory; one block has {SMEM_LIMIT}"
-        )
+    plan_shared_memory(R, NK, 0)  # raises where the node state does not fit
+    return _check_lists(cls_off, cls_nodes, NK)
+
+
+def _check_lists(cls_off: torch.Tensor, cls_nodes: torch.Tensor, NK: int) -> int:
+    """The kernel indexes node state through the lists without bounds
+    checks: offsets from 0 to len(cls_nodes), never falling; node ids in
+    [0, NK), strictly rising within a list (the tie-break needs it).
+    Returns the longest list."""
+    L = cls_nodes.numel()
+    lens = cls_off[1:] - cls_off[:-1]
+    bad = (cls_off[0] != 0) | (cls_off[-1] != L) | (lens < 0).any()
+    if L:
+        bad = bad | ((cls_nodes < 0) | (cls_nodes >= NK)).any()
+        starts = torch.zeros(L + 1, dtype=torch.bool, device=cls_nodes.device)
+        starts[cls_off.clamp(0, L).long()] = True
+        rising = cls_nodes[1:] > cls_nodes[:-1]
+        bad = bad | ~(rising | starts[1:L]).all()
+    longest = lens.max() if lens.numel() else torch.zeros((), dtype=torch.int32,
+                                                          device=cls_off.device)
+    bad_v, longest_v = torch.stack([bad.to(torch.int32), longest.to(torch.int32)]).tolist()
+    if bad_v:
+        raise ValueError("cls_off/cls_nodes are not ascending class lists of nodes in [0, NK)")
+    return longest_v
 
 
 def _library() -> ctypes.CDLL:
@@ -305,19 +384,94 @@ def _library() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.vt_session_pass.argtypes = [
             p, i, i,  # taskrow, T, R
-            p, i,  # cf, C
+            p, i, p,  # cls_off, C, cls_nodes
+            p, i,  # lnd, LT
             p, p,  # nd, tol
             p, i,  # done, NK
             f, f, f, f, f, f,  # weights
-            p, p, i,  # chosen, stream, device
+            i, p, p, p,  # plane_len, tlist, chosen, stats
+            p, i,  # stream, device
         ]
         lib.vt_session_pass.restype = ctypes.c_int
         lib.vt_step_probe.argtypes = [p, i, i, i, p, p, i]
         lib.vt_step_probe.restype = ctypes.c_int
+        lib.vt_score_probe.argtypes = [p, p, p, i, i, f, f, f, f, f, f, p, p, i]
+        lib.vt_score_probe.restype = ctypes.c_int
         lib.vt_error_string.argtypes = [ctypes.c_int]
         lib.vt_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+class LaunchPlan(NamedTuple):
+    """What every launch over one session's checked CUDA operands reuses,
+    made once by ``launch_plan``: neither ``nd`` nor the lists change
+    between gang rounds."""
+
+    plane_len: int  # masked-score plane, in scores (0: off)
+    lnd: torch.Tensor  # [3R+2, LT] nd[:, cls_nodes]: the node planes in list order
+    tlist: torch.Tensor  # [T, 2] i32 scratch: each task's list start and length
+
+
+def launch_plan(taskrow, cf, nd, cls_nodes, max_len: int) -> Optional[LaunchPlan]:
+    """The plan of launches on checked operands whose longest list is
+    ``max_len``: the plane ``plan_shared_memory`` picks, the list-order
+    gather and the list-bounds scratch.  None on CPU operands, where the
+    plain version runs."""
+    if taskrow.device.type == "cpu":
+        return None
+    return LaunchPlan(
+        plan_shared_memory(taskrow.shape[1] - 2, cf.shape[1], max_len),
+        nd.index_select(1, cls_nodes),
+        torch.empty((taskrow.shape[0], 2), dtype=torch.int32, device=taskrow.device),
+    )
+
+
+def _launch(taskrow, cf, nd, tol, cls_off, cls_nodes, weights, done, stats,
+            plan: LaunchPlan) -> torch.Tensor:
+    """Launch one pass on checked CUDA operands, by ``plan``."""
+    global LAUNCHES
+    T, RC = taskrow.shape
+    device = taskrow.device
+    chosen = torch.empty(T, dtype=torch.int32, device=device)
+    if T == 0:
+        if stats is not None:
+            stats.zero_()
+        return chosen
+    lib = _library()
+    err = lib.vt_session_pass(
+        taskrow.data_ptr(), T, RC - 2,
+        cls_off.data_ptr(), cf.shape[0], cls_nodes.data_ptr(),
+        plan.lnd.data_ptr(), cls_nodes.numel(),
+        nd.data_ptr(), tol.data_ptr(),
+        None if done is None else done.data_ptr(), cf.shape[1],
+        weights.binpack_weight, weights.binpack_cpu, weights.binpack_memory,
+        weights.binpack_scalar, weights.least_requested_weight,
+        weights.balanced_resource_weight,
+        plan.plane_len, plan.tlist.data_ptr(), chosen.data_ptr(),
+        None if stats is None else stats.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream, _device_index(device),
+    )
+    if err != 0:
+        raise RuntimeError(f"session kernel launch failed: {lib.vt_error_string(err).decode()}")
+    LAUNCHES += 1
+    return chosen
+
+
+def _pass(taskrow, cf, nd, tol, cls_off, cls_nodes, weights, done, stats,
+          plan: Optional[LaunchPlan]) -> torch.Tensor:
+    """One pass on checked operands: the kernel on CUDA tensors, by
+    ``plan``; the plain version on CPU tensors (``plan`` None), which
+    counts no steps."""
+    if taskrow.device.type == "cpu":
+        if stats is not None:
+            raise ValueError("stats counts the kernel's steps; a pass on CPU tensors has none")
+        return session_pass_reference(taskrow, cf, nd, tol, cls_off, cls_nodes, weights, done)
+    return _launch(taskrow, cf, nd, tol, cls_off, cls_nodes, weights, done, stats, plan)
 
 
 def session_pass_cuda(
@@ -325,38 +479,19 @@ def session_pass_cuda(
     cf: torch.Tensor,
     nd: torch.Tensor,
     tol: torch.Tensor,
+    cls_off: torch.Tensor,
+    cls_nodes: torch.Tensor,
     weights: ScoreWeights = DEFAULT_WEIGHTS,
     done: Optional[torch.Tensor] = None,
+    stats: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One greedy pass → chosen[T] i32.  On CUDA tensors it launches the
-    kernel (or raises); on CPU tensors it runs the plain version."""
-    global LAUNCHES
-    _check_pass_args(taskrow, cf, nd, tol, weights, done)
-    if taskrow.device.type == "cpu":
-        return session_pass_reference(taskrow, cf, nd, tol, weights, done)
-    if taskrow.device.type != "cuda":
-        raise ValueError(f"session_pass_cuda takes cuda or cpu tensors, not {taskrow.device}")
-    T, RC = taskrow.shape
-    chosen = torch.empty(T, dtype=torch.int32, device=taskrow.device)
-    if T == 0:
-        return chosen
-    lib = _library()
-    device = taskrow.device
-    err = lib.vt_session_pass(
-        taskrow.data_ptr(), T, RC - 2,
-        cf.data_ptr(), cf.shape[0],
-        nd.data_ptr(), tol.data_ptr(),
-        None if done is None else done.data_ptr(), cf.shape[1],
-        weights.binpack_weight, weights.binpack_cpu, weights.binpack_memory,
-        weights.binpack_scalar, weights.least_requested_weight,
-        weights.balanced_resource_weight,
-        chosen.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
-        device.index if device.index is not None else torch.cuda.current_device(),
-    )
-    if err != 0:
-        raise RuntimeError(f"session kernel launch failed: {lib.vt_error_string(err).decode()}")
-    LAUNCHES += 1
-    return chosen
+    kernel (or raises), and ``stats`` (i32 [2]) receives the counts named
+    by STATS; on CPU tensors it runs the plain version, and takes no
+    ``stats``."""
+    max_len = _check_pass_args(taskrow, cf, nd, tol, cls_off, cls_nodes, weights, done, stats)
+    plan = launch_plan(taskrow, cf, nd, cls_nodes, max_len)
+    return _pass(taskrow, cf, nd, tol, cls_off, cls_nodes, weights, done, stats, plan)
 
 
 def step_latency_probe(taskrow: torch.Tensor, reps: int = 4096) -> dict:
@@ -376,8 +511,7 @@ def step_latency_probe(taskrow: torch.Tensor, reps: int = 4096) -> dict:
     lib = _library()
     err = lib.vt_step_probe(
         taskrow.data_ptr(), T, RC, reps, out.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream,
-        device.index if device.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(device).cuda_stream, _device_index(device),
     )
     if err != 0:
         raise RuntimeError(f"step probe launch failed: {lib.vt_error_string(err).decode()}")
@@ -388,6 +522,33 @@ def step_latency_probe(taskrow: torch.Tensor, reps: int = 4096) -> dict:
     )
 
 
+def score_latency_probe(nd: torch.Tensor, taskrow: torch.Tensor, tol: torch.Tensor,
+                        weights: ScoreWeights = DEFAULT_WEIGHTS, reps: int = 2048) -> dict:
+    """SM cycles of one node's score (``vt_score_probe``, R = 2), scored
+    for ``taskrow``'s first row, each node dependent on the score before:
+    on one thread with the node planes from L2 (``l2``), from L1 (``l1``)
+    and already in registers (``score``); and per node with all 1024
+    threads scoring at once from registers (``block``: near ``score``
+    where latency binds, above it where the SM's issue rate does).  Not a
+    pass: ``LAUNCHES`` does not count it."""
+    if taskrow.device.type != "cuda" or taskrow.shape[1] != 4:
+        raise ValueError("score_latency_probe takes cuda operands with R = 2")
+    device = taskrow.device
+    out = torch.zeros(5, dtype=torch.int64, device=device)
+    lib = _library()
+    err = lib.vt_score_probe(
+        nd.data_ptr(), taskrow[0].contiguous().data_ptr(), tol.data_ptr(), nd.shape[1], reps,
+        weights.binpack_weight, weights.binpack_cpu, weights.binpack_memory,
+        weights.binpack_scalar, weights.least_requested_weight,
+        weights.balanced_resource_weight, out.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream, _device_index(device),
+    )
+    if err != 0:
+        raise RuntimeError(f"score probe launch failed: {lib.vt_error_string(err).decode()}")
+    c = out.cpu().tolist()
+    return dict(l2=c[0] / reps, l1=c[1] / reps, score=c[2] / reps, block=c[3] / (reps // 8))
+
+
 # ---- the session: gang fixpoint around the kernel ----
 
 def schedule_session_cuda(
@@ -395,6 +556,8 @@ def schedule_session_cuda(
     cf: torch.Tensor,  # [C, NK] u8
     nd: torch.Tensor,  # [3R+2, NK] f32
     tol: torch.Tensor,  # [R] f32
+    cls_off: torch.Tensor,  # [C+1] i32
+    cls_nodes: torch.Tensor,  # [sum L_c] i32
     task_job: torch.Tensor,  # [T] i64 → job row
     job_min_avail: torch.Tensor,  # [J] i32
     job_ready: torch.Tensor,  # [J] i32
@@ -407,17 +570,21 @@ def schedule_session_cuda(
 
     Each round re-runs the pass with the tasks of non-ready jobs
     deactivated; a round whose active set is stable sets ``done``, and
-    the launches after it return at once.  No host sync between rounds.
+    the launches after it return at once.  The operands are checked
+    and the launches planned (``launch_plan``) once, before the first
+    launch; no host sync between rounds.
     ``taskrow``'s active column is updated in place."""
     R = taskrow.shape[1] - 2
     J = job_min_avail.shape[0]
     active = active0
     taskrow[:, R + 1] = active.to(torch.float32)
     done = torch.zeros(1, dtype=torch.int32, device=taskrow.device)
+    max_len = _check_pass_args(taskrow, cf, nd, tol, cls_off, cls_nodes, weights, done, None)
+    plan = launch_plan(taskrow, cf, nd, cls_nodes, max_len)
     chosen = torch.full((taskrow.shape[0],), -1, dtype=torch.int32, device=taskrow.device)
     committed = torch.zeros(taskrow.shape[0], dtype=torch.bool, device=taskrow.device)
     for _ in range(gang_rounds):
-        fresh = session_pass_cuda(taskrow, cf, nd, tol, weights, done)
+        fresh = _pass(taskrow, cf, nd, tol, cls_off, cls_nodes, weights, done, None, plan)
         chosen = torch.where(done.bool(), chosen, fresh)
         placed = chosen >= 0
         assigned = torch.zeros(J, dtype=torch.int32, device=taskrow.device).index_add_(
@@ -456,6 +623,8 @@ def run_packed_cuda(
         torch.from_numpy(arrays["cf_u8"]).to(dev),
         torch.from_numpy(arrays["nd"]).to(dev),
         torch.from_numpy(arrays["tol"]).to(dev),
+        torch.from_numpy(arrays["cls_off"]).to(dev),
+        torch.from_numpy(arrays["cls_nodes"]).to(dev),
         torch.from_numpy(task_job).to(dev),
         torch.from_numpy(snap.job_min_available.astype(np.int32)).to(dev),
         torch.from_numpy(snap.job_ready_count.astype(np.int32)).to(dev),
