@@ -13,18 +13,22 @@ Phases, each of which fails the run:
      10,000 nodes, 16,384 nodes where the masked-score plane does not
      fit, inactive rows inside gangs, repeated rows after a -1 pick),
      each with the plane the wrapper picks and again with the plane off;
-     the preempt kernel (``evicted``, ``pipelined`` and its counts equal)
-     on small generated sessions and on copies edited to reach each of
-     its branches (PREEMPT_EDITS);
+     the preempt kernel (``evicted``, ``pipelined`` and its counts equal;
+     its fast attempts equal to the count the host makes from the plain
+     pass's fired attempts and rollbacks) on small generated sessions and
+     on copies edited to reach each of its branches (PREEMPT_EDITS), each
+     with the plane the wrapper picks and again with the plane off;
   3. main paths — ``execute_allocate(snap)`` with no device at full width
      (50k pods x 10k nodes, then 10k x 1k), and ``execute_preempt(pk)``
      with no device on 100k pods (90k victims + 10k preemptors) x 10k
      nodes: each must run through its kernel (launch count > 0, executor
      ``cuda``) and equal the port's PyTorch specification (and, for
      preempt, the plain pass) on the same session; the session kernel's
-     fast steps must equal the repeated rows counted on the host; latency,
-     kernel time (plane on and off), bounds, latency floor and the probes
-     are printed beside the card's name and power limit.
+     fast steps must equal the repeated rows counted on the host, the
+     preempt kernel's fast attempts the host's count, and each kernel
+     with its plane off must equal the pass with it; latency, kernel time
+     (plane on and off), bounds, latency floors and the probes are printed
+     beside the card's name and power limit.
 Then one JSON line listing each kernel with its launches, its match with
 the plain version, its time, the plain version's time, its bound by
 bytes and operations and its latency floor (the serial chain, timed link
@@ -85,15 +89,33 @@ def validate_ops(R: int) -> int:
     return 3 * R + 2 * max(R - 2, 0) + 5
 
 
-#: dependent global loads in the serial chain of preempt_pass_kernel,
-#: counted from csrc/preempt_kernel.cu: every slot thread 0 walks reads
-#: its schedule row, then the job's cursor/ready/waiting/min_available
-#: (2); a fired attempt adds the task row, the sweep of one node (victim
-#: job, then its job-table row) and the drain (the node's column, then
-#: its victims' job rows): 5 more, beside 2 block barriers, 2 shared
-#: round trips and the two argmax halves
+#: dependent global loads in the serial chain of the preempt kernel
+#: before its redesign, the latency floor as first defined: every slot
+#: thread 0 walks reads its schedule row, then the job's cursor/ready/waiting/
+#: min_available (2); a fired attempt adds the task row, the sweep of one
+#: node (victim job, then its job-table row) and the drain (the node's
+#: column, then its victims' job rows): 5 more, beside 2 block barriers,
+#: 2 shared round trips and the two argmax halves
 SLOT_LOADS = 2
 FIRED_LOADS = 5
+
+#: the same for the redesigned kernel's chain, counted from
+#: csrc/preempt_step.cuh: a slot's row is loaded a slot ahead, so a slot
+#: is the job's cursor and counts, loaded together (1); a fired attempt
+#: adds the task row with the job's priority, queue and victim flag (1),
+#: its queue's list bounds (1) and the drain, which loads before it stores
+#: and keeps the node's state in registers: per chunk of PREEMPT_CHUNK
+#: listed slots, the slot planes, then the eviction flags and ready
+#: counts (2; the node's id and state load beside the first chunk's) —
+#: beside the same barriers, round trips and argmax halves
+CHAIN_SLOT_LOADS = 1
+PREEMPT_CHUNK = 4  # vt::kChunk
+
+
+def chain_fired_loads(KQ: int) -> int:
+    """Dependent loads a fired attempt adds to the chain (see above)."""
+    return 2 + 2 * -(-KQ // PREEMPT_CHUNK)
+
 
 MAIN_CONFIG = "50k_pods_10k_nodes_gang_predicates"
 SECOND_CONFIG = "10k_pods_1k_nodes_fairshare"
@@ -199,6 +221,30 @@ def _edit_rollback(pk):
     pk.job_min_avail[rows] = pk.job_ptask_end[rows] - pk.job_ptask_start[rows] + 1
 
 
+def _edit_owns_victims(pk):
+    """Every third preemptor job owns the victims of one victim job of its
+    queue, as running tasks (its ready count and min_available raised by
+    their number, so it still fires five attempts): the wide key must not
+    carry the plane to or from those jobs."""
+    pjobs = np.flatnonzero(pk.job_ptask_end > pk.job_ptask_start)
+    vic_job = pk.vic_job[: pk.n_victims]
+    n_vjobs = int(vic_job.max()) + 1
+    for i, j in enumerate(pjobs[::3]):
+        same = np.flatnonzero(pk.job_queue[:n_vjobs] == pk.job_queue[j])
+        mine = vic_job == same[i % len(same)]
+        vic_job[mine] = j
+        pk.job_ready0[j] += int(mine.sum())
+        pk.job_min_avail[j] += int(mine.sum())
+
+
+def _edit_mixed_priority(pk):
+    """Consecutive preemptor jobs of each queue alternate between priority
+    100 and 150: the wide key must not carry the plane across them."""
+    pjobs = np.flatnonzero(pk.job_ptask_end > pk.job_ptask_start)
+    for q in np.unique(pk.job_queue[pjobs]):
+        pk.job_prio[pjobs[pk.job_queue[pjobs] == q][1::2]] = 150
+
+
 #: phase 2 edited sessions: (name, base arguments, edit)
 PREEMPT_EDITS = [
     ("sensitive-gang", dict(n_victims=2_400, n_nodes=300, n_preemptors=400, seed=11),
@@ -215,6 +261,10 @@ PREEMPT_EDITS = [
      _edit_labels),
     ("rollback", dict(n_victims=2_400, n_nodes=300, n_preemptors=400, seed=17),
      _edit_rollback),
+    ("owns-victims", dict(n_victims=2_400, n_nodes=300, n_preemptors=400, seed=18),
+     _edit_owns_victims),
+    ("mixed-priority", dict(n_victims=2_400, n_nodes=300, n_preemptors=400, seed=19),
+     _edit_mixed_priority),
 ]
 
 
@@ -415,35 +465,104 @@ def preempt_inputs(pk, device):
     return ship_arrays(arrays, device), dims
 
 
-def run_preempt_pass(fn, inputs):
-    """(evicted, pipelined, stats list) of one pass of ``fn``."""
+def preempt_launch(inputs, plane: bool):
+    """``fn(stats=None)`` launching one pass of the preempt kernel on
+    ``inputs``, with the plane the wrapper picks or with the plane off
+    (every attempt sweeps its queue's list); the operands checked and the
+    victim lists derived once, as the wrapper does at each call."""
+    from volcano_tpu_torch.ops.kernels import DEFAULT_WEIGHTS
+    from volcano_tpu_torch.ops.preempt_kernel import (
+        _check_pass_args,
+        _launch,
+        KERNEL_STATS,
+        plan_plane,
+        victim_lists,
+    )
+
+    _check_pass_args(*inputs, DEFAULT_WEIGHTS, None, len(KERNEL_STATS))
+    lists = victim_lists(inputs[6], inputs[7][1])
+    plane_len = plan_plane(lists["longest"]) if plane else 0
+    return lambda stats=None: _launch(inputs, lists, DEFAULT_WEIGHTS, stats, plane_len)
+
+
+def run_preempt_kernel(inputs, plane_off: bool = False):
+    """(evicted, pipelined, KERNEL_STATS counts) of one kernel pass:
+    through the wrapper, with the plane it picks, or with the plane off."""
     import torch
 
-    stats = torch.zeros(4, dtype=torch.int32, device=inputs[0].device)
-    ev, pipe = fn(*inputs, stats=stats)
+    from volcano_tpu_torch.ops.preempt_kernel import KERNEL_STATS, preempt_pass_cuda
+
+    stats = torch.zeros(len(KERNEL_STATS), dtype=torch.int32, device=inputs[0].device)
+    if plane_off:
+        ev, pipe = preempt_launch(inputs, plane=False)(stats)
+    else:
+        ev, pipe = preempt_pass_cuda(*inputs, stats=stats)
     torch.cuda.synchronize()
     return ev, pipe, stats.cpu().tolist()
 
 
-def phase_preempt_kernel_vs_plain() -> None:
+def run_preempt_plain(inputs, dims):
+    """(evicted, pipelined, STATS counts, events, fast-path flags) of the
+    plain pass: its fired attempts, picks and rollbacks in order, and for
+    each fired attempt whether the kernel with its plane takes the fast
+    path, counted on the host."""
     import torch
 
     from volcano_tpu_torch.ops.preempt_kernel import (
-        preempt_pass_cuda,
+        fast_attempts,
         preempt_pass_reference,
         STATS,
     )
 
+    stats = torch.zeros(len(STATS), dtype=torch.int32, device=inputs[0].device)
+    events = []
+    ev, pipe = preempt_pass_reference(*inputs, stats=stats, events=events)
+    torch.cuda.synchronize()
+    fast = fast_attempts(events, inputs[1], inputs[7], inputs[6], dims["SC"])
+    return ev, pipe, stats.cpu().tolist(), events, fast
+
+
+def check_preempt_kernel(inputs, dims, name: str, plain=None):
+    """The kernel with its plane and with the plane off against the plain
+    pass (``plain``: run_preempt_plain's result, made here if None):
+    ``evicted``, ``pipelined``, the four shared counts, and the fast
+    attempts against the host's count (none with the plane off).  Returns
+    (evicted, pipelined, kernel counts with the plane)."""
+    import torch
+
+    ev_ref, pipe_ref, stats_ref, _, fast = plain or run_preempt_plain(inputs, dims)
+    out = None
+    for plane_off in (False, True):
+        ev, pipe, stats = run_preempt_kernel(inputs, plane_off)
+        what = f"{name}, plane {'off' if plane_off else 'on'}"
+        check(torch.equal(ev, ev_ref) and torch.equal(pipe, pipe_ref),
+              f"preempt kernel != plain version on {what}")
+        want = stats_ref + [0 if plane_off else sum(fast)]
+        check(stats == want, f"preempt kernel counts {stats} != {want} (plain, host) on {what}")
+        out = out or (ev, pipe, stats)
+    return out
+
+
+def list_dims(inputs) -> str:
+    """The victim lists' sizes the wrapper derives for ``inputs``."""
+    from volcano_tpu_torch.ops.preempt_kernel import plan_plane, victim_lists
+
+    lists = victim_lists(inputs[6], inputs[7][1])
+    KQ, LQ = lists["qslot"].shape
+    return (f"Q {lists['qoff'].numel() - 1}, KQ {KQ}, LQ {LQ}, longest list "
+            f"{lists['longest']} (plane {plan_plane(lists['longest'])})")
+
+
+def phase_preempt_kernel_vs_plain() -> None:
+    from volcano_tpu_torch.ops.preempt_kernel import KERNEL_STATS
+
     for name, pk in preempt_sessions():
         inputs, dims = preempt_inputs(pk, "cuda")
-        ev, pipe, stats = run_preempt_pass(preempt_pass_cuda, inputs)
-        ev_ref, pipe_ref, stats_ref = run_preempt_pass(preempt_pass_reference, inputs)
-        check(torch.equal(ev, ev_ref) and torch.equal(pipe, pipe_ref),
-              f"preempt kernel != plain version on {name}")
-        check(stats == stats_ref, f"preempt kernel counts {stats} != plain {stats_ref} on {name}")
-        counts = ", ".join(f"{k} {v}" for k, v in zip(STATS, stats))
-        print(f"preempt kernel == plain: {name} (K {dims['K']}, SC {dims['SC']}, C "
-              f"{dims['C']}; {counts}; pipelined {int((pipe >= 0).sum())})")
+        _, pipe, stats = check_preempt_kernel(inputs, dims, name)
+        counts = ", ".join(f"{k} {v}" for k, v in zip(KERNEL_STATS, stats))
+        print(f"preempt kernel == plain, plane on and off: {name} (K {dims['K']}, "
+              f"{list_dims(inputs)}, SC {dims['SC']}, C {dims['C']}; {counts}; pipelined "
+              f"{int((pipe >= 0).sum())})")
 
 
 def phase_preempt_main_path(card: str) -> dict:
@@ -452,10 +571,10 @@ def phase_preempt_main_path(card: str) -> dict:
     from volcano_tpu_torch.ops import preempt_kernel
     from volcano_tpu_torch.ops.executor import execute_preempt, last_preempt_executor
     from volcano_tpu_torch.ops.preempt_kernel import (
+        KERNEL_STATS,
         prepare_preempt_arrays,
         preempt_pass_cuda,
-        preempt_pass_reference,
-        STATS,
+        victim_lists,
     )
     from volcano_tpu_torch.ops.preempt_pack import preempt_dense
     from volcano_tpu_torch.ops.synthetic import BASELINE_CONFIGS, generate_preempt_packed
@@ -510,75 +629,139 @@ def phase_preempt_main_path(card: str) -> dict:
     prep_ms = statistics.median(prep) * 1e3
 
     inputs, dims = preempt_inputs(pk, "cuda")
-    pass_ms = kernel_ms(lambda: preempt_pass_cuda(*inputs), reps=3)
+    pass_ms = kernel_ms(lambda: preempt_pass_cuda(*inputs), reps=5)
+    launch_ms = kernel_ms(preempt_launch(inputs, plane=True), reps=5)
     print(f"{name}: session median {med_ms:.3f} ms, max {max(lat) * 1e3:.3f} ms over "
           f"{WARM_RUNS} warm runs (host prepare {prep_ms:.3f} ms); kernel {pass_ms:.3f} ms "
-          f"per pass; {launches} launch per session; card {card}")
+          f"per pass through the wrapper ({launch_ms:.3f} ms the launch alone, the rest the "
+          f"victim lists); {launches} launch per session; card {card}")
 
-    # the plain version on the same operands, and the counts of the pass
-    ev, pipe, stats = run_preempt_pass(preempt_pass_cuda, inputs)
+    # the plain version on the same operands, the counts of the pass, the
+    # fast attempts against the host's count, and the plane-off pass
     t0 = time.perf_counter()
-    ev_ref, pipe_ref, stats_ref = run_preempt_pass(preempt_pass_reference, inputs)
+    plain = run_preempt_plain(inputs, dims)
     plain_ms = (time.perf_counter() - t0) * 1e3
+    ev_ref, pipe_ref, _, events, fast = plain
+    ev, pipe, stats = check_preempt_kernel(inputs, dims, name, plain)
     err = max(int((ev.long() - ev_ref.long()).abs().max()),
               int((pipe.long() - pipe_ref.long()).abs().max()))
-    check(err == 0 and stats == stats_ref, f"{name}: preempt kernel != plain version")
     vic_slot = prepare_preempt_arrays(pk)[2]
     check(np.array_equal(ev.cpu().numpy()[vic_slot[:V], pk.vic_node[:V]] > 0, evicted),
           f"{name}: plain pass != execute_preempt")
-    counts = dict(zip(STATS, stats))
+    off_ms = kernel_ms(preempt_launch(inputs, plane=False), reps=3)
+    counts = dict(zip(KERNEL_STATS, stats))
+    share = counts["fast"] / max(counts["fired"], 1)
 
-    by_bytes, by_ops = preempt_bound_ms(inputs, (ev, pipe), counts["fired"], pk.base.n_nodes,
-                                        dims)
+    lists = victim_lists(inputs[6], inputs[7][1])
+    by_bytes, by_ops, by_ops_first = preempt_bound_ms(inputs, lists, (ev, pipe), events, fast,
+                                                      pk.base.n_nodes, dims)
     bound_ms, bound_by = max((by_bytes, "bytes"), (by_ops, "operations"))
-    floor_ms, probe, per_fired, per_slot = preempt_latency_floor_ms(
-        inputs, counts["fired"])
-    binding = max((floor_ms, "latency floor"), (by_ops, "operations"), (by_bytes, "bytes"))[1]
+    floor = preempt_latency_floor_ms(inputs, counts["fired"], lists["qslot"].shape[0])
+    binding = max((floor["chain_ms"], "chain floor"), (by_ops, "operations"),
+                  (by_bytes, "bytes"))[1]
     S = inputs[0].shape[0]
+    n_fast, n_full = counts["fast"], counts["fired"] - counts["fast"]
     print(f"{name}: {S} slots; " + ", ".join(f"{k} {v}" for k, v in counts.items())
-          + f"; K {dims['K']}, NK {dims['NK']}, J {dims['J']}, C {dims['C']}, SC {dims['SC']}")
+          + f" (fast == the host's count from the plain pass); K {dims['K']}, "
+          f"{list_dims(inputs)}, NK {dims['NK']}, J {dims['J']}, C {dims['C']}, SC "
+          f"{dims['SC']}")
+    print(f"{name}: fast attempts {n_fast}/{counts['fired']} ({share:.5f}); plane off "
+          f"{off_ms:.3f} ms per pass ({off_ms * 1e6 / max(counts['fired'], 1):.1f} ns per "
+          f"attempt, every one full), plane on {pass_ms:.3f} ms "
+          f"({pass_ms * 1e6 / max(counts['fired'], 1):.1f} ns per attempt); {n_full} full "
+          f"attempts; card {card}")
     print(f"{name}: plain version {plain_ms:.3f} ms per pass; bound {by_bytes:.6f} ms by "
-          f"bytes, {by_ops:.6f} ms by operations; latency floor {floor_ms:.3f} ms "
-          f"({per_fired:.1f} cycles per fired attempt, {per_slot:.1f} per slot at "
-          f"{probe['ns_per_cycle']:.4f} ns per cycle); binding: {binding}; card {card}")
+          f"bytes, {by_ops:.6f} ms by operations (every attempt full over every node, as "
+          f"first counted: {by_ops_first:.6f}); chain floor {floor['chain_ms']:.3f} ms "
+          f"({floor['chain_fired']:.1f} cycles per fired attempt, {floor['chain_slot']:.1f} "
+          f"per slot); latency floor as first defined {floor['first_ms']:.3f} ms "
+          f"({floor['first_fired']:.1f}, {floor['first_slot']:.1f}) at "
+          f"{floor['ns_per_cycle']:.4f} ns per cycle; binding: {binding}; card {card}")
     return dict(launches=launches, ms=pass_ms, max_abs_err=err, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, latency_floor_ms=floor_ms)
+                bound_ms=bound_ms, bound_by=bound_by, latency_floor_ms=floor["first_ms"],
+                chain_floor_ms=floor["chain_ms"], fast_attempt_share=share,
+                plane_off_ms=off_ms)
 
 
-def preempt_bound_ms(inputs, outputs, fired: int, n_nodes: int, dims) -> tuple:
-    """(ms by bytes, ms by operations) of one preempt pass on these
-    inputs: each operand read once and each output written once over
-    HBM; the f32 operations this run's data needs — for each attempt
-    that fired, eligibility on every occupied victim slot of the real
-    nodes and validation on every real node, and the static score once
-    per score class (per fired attempt when it is scored inline)."""
-    vjob = inputs[6]
+def preempt_bound_ms(inputs, lists, outputs, events, fast, n_nodes: int, dims) -> tuple:
+    """(ms by bytes, ms by operations, ms by operations as first counted)
+    of one preempt pass on these inputs.
+
+    Bytes: each operand the kernel reads once and each output written once
+    over HBM (the victim lists ``lists`` are derived from them).
+    Operations, counted attempt by attempt from what this run's
+    data needs (the plain pass's ``events``, and ``fast``, the host's
+    fast-path flag of each fired attempt): a full attempt needs
+    eligibility on every slot its queue's list holds and validation on
+    every listed node; a fast attempt needs them only on its dirty nodes
+    (the last pick, and the nodes of an evicted victim's job whose
+    min_available is not 1) and one argmax compare per listed node; the
+    static score once per score class on every node some list holds (per
+    attempt on its listed nodes when scored inline).  As first counted:
+    every fired attempt full over every real node."""
     R, SC = dims["R"], dims["SC"]
     n_bytes = sum(x.numel() * x.element_size() for x in (*inputs, *outputs))
+    vjob, jobi, jobf = (x.cpu().numpy() for x in (inputs[6], inputs[7], inputs[8]))
+    qoff, qnode, qslot, jlo, jlist = (
+        lists[k].cpu().numpy() for k in ("qoff", "qnode", "qslot", "jlo", "jlist"))
+    per_pos = (qslot >= 0).sum(0)  # the listed slots at each list position
+    cum = np.concatenate([[0], np.cumsum(per_pos)])
+    Q = qoff.shape[0] - 1
+    node_ops = validate_ops(R)
+    flags = iter(fast)
+    ops, dirty, start, L = 0, [], 0, 0
+    for event in events:
+        if event[0] == "fire":
+            q = int(jobi[1][event[2]])
+            start, end = (int(qoff[q]), int(qoff[q + 1])) if 0 <= q < Q else (0, 0)
+            L = end - start
+            if next(flags):
+                ops += L + sum(int(per_pos[g]) * ELIG_OPS + node_ops for g in dirty)
+            else:
+                ops += int(cum[end] - cum[start]) * ELIG_OPS + L * node_ops
+            if SC == 0:
+                ops += L * score_ops(R)
+            dirty = []
+        elif event[0] == "pick":
+            n, jobs = event[1], event[2]
+            dirty = [start + int(np.searchsorted(qnode[start:start + L], n))]
+            for v in set(jobs):
+                if jobf[2][v] != 1.0:
+                    dirty += jlist[jlo[v]:jlo[v + 1]].tolist()
+    ops += SC * np.unique(qnode).shape[0] * score_ops(R)
+    fired = len(fast)
     occupied = int((vjob[:, :n_nodes] >= 0).sum())
-    score_rows = SC if SC > 0 else fired
-    ops = (fired * (occupied * ELIG_OPS + n_nodes * validate_ops(R))
-           + score_rows * n_nodes * score_ops(R))
-    return n_bytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    first = (fired * (occupied * ELIG_OPS + n_nodes * validate_ops(R))
+             + (SC if SC > 0 else fired) * n_nodes * score_ops(R))
+    return (n_bytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3,
+            first / F32_OPS_PER_S * 1e3)
 
 
-def preempt_latency_floor_ms(inputs, fired: int) -> tuple:
-    """(ms, probe, cycles per fired attempt, cycles per slot) — the preempt
-    pass's latency floor: every slot's walk (SLOT_LOADS dependent loads)
-    plus, per fired attempt, FIRED_LOADS more, two block barriers, two
-    shared round trips and the two argmax halves, each link timed by the
-    step probe on the card (a dependent load is its row stage, over the
-    pass's task rows; second of two probe runs, caches warm)."""
+def preempt_latency_floor_ms(inputs, fired: int, KQ: int) -> dict:
+    """The preempt pass's latency floors, each link timed by the step
+    probe on the card (a dependent load is its row stage, over the pass's
+    task rows; second of two probe runs, caches warm): ``chain_ms``, the
+    redesigned kernel's chain — every slot's walk (CHAIN_SLOT_LOADS
+    dependent loads) plus, per fired attempt, chain_fired_loads(KQ) more
+    (KQ: the most listed slots of a position), two block barriers, two
+    shared round trips and the two argmax halves; and
+    ``first_ms``, the floor as first defined, with SLOT_LOADS and
+    FIRED_LOADS.  Cycles per slot and per fired attempt beside them."""
     from volcano_tpu_torch.ops.session_kernel import step_latency_probe
 
     ptask = inputs[1]
     step_latency_probe(ptask)
     p = step_latency_probe(ptask)
-    per_slot = SLOT_LOADS * p["row_stage"]
-    per_fired = (FIRED_LOADS * p["row_stage"] + 2 * p["barrier"] + 2 * p["smem_round_trip"]
-                 + p["argmax_all"] + p["argmax_one"])
-    cycles = inputs[0].shape[0] * per_slot + fired * per_fired
-    return cycles * p["ns_per_cycle"] / 1e6, p, per_fired, per_slot
+    sync = 2 * p["barrier"] + 2 * p["smem_round_trip"] + p["argmax_all"] + p["argmax_one"]
+    out = dict(ns_per_cycle=p["ns_per_cycle"])
+    for name, slot_loads, fired_loads in (("chain", CHAIN_SLOT_LOADS, chain_fired_loads(KQ)),
+                                          ("first", SLOT_LOADS, FIRED_LOADS)):
+        per_slot = slot_loads * p["row_stage"]
+        per_fired = fired_loads * p["row_stage"] + sync
+        cycles = inputs[0].shape[0] * per_slot + fired * per_fired
+        out.update({f"{name}_ms": cycles * p["ns_per_cycle"] / 1e6, f"{name}_slot": per_slot,
+                    f"{name}_fired": per_fired})
+    return out
 
 
 def phase_main_path(name: str, card: str, compare_plain: bool) -> dict:
@@ -752,6 +935,9 @@ def main() -> int:
             "bound_ms": pre_rec["bound_ms"],
             "bound_by": pre_rec["bound_by"],
             "latency_floor_ms": pre_rec["latency_floor_ms"],
+            "chain_floor_ms": pre_rec["chain_floor_ms"],
+            "fast_attempt_share": pre_rec["fast_attempt_share"],
+            "plane_off_ms": pre_rec["plane_off_ms"],
             "library_ms": None,
         },
     ]

@@ -342,7 +342,7 @@ def test_plain_pass_matches_spec_on_edited_sessions(name):
     assert_same(want, preempt_dense(pk, device="cpu"))
     stats = torch.zeros(4, dtype=torch.int32)
     inputs = ship_arrays(prepare_preempt_arrays(pk)[0], torch.device("cpu"))
-    preempt_pass_cuda(*inputs, stats=stats)
+    preempt_pass_reference(*inputs, stats=stats)
     fired, picks, evictions, rollbacks = stats.tolist()
     assert_same(want, run_preempt_cuda(pk, device="cpu"))
     if name == "equal-priority":

@@ -21,9 +21,11 @@ NK = ceil(N/128)*128 columns:
   jobi   [3, J]      i32  first task (cursor) | queue | priority (clipped)
   jobf   [3, J]      f32  ready | waiting | min_available
   tol    [R]         f32
-Slot k of a node holds its k-th victim in eviction order.  The Pallas
-kernel's other victim planes (queue, priority, min_available, gang
-allowance, alive) are derived from ``vjob`` and the job tables.
+Slot k of a node holds its k-th victim in eviction order.  The wrapper
+derives the queue-compacted slot lists and the job -> position lists from
+``vjob`` on the card (``victim_lists``); the kernel builds its per-slot
+planes in list order from them at launch, and derives the Pallas kernel's
+other victim planes (gang allowance, alive) as it goes.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from volcano_tpu_torch.ops.session_kernel import (
     MAX_LANES,
     node_width,
     score_planes,
+    SMEM_LIMIT,
 )
 
 #: beyond this many distinct request rows the kernel scores inline
@@ -62,6 +65,22 @@ LAUNCHES = 0
 
 #: stats the kernel and its plain version count per pass
 STATS = ("fired", "picks", "evictions", "rollbacks")
+#: the kernel's stats: STATS, then the attempts that reused the plane
+KERNEL_STATS = STATS + ("fast",)
+
+#: the kernel's static shared memory: warp argmax slots (value, position),
+#: the firing task row, tolerance, the attempt (9 ints), its task and
+#: fast flag, the dirty set (2 ints)
+_STATIC_SMEM = 32 * 4 * 2 + (MAX_LANES + 2) * 4 + MAX_LANES * 4 + 9 * 4 + 2 * 4 + 2 * 4
+
+
+def plan_plane(max_len: int) -> int:
+    """Plane length of a pass whose longest queue list holds ``max_len``
+    positions: ``max_len`` where the plane of masked values fits one
+    block's shared memory beside the kernel's static state (the
+    repeated-attempt fast path runs), else 0 (every attempt sweeps its
+    list)."""
+    return max_len if max_len * 4 + _STATIC_SMEM <= SMEM_LIMIT else 0
 
 
 def preempt_f32_exact(pk: PreemptPacked) -> bool:
@@ -144,6 +163,66 @@ def _node_rows(arr: np.ndarray, NK: int) -> np.ndarray:
     n = min(NK, arr.shape[0])
     wide[:n] = arr[:n]
     return np.ascontiguousarray(wide.T)
+
+
+def victim_lists(vjob: torch.Tensor, job_queue: torch.Tensor) -> dict:
+    """The queue-compacted slot lists and the job -> position lists of the
+    victim slots ``vjob`` [K, NK] (job row, -1 empty), each job's queue
+    being ``job_queue[j]`` (>= 0), on vjob's device (three syncs).
+
+    Queue q's list holds, ascending, the nodes with a victim of q
+    (``qnode[qoff[q] : qoff[q+1]]``, Q = the highest victim queue + 1); at
+    list position g, ``qslot[:, g]`` holds those victims' slots in slot
+    order, -1 past the last (KQ = the most of one queue on one node).
+    ``jlist[jlo[j] : jlo[j+1]]`` holds, ascending, the list positions (in
+    job j's queue's list) of the nodes that hold a victim of j.  All i32;
+    ``longest`` is the longest list."""
+    K, NK = vjob.shape
+    J = job_queue.shape[0]
+    dev = vjob.device
+
+    def i32(x):
+        return x.to(torch.int32).contiguous()
+
+    ns, ks = torch.nonzero(vjob.t() >= 0, as_tuple=True)  # by node, then slot
+    V = ns.shape[0]
+    if V == 0:
+        empty = torch.zeros(0, dtype=torch.int32, device=dev)
+        return dict(qoff=torch.zeros(1, dtype=torch.int32, device=dev), qnode=empty,
+                    qslot=torch.full((1, 0), -1, dtype=torch.int32, device=dev),
+                    jlo=torch.zeros(J + 1, dtype=torch.int32, device=dev), jlist=empty,
+                    longest=0)
+    vj = vjob[ks, ns].long()
+    q = job_queue[vj].long()
+    order = torch.sort(q, stable=True).indices  # by queue, node, slot
+    ks, ns, vj, q = ks[order], ns[order], vj[order], q[order]
+    new = torch.ones(V, dtype=torch.bool, device=dev)
+    new[1:] = (ns[1:] != ns[:-1]) | (q[1:] != q[:-1])
+    pos = torch.cumsum(new, 0) - 1  # each slot's list position
+    idx = torch.arange(V, device=dev)
+    kk = idx - torch.cummax(torch.where(new, idx, 0), 0).values  # rank at its position
+    jorder = torch.sort(vj, stable=True).indices  # by job, then position
+    jv, jpos = vj[jorder], pos[jorder]
+    keep = torch.ones(V, dtype=torch.bool, device=dev)
+    keep[1:] = (jv[1:] != jv[:-1]) | (jpos[1:] != jpos[:-1])  # one entry per node
+    sizes = torch.stack([pos[-1] + 1, q[-1] + 1, kk.max() + 1, keep.sum(), q[0]]).tolist()
+    LQ, Q, KQ, JL, lowest = sizes
+    if lowest < 0:
+        raise ValueError("a victim's job has a negative queue row")
+    counts = torch.zeros(Q, dtype=torch.long, device=dev).index_add_(0, q, new.long())
+    qoff = torch.zeros(Q + 1, dtype=torch.long, device=dev)
+    qoff[1:] = torch.cumsum(counts, 0)
+    qnode = torch.empty(LQ, dtype=torch.long, device=dev)
+    qnode[pos] = ns  # every slot of a position writes its node
+    qslot = torch.full((KQ, LQ), -1, dtype=torch.int32, device=dev)
+    qslot[kk, pos] = i32(ks)
+    jcounts = torch.zeros(J, dtype=torch.long, device=dev).index_add_(0, jv, keep.long())
+    jlo = torch.zeros(J + 1, dtype=torch.long, device=dev)
+    jlo[1:] = torch.cumsum(jcounts, 0)
+    jlist = torch.empty(JL, dtype=torch.long, device=dev)
+    jlist[torch.cumsum(keep, 0) - 1] = jpos  # a repeat writes its entry's value again
+    return dict(qoff=i32(qoff), qnode=i32(qnode), qslot=qslot, jlo=i32(jlo), jlist=i32(jlist),
+                longest=int(counts.max()))
 
 
 def prepare_preempt_arrays(pk: PreemptPacked) -> Tuple[dict, dict, np.ndarray]:
@@ -282,13 +361,18 @@ def preempt_pass_reference(
     jobf: torch.Tensor, tol: torch.Tensor,
     weights: ScoreWeights = DEFAULT_WEIGHTS,
     stats: Optional[torch.Tensor] = None,
+    events: Optional[list] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One preempt pass → (evicted[K, NK] i32, pipelined[P] i32): a
-    Python loop over the slots on [·, NK] tensors, with a full shadow
-    copy of the state at every BEGIN.  The plain version of the CUDA
-    kernel, with the wrapper's signature; ``stats`` (i32 [4]) receives
-    the counts named by STATS."""
-    _check_pass_args(sched, ptask, screq, cf, nd, vr, vjob, jobi, jobf, tol, weights, stats)
+    Python loop over the slots on [·, NK] tensors, every node validated
+    at every attempt, with a full shadow copy of the state at every BEGIN.
+    The plain version of the CUDA kernel, with the wrapper's operands;
+    ``stats`` (i32 [4]) receives the counts named by STATS, and
+    ``events`` gets, in order, ("fire", task, job) for each attempt that
+    fires, ("pick", node, evicted victims' jobs) for each that picks a
+    node, and ("rollback", job) for each rollback."""
+    _check_pass_args(sched, ptask, screq, cf, nd, vr, vjob, jobi, jobf, tol, weights, stats,
+                     len(STATS))
     dev = ptask.device
     P, RC = ptask.shape
     R = RC - 2
@@ -363,6 +447,8 @@ def preempt_pass_reference(
             if elig_col[k] and not _fit(rr, fi_col + cum, tol_np):
                 cum = cum + vr_col[:, k]
                 gone.append(k)
+        if events is not None:
+            events.append(("pick", n, tuple(int(vjob_np[k, n]) for k in gone)))
         for k in gone:
             evicted[k, n] = 1
             ready[vjob_np[k, n]] -= np.float32(1.0)
@@ -388,6 +474,8 @@ def preempt_pass_reference(
             if cursor[j] == p and 0 <= p < P and not pipelined_job(j):
                 cursor[j] += 1
                 counts[0] += 1
+                if events is not None:
+                    events.append(("fire", p, j))
                 attempt(p, j)
         elif kind == K_END1:
             if not pipelined_job(j) and shadow is not None:
@@ -395,6 +483,8 @@ def preempt_pass_reference(
                 shadow = None
                 ready_t = torch.from_numpy(ready.copy()).to(dev)
                 counts[3] += 1
+                if events is not None:
+                    events.append(("rollback", j))
         elif kind == K_BURN2:
             if cursor[j] < p:
                 cursor[j] += 1
@@ -403,10 +493,37 @@ def preempt_pass_reference(
     return evicted, pipelined
 
 
+def fast_attempts(events: list, ptask: torch.Tensor, jobi: torch.Tensor, vjob: torch.Tensor,
+                  SC: int) -> list:
+    """For each fired attempt of the plain pass's ``events``, in order,
+    whether a pass with the plane takes it on the fast path: its key
+    (class, score class, priority, queue) equals the last fired attempt's,
+    from the same job or with neither job owning a victim slot, with no
+    rollback between them, and there are score planes (SC > 0)."""
+    R = ptask.shape[1] - 2
+    rows = ptask.cpu().numpy()
+    queue, prio = jobi[1].tolist(), jobi[2].tolist()
+    owns = [False] * jobi.shape[1]
+    for j in torch.unique(vjob[vjob >= 0]).tolist():
+        owns[j] = True
+    last, out = None, []
+    for event in events:
+        if event[0] == "rollback":
+            last = None
+        if event[0] != "fire":
+            continue
+        _, p, j = event
+        key = (int(rows[p, R]), int(rows[p, R + 1]), prio[j], queue[j])
+        out.append(SC > 0 and last is not None and key == last[0]
+                   and (j == last[1] or not (owns[j] or owns[last[1]])))
+        last = (key, j)
+    return out
+
+
 # ---- the kernel wrapper ----
 
-def _check_pass_args(sched, ptask, screq, cf, nd, vr, vjob, jobi, jobf, tol, weights,
-                     stats) -> None:
+def _check_pass_args(sched, ptask, screq, cf, nd, vr, vjob, jobi, jobf, tol, weights, stats,
+                     n_stats: int) -> None:
     """Validate one pass's operands; raise before anything launches."""
     if ptask.device.type not in ("cpu", "cuda"):
         raise ValueError(f"a preempt pass takes cuda or cpu tensors, not {ptask.device}")
@@ -434,7 +551,7 @@ def _check_pass_args(sched, ptask, screq, cf, nd, vr, vjob, jobi, jobf, tol, wei
         "tol": (tol, torch.float32, (R,)),
     }
     if stats is not None:
-        expect["stats"] = (stats, torch.int32, (4,))
+        expect["stats"] = (stats, torch.int32, (n_stats,))
     for name, (x, dtype, shape) in expect.items():
         if x.dtype != dtype or tuple(x.shape) != shape:
             raise ValueError(
@@ -466,21 +583,42 @@ def preempt_pass_cuda(
     stats: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One preempt pass → (evicted[K, NK] i32, pipelined[P] i32).  On
-    CUDA tensors it launches the kernel (or raises); on CPU tensors it
-    runs the plain version.  ``sched`` is build_schedule_slots' output:
-    a statement's slots are not interleaved with another's, which bounds
-    the kernel's undo journal by P attempts."""
-    global LAUNCHES
+    CUDA tensors it derives the victim lists on the card and launches the
+    kernel (or raises), with the plane where ``plan_plane`` fits it, and
+    ``stats`` (i32 [5]) receives the counts named by KERNEL_STATS; on CPU
+    tensors it runs the plain version, which takes no fast path, and
+    refuses ``stats``.  ``sched`` is build_schedule_slots' output: a
+    statement's slots are not interleaved with another's, which bounds the
+    kernel's undo journal by P attempts."""
     args = (sched, ptask, screq, cf, nd, vr, vjob, jobi, jobf, tol)
-    _check_pass_args(*args, weights, stats)
     if ptask.device.type == "cpu":
-        return preempt_pass_reference(*args, weights, stats)
+        if stats is not None:
+            raise ValueError("stats counts the kernel's attempts; a CPU pass runs the plain "
+                             "version (preempt_pass_reference takes STATS)")
+        return preempt_pass_reference(*args, weights)
+    _check_pass_args(*args, weights, stats, len(KERNEL_STATS))
+    lists = victim_lists(vjob, jobi[1])
+    if (ptask.shape[1] - 2) * lists["qslot"].numel() >= 2**31:
+        raise ValueError("the pass's per-slot planes exceed the kernel's 32-bit indexing")
+    return _launch(args, lists, weights, stats, plan_plane(lists["longest"]))
+
+
+def _launch(args, lists: dict, weights: ScoreWeights, stats: Optional[torch.Tensor],
+            plane_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch one pass on checked CUDA operands ``args`` (OPERANDS order)
+    and their ``victim_lists``, with a plane of ``plane_len`` values (0:
+    off)."""
+    global LAUNCHES
+    sched, ptask, screq, cf, nd, vr, vjob, jobi, jobf, tol = args
+    qoff, qnode, qslot, jlo, jlist = (lists[k] for k in ("qoff", "qnode", "qslot", "jlo", "jlist"))
     dev = ptask.device
     P, RC = ptask.shape
     R = RC - 2
     K, NK = vjob.shape
     J = jobi.shape[1]
     SC = screq.shape[0]
+    KQ, LQ = qslot.shape
+    KL = max(KQ * LQ, 1)
 
     def f32(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
@@ -490,23 +628,27 @@ def preempt_pass_cuda(
 
     scratch = dict(
         fi=f32(R, NK), ncnt=f32(NK), ready=f32(J), wait=f32(J), cursor=i32(J),
-        spre=f32(max(SC, 1), NK), jnode=i32(max(P, 1)), jvals=f32(max(P, 1), R + 1),
-        jevict=i32(max(P * K, 1)), jpipe=i32(max(P, 1)),
+        spre=f32(max(SC, 1), NK), lvj=i32(KL), lprio=i32(KL), lqueue=i32(KL), lmin=f32(KL),
+        lvr=f32(R, KL), jnode=i32(max(P, 1)), jvals=f32(max(P, 1), R + 1),
+        jevict=i32(max(P * K, 1)), jpipe=i32(max(P, 1)), dirty=i32(2 * KQ),
     )
     evicted = i32(K, NK)
     pipelined = i32(P)
     if stats is None:
-        stats = i32(4)
+        stats = i32(len(KERNEL_STATS))
     lib = _preempt_library()
     err = lib.vt_preempt_pass(
         sched.data_ptr(), sched.shape[0], ptask.data_ptr(), P, R, screq.data_ptr(), SC,
         cf.data_ptr(), cf.shape[0], nd.data_ptr(), vr.data_ptr(), vjob.data_ptr(), K,
         jobi.data_ptr(), jobf.data_ptr(), J, tol.data_ptr(), NK,
+        qoff.data_ptr(), qoff.numel() - 1, qnode.data_ptr(), LQ, qslot.data_ptr(), KQ,
+        jlo.data_ptr(), jlist.data_ptr(),
         weights.binpack_weight, weights.binpack_cpu, weights.binpack_memory,
         weights.binpack_scalar, weights.least_requested_weight,
-        weights.balanced_resource_weight,
+        weights.balanced_resource_weight, plane_len,
         *(scratch[k].data_ptr() for k in ("fi", "ncnt", "ready", "wait", "cursor", "spre",
-                                           "jnode", "jvals", "jevict", "jpipe")),
+                                           "lvj", "lprio", "lqueue", "lmin", "lvr", "jnode",
+                                           "jvals", "jevict", "jpipe", "dirty")),
         evicted.data_ptr(), pipelined.data_ptr(), stats.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
         dev.index if dev.index is not None else torch.cuda.current_device(),
@@ -527,9 +669,11 @@ def _preempt_library() -> ctypes.CDLL:
         p, i, p, i,  # screq, SC, cf, C
         p, p, p, i,  # nd, vr, vjob, K
         p, p, i, p, i,  # jobi, jobf, J, tol, NK
-        f, f, f, f, f, f,  # weights
+        p, i, p, i, p, i, p, p,  # qoff, Q, qnode, LQ, qslot, KQ, jlo, jlist
+        f, f, f, f, f, f, i,  # weights, plane_len
         p, p, p, p, p, p,  # fi, ncnt, ready, wait, cursor, spre
-        p, p, p, p,  # jnode, jvals, jevict, jpipe
+        p, p, p, p, p,  # lvj, lprio, lqueue, lmin, lvr
+        p, p, p, p, p,  # jnode, jvals, jevict, jpipe, dirty
         p, p, p,  # evicted, pipelined, stats
         p, i,  # stream, device
     ]
