@@ -28,8 +28,32 @@ Phases, each of which fails the run:
      preempt kernel's fast attempts the host's count, and each kernel
      with its plane off must equal the pass with it; latency, kernel time
      (plane on and off), bounds, latency floors and the probes are printed
-     beside the card's name and power limit.
-Then one JSON line listing each kernel with its launches, its match with
+     beside the card's name and power limit;
+  4. int mode and wide instance — the session kernel's int-exact
+     least-requested mode against its plain version on the phase 2
+     shapes at DGX H100 node sizes, plane on and off, and on a session
+     where the f32 and the int32 path pick different nodes; its wide
+     instance (node state in global memory, lanes counted at run time)
+     against its plain version on WIDE_CASES (20k nodes, f32 and int
+     mode; 9 and 5 lanes; 60k nodes in one list, the plane in global
+     memory and picks past list position 2^15), plane on and off;
+  5. this slice's cells — the DGX H100 cell (50k pods x 10k nodes of 224
+     threads and 2 TB) through ``execute_allocate`` on the kernel in int
+     mode, equal to the torch spec; the wide cell (50k x 20k nodes, node
+     state over one block's shared memory) through ``execute_allocate`` on
+     the wide instance, equal to the torch spec and, at full width, to
+     its plain version; a 9-lane session at 10k x 1k on the wide
+     instance, equal to the torch spec; ``run_packed_blocked`` (torch
+     ops, on no dispatch path) at 50k x 10k and on the wide cell, equal
+     to the kernel.  No kernel failure may be counted on any main path;
+  6. failures — the fault plane drives the breakers on the card: an
+     injected lowering failure or corrupt output raises ``ExecutorFailed``
+     and is counted, three open the breaker, the fourth call is refused
+     without a launch, the same for preempt-cuda; nothing runs in the
+     kernel's place; then the plane and the breakers are reset and a
+     clean session runs on the kernel again.
+Then one JSON line with the blocked formulation's times (torch ops, not
+a kernel), one JSON line listing each kernel with its launches, its match with
 the plain version, its time, the plain version's time, its bound by
 bytes and operations and its latency floor (the serial chain, timed link
 by link by the step probe), and as the last line the device record.
@@ -72,6 +96,16 @@ def score_ops(R: int) -> int:
     weights, their sum) are left out, and a division counts as one
     operation though it takes several instructions: the count is a floor."""
     return 8 * R + 48
+
+
+def score_ops_int(R: int) -> int:
+    """score_ops(R) with least-requested in int32 (vt::lr_lane_int): per
+    lane two saturating converts (3 each), the guard (3), subtract,
+    multiply, divide and the floor fix (2), the select: 15, 30 over two
+    lanes; the sum, its floor division by 2 (2) and the convert back: 34
+    in place of the f32 path's 35.  Counted at the f32 rate (the card's
+    int32 rate is not above it), so the count stays a floor."""
+    return score_ops(R) - 35 + 34
 
 
 #: f32 operations per occupied victim slot of one fired preempt attempt,
@@ -117,6 +151,24 @@ def chain_fired_loads(KQ: int) -> int:
     return 2 + 2 * -(-KQ // PREEMPT_CHUNK)
 
 
+#: NVIDIA DGX H100 nodes (2 x 56-core Xeon 8480C, 224 threads; 2 TB =
+#: 2,097,152 MiB of memory, whose x 10 is past 2^24: the int-exact mode)
+DGX_NODES = dict(node_cpu_milli=224_000, node_mem_mib=2_097_152)
+#: the DGX H100 cell: the main config's shape on DGX H100 nodes, nothing cut
+DGX_CONFIG = dict(n_tasks=50_000, n_nodes=10_000, gang_size=8, label_classes=8,
+                  taint_fraction=0.1, **DGX_NODES)
+#: the wide cell: 20,000 nodes, a large managed-Kubernetes cluster; at R = 2
+#: its node state, 3 x 20,096 x 4 = 241,152 bytes, is over one block's
+#: 232,448, so it runs on the session kernel's wide instance
+WIDE_CONFIG = dict(n_tasks=50_000, n_nodes=20_000, gang_size=8, label_classes=8,
+                   taint_fraction=0.1)
+#: the 9-lane session: the second config with 7 scalar lanes (device
+#: plugins) beside cpu and memory, more lanes than the shared layout takes
+LANES_SESSION = 9
+#: candidates a task tracks in the blocked formulation's runs here: its
+#: inner step is launch-bound, so 32 slots cost what 8 do and stop no
+#: block of the cells (8, the reference's default, stops most of them)
+BLOCKED_TOP_K = 32
 MAIN_CONFIG = "50k_pods_10k_nodes_gang_predicates"
 SECOND_CONFIG = "10k_pods_1k_nodes_fairshare"
 PREEMPT_CONFIG = "100k_pods_10k_nodes_preempt"
@@ -163,6 +215,21 @@ LIST_CASES = [
                                label_classes=4, taint_fraction=0.1), _edit_inactive_in_gangs),
     ("repeat-after-miss", dict(n_tasks=600, n_nodes=1_000, gang_size=8, seed=24,
                                label_classes=4), _edit_repeat_after_miss),
+]
+
+
+#: phase 4 sessions of the wide instance: (name, generate_snapshot
+#: arguments, lanes, int mode)
+WIDE_CASES = [
+    ("20k nodes", dict(n_tasks=2_000, n_nodes=20_000, gang_size=8, seed=31, label_classes=8,
+                       taint_fraction=0.1), 2, False),
+    ("20k DGX nodes, int mode", dict(n_tasks=2_000, n_nodes=20_000, gang_size=8, seed=32,
+                                     label_classes=8, taint_fraction=0.1, **DGX_NODES), 2, True),
+    ("9 lanes", dict(n_tasks=4_000, n_nodes=1_000, gang_size=4, seed=33), 9, False),
+    ("10k nodes, 5 lanes", dict(n_tasks=2_000, n_nodes=10_000, gang_size=8, seed=34,
+                                label_classes=8), 5, False),
+    ("60k nodes, one list: plane in global memory",
+     dict(n_tasks=400, n_nodes=60_000, gang_size=4, seed=35), 2, False),
 ]
 
 
@@ -308,15 +375,17 @@ def pass_inputs(snap, device):
 
 
 def plane_len(inputs) -> int:
-    """The wrapper's plane for these operands (0: the plane is off)."""
-    from volcano_tpu_torch.ops.session_kernel import plan_shared_memory
+    """The wrapper's plane for these operands (0: the plane is off); the
+    wide instance always keeps one."""
+    from volcano_tpu_torch.ops.session_kernel import plan_shared_memory, shared_layout
 
     taskrow, cf, _, _, cls_off, _ = inputs
-    return plan_shared_memory(taskrow.shape[1] - 2, cf.shape[1],
-                              int((cls_off[1:] - cls_off[:-1]).max()))
+    R, NK = taskrow.shape[1] - 2, cf.shape[1]
+    max_len = int((cls_off[1:] - cls_off[:-1]).max())
+    return plan_shared_memory(R, NK, max_len) if shared_layout(R, NK) else max_len
 
 
-def plane_off_launch(inputs):
+def plane_off_launch(inputs, weights=None):
     """``fn(stats=None)`` launching one pass of the session kernel on
     ``inputs`` with the plane off (every step sweeps its list), planned
     once as the wrapper plans its launches."""
@@ -325,21 +394,23 @@ def plane_off_launch(inputs):
 
     taskrow, cf, nd, _, _, cls_nodes = inputs
     plan = launch_plan(taskrow, cf, nd, cls_nodes, 0)._replace(plane_len=0)
-    return lambda stats=None: _launch(*inputs, DEFAULT_WEIGHTS, None, stats, plan)
+    w = weights or DEFAULT_WEIGHTS
+    return lambda stats=None: _launch(*inputs, w, None, stats, plan)
 
 
-def run_session_pass(inputs, plane_off: bool = False):
+def run_session_pass(inputs, plane_off: bool = False, weights=None):
     """(chosen, [full, fast]) of one kernel pass: through the wrapper,
     with the plane it picks, or with the plane off."""
     import torch
 
+    from volcano_tpu_torch.ops.kernels import DEFAULT_WEIGHTS
     from volcano_tpu_torch.ops.session_kernel import session_pass_cuda
 
     stats = torch.zeros(2, dtype=torch.int32, device=inputs[0].device)
     if plane_off:
-        chosen = plane_off_launch(inputs)(stats)
+        chosen = plane_off_launch(inputs, weights)(stats)
     else:
-        chosen = session_pass_cuda(*inputs, stats=stats)
+        chosen = session_pass_cuda(*inputs, weights=weights or DEFAULT_WEIGHTS, stats=stats)
     torch.cuda.synchronize()
     return chosen, stats.cpu().tolist()
 
@@ -360,7 +431,7 @@ def kernel_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def pass_bound_ms(inputs, chosen, n_nodes: int) -> tuple:
+def pass_bound_ms(inputs, chosen, n_nodes: int, int_mode: bool = False) -> tuple:
     """(ms by bytes, ms by operations, listed share) of one pass on these
     inputs.
 
@@ -388,7 +459,7 @@ def pass_bound_ms(inputs, chosen, n_nodes: int) -> tuple:
     repeat[1:] = (bits[1:] == bits[:-1]).all(1)
     picked = torch.zeros_like(live)
     picked[1:] = chosen[:-1] >= 0
-    node_ops = mask_ops(R) - 1 + score_ops(R)
+    node_ops = mask_ops(R) - 1 + (score_ops_int(R) if int_mode else score_ops(R))
     ops = (int(listed[~repeat].sum()) * node_ops
            + int(listed[repeat].sum()) + int((repeat & live & picked).sum()) * node_ops)
     share = int(listed.sum()) / max(int(live.sum()) * n_nodes, 1)
@@ -417,6 +488,7 @@ def latency_floor_ms(taskrow) -> tuple:
 
 def phase_build() -> None:
     from volcano_tpu_torch.ops import _build
+    from volcano_tpu_torch.ops.dispatch import last_executor, warmup_kernels
 
     t0 = time.perf_counter()
     path = _build.build()
@@ -427,6 +499,10 @@ def phase_build() -> None:
         for line in log.splitlines():
             if "ptxas info" in line or "spill" in line:
                 print(f"  {line.strip()}")
+    t0 = time.perf_counter()
+    executor = warmup_kernels()
+    check(executor == last_executor() == "cuda", f"warmup ran on {last_executor()!r}")
+    print(f"warmup_kernels: {executor}, {time.perf_counter() - t0:.3f} s")
 
 
 def phase_kernel_vs_plain() -> None:
@@ -841,7 +917,7 @@ def phase_main_path(name: str, card: str, compare_plain: bool) -> dict:
           f"{float(lens.mean()):.1f} nodes, longest {int(lens.max())} (plane {plane}); "
           f"plane off {off_ms:.3f} ms per pass, plane on {pass_ms:.3f}; card {card}")
 
-    record = dict(launches=launches, ms=pass_ms)
+    record = dict(launches=launches, ms=pass_ms, session_ms=med_ms, assignment=out)
     if compare_plain:
         t0 = time.perf_counter()
         plain = session_pass_reference(*inputs)
@@ -889,6 +965,438 @@ def phase_main_path(name: str, card: str, compare_plain: bool) -> dict:
     return record
 
 
+def int_weights():
+    """The default weights with least-requested in exact int32."""
+    from volcano_tpu_torch.ops.kernels import DEFAULT_WEIGHTS
+
+    return DEFAULT_WEIGHTS._replace(lr_int_exact=True)
+
+
+def phase_int_kernel_vs_plain() -> None:
+    """The session kernel's int-exact least-requested mode against its
+    plain version: every KERNEL_CASES shape at DGX H100 node sizes, with
+    the plane the wrapper picks and with it off; then the session where
+    the f32 path and the int path pick different nodes, in each mode."""
+    import torch
+
+    from volcano_tpu_torch.ops.executor import execute_allocate, last_allocate_executor
+    from volcano_tpu_torch.ops.kernels import DEFAULT_WEIGHTS
+    from volcano_tpu_torch.ops.session_kernel import repeated_rows, session_pass_reference
+    from volcano_tpu_torch.ops.synthetic import generate_lr_mode_split, generate_snapshot
+
+    w = int_weights()
+    for case in KERNEL_CASES:
+        name = f"generated {dict(case, **DGX_NODES)}"
+        inputs = pass_inputs(generate_snapshot(**dict(case, **DGX_NODES)), "cuda")
+        T = inputs[0].shape[0]
+        plane = plane_len(inputs)
+        want = session_pass_reference(*inputs, weights=w)
+        fast = repeated_rows(inputs[0]) if plane else 0
+        got, stats = run_session_pass(inputs, weights=w)
+        check(torch.equal(got, want), f"int mode: session kernel != plain version on {name}")
+        check(stats == [T - fast, fast], f"int mode, {name}: kernel counts {stats}")
+        off, off_stats = run_session_pass(inputs, plane_off=True, weights=w)
+        check(torch.equal(off, want) and off_stats == [T, 0],
+              f"int mode: session kernel, plane off, != plain version on {name}")
+        print(f"int mode: kernel == plain, plane {plane} and off: {name} "
+              f"({int((got >= 0).sum())} placed; full {stats[0]}, fast {stats[1]})")
+    inputs = pass_inputs(generate_lr_mode_split(), "cuda")
+    picks = []
+    for weights in (DEFAULT_WEIGHTS, w):
+        want = session_pass_reference(*inputs, weights=weights)
+        for plane_off in (False, True):
+            got, _ = run_session_pass(inputs, plane_off, weights)
+            check(torch.equal(got, want), f"lr-mode split: kernel != plain version "
+                                          f"(int {weights.lr_int_exact}, plane off {plane_off})")
+        picks.append(int(want[0]))
+    check(picks == [0, 1], f"lr-mode split: picks {picks}, expected node 0 in f32, 1 in int32")
+    # the entry point switches the kernel to int32 by itself outside the envelope
+    out = execute_allocate(generate_lr_mode_split())
+    check(out.tolist() == [1] and last_allocate_executor() == "cuda",
+          f"lr-mode split: execute_allocate gave {out.tolist()} on {last_allocate_executor()!r}")
+    print("int mode: lr-mode split session (2 nodes, outside the f32 envelope): kernel == "
+          "plain in each mode, plane on and off; f32 picks node 0, int32 node 1; "
+          "execute_allocate picks node 1 on cuda")
+
+
+def phase_wide_kernel_vs_plain() -> None:
+    """The session kernel's wide instance against its plain version on
+    WIDE_CASES, with its plane and with it off; every pass must launch
+    the wide instance."""
+    import torch
+
+    from volcano_tpu_torch.ops import session_kernel
+    from volcano_tpu_torch.ops.kernels import DEFAULT_WEIGHTS
+    from volcano_tpu_torch.ops.session_kernel import (
+        plan_wide,
+        repeated_rows,
+        session_pass_reference,
+        shared_layout,
+    )
+    from volcano_tpu_torch.ops.synthetic import add_scalar_lanes, generate_snapshot
+
+    for name, case, lanes, int_mode in WIDE_CASES:
+        snap = generate_snapshot(**case)
+        if lanes > 2:
+            add_scalar_lanes(snap, lanes - 2, case["seed"])
+        inputs = pass_inputs(snap, "cuda")
+        R, NK = lanes, inputs[1].shape[1]
+        check(not shared_layout(R, NK), f"wide {name}: the shared layout takes it")
+        w = int_weights() if int_mode else DEFAULT_WEIGHTS
+        T = inputs[0].shape[0]
+        plane = plane_len(inputs)
+        want = session_pass_reference(*inputs, weights=w)
+        fast = repeated_rows(inputs[0])
+        before = session_kernel.WIDE_LAUNCHES
+        got, stats = run_session_pass(inputs, weights=w)
+        check(session_kernel.WIDE_LAUNCHES == before + 1, f"wide {name}: not the wide instance")
+        check(torch.equal(got, want), f"wide instance != plain version on {name}")
+        check(stats == [T - fast, fast], f"wide {name}: kernel counts {stats}")
+        off, off_stats = run_session_pass(inputs, plane_off=True, weights=w)
+        check(torch.equal(off, want) and off_stats == [T, 0],
+              f"wide instance, plane off, != plain version on {name}")
+        where = "shared" if plan_wide(R, plane) else "global"
+        print(f"wide instance == plain, plane {plane} ({where} memory) and off: {name} "
+              f"(R {R}, NK {NK}, {int((got >= 0).sum())} placed, longest list "
+              f"{int((inputs[4][1:] - inputs[4][:-1]).max())}, highest pick {int(got.max())}; "
+              f"full {stats[0]}, fast {stats[1]})")
+
+
+def warm_sessions(snap, n: int, want) -> list:
+    """Host-clock seconds of ``n`` sessions through execute_allocate, each
+    paying its full host prepare and each equal to ``want``."""
+    import torch
+
+    from volcano_tpu_torch.ops.executor import execute_allocate
+
+    lat = []
+    for _ in range(n):
+        snap.__dict__.pop("_feas_classes_cache", None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = execute_allocate(snap)
+        lat.append(time.perf_counter() - t0)
+        check(np.array_equal(again, want), "warm session differs from the first")
+    return lat
+
+
+def phase_dgx_cell(card: str, f32_cell_ms: float) -> dict:
+    """The DGX H100 cell through execute_allocate: the kernel in its int
+    mode, equal to the torch spec on the card; its pass in int mode and,
+    on the same data, in f32 mode, beside the f32 cell's pass."""
+    import torch
+
+    from volcano_tpu_torch.ops import session_kernel
+    from volcano_tpu_torch.ops.executor import execute_allocate, last_allocate_executor
+    from volcano_tpu_torch.ops.kernels import f32_lr_exact, run_packed
+    from volcano_tpu_torch.ops.session_kernel import repeated_rows, session_pass_cuda
+    from volcano_tpu_torch.ops.synthetic import generate_snapshot
+
+    name = "dgx_h100_50k_pods_10k_nodes"
+    snap = generate_snapshot(**DGX_CONFIG)
+    check(not f32_lr_exact(snap), f"{name}: inside the f32 envelope")
+    torch.cuda.synchronize()
+    session_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = execute_allocate(snap)
+    first_s = time.perf_counter() - t0
+    launches = session_kernel.LAUNCHES
+    executor = last_allocate_executor()
+    check(launches > 0, f"{name}: the session kernel was not launched")
+    check(executor == "cuda", f"{name}: executor {executor!r}, expected 'cuda'")
+    t0 = time.perf_counter()
+    spec = run_packed(snap, device="cuda")
+    spec_s = time.perf_counter() - t0
+    check(np.array_equal(out, spec), f"{name}: assignment != torch spec run_packed (int32)")
+    lat = warm_sessions(snap, WARM_RUNS, out)
+    med_ms = statistics.median(lat) * 1e3
+
+    w = int_weights()
+    inputs = pass_inputs(snap, "cuda")
+    int_ms = kernel_ms(lambda: session_pass_cuda(*inputs, weights=w), reps=3)
+    f32_ms = kernel_ms(lambda: session_pass_cuda(*inputs), reps=3)
+    chosen, stats = run_session_pass(inputs, weights=w)
+    chosen_f32, _ = run_session_pass(inputs)
+    repeats = repeated_rows(inputs[0])
+    check(stats == [snap.n_tasks - repeats, repeats], f"{name}: kernel counts {stats}")
+    by_bytes, by_ops, _ = pass_bound_ms(inputs, chosen, snap.n_nodes, int_mode=True)
+    bound_ms, bound_by = max((by_bytes, "bytes"), (by_ops, "operations"))
+    print(f"{name}: assignment == torch spec run_packed in int32 ({spec_s:.3f} s to compute "
+          f"the spec); placed {int((out >= 0).sum())}/{snap.n_tasks}; first session "
+          f"{first_s * 1e3:.3f} ms; launches {launches}; executor {executor}")
+    print(f"{name}: session median {med_ms:.3f} ms, max {max(lat) * 1e3:.3f} ms over "
+          f"{WARM_RUNS} warm runs; kernel {int_ms:.3f} ms per pass in int mode, "
+          f"{f32_ms:.3f} ms in f32 mode on the same data (chosen "
+          f"{'equal' if torch.equal(chosen, chosen_f32) else 'different'}); the f32 cell's "
+          f"pass {f32_cell_ms:.3f} ms; fast steps {stats[1]}/{snap.n_tasks} "
+          f"({stats[1] / snap.n_tasks:.5f}); bound {bound_ms:.6f} ms by {bound_by}; card {card}")
+    return dict(launches=launches, int_ms=int_ms, f32_ms=f32_ms, int_bound_ms=bound_ms,
+                int_bound_by=bound_by, session_ms=med_ms, session_max_ms=max(lat) * 1e3)
+
+
+def blocked_pass_ms(snap) -> tuple:
+    """(ms, stats) of one blocked pass over every task of ``snap`` on the
+    card, host clock to a synchronize, the planes already there."""
+    import torch
+
+    from volcano_tpu_torch.ops.blocked import (
+        _PASS_ARRAYS,
+        prepare_blocked_arrays,
+        schedule_pass_blocked,
+    )
+    from volcano_tpu_torch.ops.kernels import as_tensor
+
+    arrays, T_blk = prepare_blocked_arrays(snap)
+    planes = [as_tensor(arrays[k], "cuda") for k in _PASS_ARRAYS]
+    active = torch.zeros(T_blk, dtype=torch.bool, device="cuda")
+    active[: snap.n_tasks] = True
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    schedule_pass_blocked(*planes, active, top_k=BLOCKED_TOP_K, stats=stats)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, stats
+
+
+def phase_wide_cell(card: str) -> dict:
+    """The wide cell through execute_allocate: the session kernel's wide
+    instance, equal to the torch spec on the card and, at full width, to
+    its plain version; one blocked session beside it."""
+    import torch
+
+    from volcano_tpu_torch.ops import session_kernel
+    from volcano_tpu_torch.ops.blocked import run_packed_blocked
+    from volcano_tpu_torch.ops.executor import execute_allocate, last_allocate_executor
+    from volcano_tpu_torch.ops.kernels import run_packed
+    from volcano_tpu_torch.ops.session_kernel import (
+        repeated_rows,
+        session_pass_cuda,
+        session_pass_reference,
+    )
+    from volcano_tpu_torch.ops.synthetic import generate_snapshot
+
+    name = "50k_pods_20k_nodes_gang_predicates"
+    snap = generate_snapshot(**WIDE_CONFIG)
+    R, NK = snap.task_resreq.shape[1], session_kernel.node_width(snap.n_nodes)
+    check(not session_kernel.fits_shared_memory(R, NK), f"{name}: node state fits one block")
+    # the main path, with the launch counts read just before and after
+    torch.cuda.synchronize()
+    session_kernel.LAUNCHES = session_kernel.WIDE_LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = execute_allocate(snap)
+    first_s = time.perf_counter() - t0
+    launches = session_kernel.WIDE_LAUNCHES
+    executor = last_allocate_executor()
+    check(executor == "cuda", f"{name}: executor {executor!r}, expected 'cuda'")
+    check(launches > 0 and session_kernel.LAUNCHES == 0,
+          f"{name}: wide launches {launches}, shared-layout launches {session_kernel.LAUNCHES}")
+    t0 = time.perf_counter()
+    spec = run_packed(snap, device="cuda")
+    spec_s = time.perf_counter() - t0
+    check(np.array_equal(out, spec), f"{name}: assignment != torch spec run_packed")
+    lat = warm_sessions(snap, WARM_RUNS, out)
+    med_ms = statistics.median(lat) * 1e3
+
+    inputs = pass_inputs(snap, "cuda")
+    pass_ms = kernel_ms(lambda: session_pass_cuda(*inputs), reps=3)
+    chosen, stats = run_session_pass(inputs)
+    repeats = repeated_rows(inputs[0])
+    check(stats == [snap.n_tasks - repeats, repeats], f"{name}: kernel counts {stats}")
+    off_ms = kernel_ms(plane_off_launch(inputs), reps=1)
+    t0 = time.perf_counter()
+    plain = session_pass_reference(*inputs)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = int((chosen.long() - plain.long()).abs().max())
+    check(err == 0, f"{name}: wide instance != plain version at full width")
+    by_bytes, by_ops, share = pass_bound_ms(inputs, chosen, snap.n_nodes)
+    bound_ms, bound_by = max((by_bytes, "bytes"), (by_ops, "operations"))
+    lens = (inputs[4][1:] - inputs[4][:-1]).float()
+    print(f"{name}: assignment == torch spec run_packed ({spec_s:.3f} s to compute the "
+          f"spec); placed {int((out >= 0).sum())}/{snap.n_tasks}; first session "
+          f"{first_s * 1e3:.3f} ms; executor {executor}, wide launches {launches}; node state "
+          f"{(R + 1) * NK * 4} bytes in global memory")
+    print(f"{name}: session median {med_ms:.3f} ms, max {max(lat) * 1e3:.3f} ms over "
+          f"{WARM_RUNS} warm runs; wide instance {pass_ms:.3f} ms per pass, plane off "
+          f"{off_ms:.3f}; fast steps {stats[1]}/{snap.n_tasks} ({stats[1] / snap.n_tasks:.5f}); "
+          f"class lists {inputs[4].numel() - 1}, mean {float(lens.mean()):.1f} nodes, longest "
+          f"{int(lens.max())}; plain version {plain_ms:.3f} ms; bound {by_bytes:.6f} ms by "
+          f"bytes, {by_ops:.6f} ms by operations ({share:.4f} listed); card {card}")
+
+    bstats = {}
+    t0 = time.perf_counter()
+    bout = run_packed_blocked(snap, top_k=BLOCKED_TOP_K, stats=bstats)
+    blocked_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(bout, out), f"{name}: run_packed_blocked differs from the kernel")
+    print(f"{name}: run_packed_blocked == the kernel's bindings; session {blocked_ms:.3f} ms; "
+          f"blocks {bstats['blocks']}, stops {bstats['stops']} (each one full-width step), "
+          f"passes {bstats['passes']}; card {card}")
+    return dict(launches=launches, ms=pass_ms, plane_off_ms=off_ms, plain_ms=plain_ms,
+                max_abs_err=err, bound_ms=bound_ms, bound_by=bound_by,
+                fast_step_share=stats[1] / snap.n_tasks, session_ms=med_ms,
+                session_max_ms=max(lat) * 1e3, blocked_session_ms=blocked_ms,
+                blocked_blocks=bstats["blocks"], blocked_stops=bstats["stops"])
+
+
+def phase_lanes_session(card: str) -> None:
+    """A session with LANES_SESSION resource lanes at 10k x 1k through
+    execute_allocate: the wide instance, equal to the torch spec."""
+    import torch
+
+    from volcano_tpu_torch.ops import session_kernel
+    from volcano_tpu_torch.ops.executor import execute_allocate, last_allocate_executor
+    from volcano_tpu_torch.ops.kernels import run_packed
+    from volcano_tpu_torch.ops.synthetic import (
+        add_scalar_lanes,
+        BASELINE_CONFIGS,
+        generate_snapshot,
+    )
+
+    name = f"{SECOND_CONFIG}_{LANES_SESSION}_lanes"
+    snap = add_scalar_lanes(generate_snapshot(**BASELINE_CONFIGS[SECOND_CONFIG]),
+                            LANES_SESSION - 2, LANES_SESSION)
+    torch.cuda.synchronize()
+    session_kernel.LAUNCHES = session_kernel.WIDE_LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = execute_allocate(snap)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    launches = session_kernel.WIDE_LAUNCHES
+    check(last_allocate_executor() == "cuda" and launches > 0
+          and session_kernel.LAUNCHES == 0,
+          f"{name}: executor {last_allocate_executor()!r}, wide launches {launches}")
+    check(np.array_equal(out, run_packed(snap, device="cuda")),
+          f"{name}: assignment != torch spec run_packed")
+    lat = warm_sessions(snap, WARM_RUNS, out)
+    print(f"{name}: assignment == torch spec run_packed; placed {int((out >= 0).sum())}/"
+          f"{snap.n_tasks}; first session {first_ms:.3f} ms, median "
+          f"{statistics.median(lat) * 1e3:.3f} ms over {WARM_RUNS} warm runs; wide launches "
+          f"{launches}; card {card}")
+
+
+def phase_blocked_vs_kernel(card: str, main_rec: dict) -> dict:
+    """run_packed_blocked at the main config on the card: its bindings
+    equal the kernel's, its session and pass times beside the kernel's."""
+    from volcano_tpu_torch.ops.blocked import run_packed_blocked
+    from volcano_tpu_torch.ops.synthetic import BASELINE_CONFIGS, generate_snapshot
+
+    snap = generate_snapshot(**BASELINE_CONFIGS[MAIN_CONFIG])
+    t0 = time.perf_counter()
+    out = run_packed_blocked(snap, top_k=BLOCKED_TOP_K)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(out, main_rec["assignment"]),
+          f"{MAIN_CONFIG}: run_packed_blocked != the kernel's execute_allocate")
+    t0 = time.perf_counter()
+    run_packed_blocked(snap, top_k=BLOCKED_TOP_K)
+    again_ms = (time.perf_counter() - t0) * 1e3
+    graph_ms, graph_stats = blocked_pass_ms(snap)
+    print(f"{MAIN_CONFIG}: run_packed_blocked == the kernel's bindings; session "
+          f"{first_ms:.3f} ms, again {again_ms:.3f} ms (kernel session "
+          f"{main_rec['session_ms']:.3f} ms, pass {main_rec['ms']:.3f} ms); one blocked pass "
+          f"{graph_ms:.3f} ms from CUDA graphs; blocks {graph_stats['blocks']}, stops "
+          f"{graph_stats['stops']}; card {card}")
+    return dict(main_session_ms=again_ms, main_first_session_ms=first_ms,
+                main_pass_ms=graph_ms, main_blocks=graph_stats["blocks"],
+                main_stops=graph_stats["stops"])
+
+
+def kernel_failures() -> float:
+    """Every failed or refused kernel call counted in this process."""
+    from volcano_tpu_torch import metrics
+
+    return sum(metrics.registry.counters("volcano_executor_failures_total").values())
+
+
+def phase_failures(card: str) -> None:
+    """The breakers on the card at 10k x 1k, driven by the fault plane:
+    an injected lowering failure raises ExecutorFailed and is counted;
+    three open the breaker and the fourth call is refused without a
+    launch; an injected corrupt output is caught by the gate; the same
+    for the preempt kernel; nothing runs in the kernel's place.  The
+    plane and the breakers are reset after, and a clean session runs on
+    the kernel with the bindings it had."""
+    from volcano_tpu_torch import faults, metrics
+    from volcano_tpu_torch.ops import dispatch, preempt_kernel, session_kernel
+    from volcano_tpu_torch.ops.dispatch import ExecutorFailed, last_executor
+    from volcano_tpu_torch.ops.executor import execute_allocate, execute_preempt
+    from volcano_tpu_torch.ops.synthetic import (
+        BASELINE_CONFIGS,
+        generate_preempt_packed,
+        generate_snapshot,
+    )
+
+    def failures(executor: str, cause: str) -> float:
+        return metrics.registry.counter("volcano_executor_failures_total",
+                                        executor=executor, cause=cause)
+
+    ran = []
+    real = dispatch.run_packed, dispatch.preempt_dense
+
+    def fails(call, executor: str, cause: str, what: str) -> None:
+        """``call()`` raises ExecutorFailed with ``cause``, counted once."""
+        before = failures(executor, cause)
+        try:
+            call()
+        except ExecutorFailed as e:
+            check(e.cause == cause, f"failures: {what}: cause {e.cause!r}, expected {cause!r}")
+        else:
+            raise RuntimeError(f"chip_smoke: failures: {what}: no ExecutorFailed raised")
+        check(failures(executor, cause) == before + 1, f"failures: {what}: not counted")
+
+    snap = generate_snapshot(**BASELINE_CONFIGS[SECOND_CONFIG])
+    clean = execute_allocate(snap)
+    check(last_executor() == "cuda", "failures: the clean session did not run on cuda")
+    pk = generate_preempt_packed(**PREEMPT_CASES[-1])
+    ev0, pipe0 = execute_preempt(pk)
+    # any formulation that could stand in for a kernel records its call
+    dispatch.run_packed = lambda *a, **k: ran.append("run_packed")
+    dispatch.preempt_dense = lambda *a, **k: ran.append("preempt_dense")
+    try:
+        faults.configure("seed=1;device.lowering=1:count=1")
+        fails(lambda: execute_allocate(snap), "cuda", "error", "injected lowering failure")
+        check(faults.get_breaker("cuda").state == "closed" and faults.degraded_reasons(),
+              "failures: one failure must leave the breaker closed and show as degraded")
+
+        faults.reset_breakers()
+        faults.configure("seed=1;device.lowering=1:count=3")
+        for i in range(3):
+            fails(lambda: execute_allocate(snap), "cuda", "error", f"lowering {i + 1} of 3")
+        check(faults.get_breaker("cuda").state == "open", "failures: breaker not open after 3")
+        launches = session_kernel.LAUNCHES
+        fails(lambda: execute_allocate(snap), "cuda", "circuit-open", "open breaker")
+        check(session_kernel.LAUNCHES == launches, "failures: the open breaker launched")
+
+        faults.reset_breakers()
+        faults.configure("seed=1;device.nan=1:count=1")
+        fails(lambda: execute_allocate(snap), "cuda", "corrupt-output", "injected corrupt output")
+
+        faults.reset_breakers()
+        faults.configure("seed=1;device.lowering=1:count=3")
+        for i in range(3):
+            fails(lambda: execute_preempt(pk), "preempt-cuda", "error",
+                  f"preempt lowering {i + 1} of 3")
+        check(faults.get_breaker("preempt-cuda").state == "open",
+              "failures: preempt breaker not open after 3")
+        launches = preempt_kernel.LAUNCHES
+        fails(lambda: execute_preempt(pk), "preempt-cuda", "circuit-open", "open preempt breaker")
+        check(preempt_kernel.LAUNCHES == launches, "failures: the open preempt breaker launched")
+    finally:
+        dispatch.run_packed, dispatch.preempt_dense = real
+        faults.configure(None)
+        faults.reset_breakers()
+    check(ran == [], f"failures: {ran} ran in a kernel's place")
+    check(not faults.degraded_reasons(), "failures: breakers not reset")
+    check(np.array_equal(execute_allocate(snap), clean) and last_executor() == "cuda",
+          "failures: the clean session after the reset differs or left the kernel")
+    ev, pipe = execute_preempt(pk)
+    check(np.array_equal(ev, ev0) and np.array_equal(pipe, pipe0),
+          "failures: the clean preempt pass after the reset differs")
+    print(f"failures: a lowering failure raises ExecutorFailed (counted), 3 open the breaker, "
+          f"the 4th call circuit-open without a launch, device.nan caught by the gate; the same "
+          f"for preempt-cuda; nothing ran in a kernel's place; plane and breakers reset, the "
+          f"kernels' results as before; {kernel_failures():.0f} failures counted in all; "
+          f"card {card}")
+
+
 def main() -> int:
     import torch
 
@@ -902,9 +1410,21 @@ def main() -> int:
     phase_build()
     phase_kernel_vs_plain()
     phase_preempt_kernel_vs_plain()
+    phase_int_kernel_vs_plain()
+    phase_wide_kernel_vs_plain()
     main_rec = phase_main_path(MAIN_CONFIG, card, compare_plain=True)
     phase_main_path(SECOND_CONFIG, card, compare_plain=False)
     pre_rec = phase_preempt_main_path(card)
+    dgx_rec = phase_dgx_cell(card, main_rec["ms"])
+    wide_rec = phase_wide_cell(card)
+    phase_lanes_session(card)
+    blocked_rec = phase_blocked_vs_kernel(card, main_rec)
+    from volcano_tpu_torch import faults
+
+    check(kernel_failures() == 0 and not faults.degraded_reasons(),
+          f"the main paths counted {kernel_failures():.0f} kernel failures: "
+          f"{faults.degraded_reasons()}")
+    phase_failures(card)
 
     kernels = [
         {
@@ -921,6 +1441,26 @@ def main() -> int:
             "latency_floor_ms": main_rec["latency_floor_ms"],
             "chain_floor_ms": main_rec["chain_floor_ms"],
             "fast_step_share": main_rec["fast_step_share"],
+            "int_ms": dgx_rec["int_ms"],
+            "int_bound_ms": dgx_rec["int_bound_ms"],
+            "int_bound_by": dgx_rec["int_bound_by"],
+            "int_launches": dgx_rec["launches"],
+            "library_ms": None,
+        },
+        {
+            "name": "session_pass_wide",
+            "route": "cuda",
+            "source": "volcano_tpu_torch/csrc/session_kernel.cu",
+            "replaces": "volcano_tpu/ops/pallas_session.py:123",
+            "launches": wide_rec["launches"],
+            "max_abs_err": wide_rec["max_abs_err"],
+            "ms": wide_rec["ms"],
+            "plain_ms": wide_rec["plain_ms"],
+            "bound_ms": wide_rec["bound_ms"],
+            "bound_by": wide_rec["bound_by"],
+            "fast_step_share": wide_rec["fast_step_share"],
+            "plane_off_ms": wide_rec["plane_off_ms"],
+            "session_ms": wide_rec["session_ms"],
             "library_ms": None,
         },
         {
@@ -941,6 +1481,13 @@ def main() -> int:
             "library_ms": None,
         },
     ]
+    # the blocked formulation is torch ops, not a kernel: its times on a
+    # line of their own
+    print(json.dumps({"blocked": dict(
+        route="torch ops", source="volcano_tpu_torch/ops/blocked.py",
+        replaces="volcano_tpu/ops/blocked.py:168", top_k=BLOCKED_TOP_K,
+        wide_session_ms=wide_rec["blocked_session_ms"], wide_blocks=wide_rec["blocked_blocks"],
+        wide_stops=wide_rec["blocked_stops"], **blocked_rec)}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

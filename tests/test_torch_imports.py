@@ -3,7 +3,8 @@
 A fresh interpreter with ``jax`` blocked and a meta-path finder that
 refuses ``volcano_tpu`` and its submodules (but not
 ``volcano_tpu_torch``) imports every module of the port and runs an
-allocate session and a preempt pass on the CPU."""
+allocate session (also through the blocked executor) and a preempt pass
+on the CPU."""
 
 from __future__ import annotations
 
@@ -36,7 +37,10 @@ for mod in ("volcano_tpu_torch", "volcano_tpu_torch.api.resource",
             "volcano_tpu_torch.ops.synthetic", "volcano_tpu_torch.ops.kernels",
             "volcano_tpu_torch.ops._build", "volcano_tpu_torch.ops.session_kernel",
             "volcano_tpu_torch.ops.preempt_pack", "volcano_tpu_torch.ops.preempt_kernel",
-            "volcano_tpu_torch.ops.dispatch", "volcano_tpu_torch.ops.executor"):
+            "volcano_tpu_torch.ops.dispatch", "volcano_tpu_torch.ops.executor",
+            "volcano_tpu_torch.ops.blocked", "volcano_tpu_torch.metrics",
+            "volcano_tpu_torch.faults", "volcano_tpu_torch.faults.plane",
+            "volcano_tpu_torch.faults.breaker", "volcano_tpu_torch.faults.watchdog"):
     importlib.import_module(mod)
 
 from volcano_tpu_torch.ops.executor import (
@@ -47,6 +51,9 @@ from volcano_tpu_torch.ops.synthetic import generate_preempt_packed, generate_sn
 out = execute_allocate(generate_snapshot(n_tasks=48, n_nodes=12, gang_size=4, seed=1),
                        device="cpu")
 assert last_allocate_executor() == "torch-scan"
+from volcano_tpu_torch.ops.blocked import run_packed_blocked
+assert (run_packed_blocked(generate_snapshot(n_tasks=48, n_nodes=12, gang_size=4, seed=1),
+                           block_size=8, top_k=2, device="cpu") == out).all()
 evicted, pipelined = execute_preempt(
     generate_preempt_packed(n_victims=90, n_nodes=10, n_preemptors=16, seed=2), device="cpu")
 assert last_preempt_executor() == "dense"

@@ -109,14 +109,17 @@ def test_gang_fixpoint_cascade_matches_pallas(gang_rounds, expected):
     np.testing.assert_array_equal(got, expected)
 
 
-def test_beyond_f32_envelope_raises():
-    snap = generate_snapshot(n_tasks=16, n_nodes=4, gang_size=2, seed=6,
-                             node_cpu_milli=2_000_000, node_mem_mib=4_000_000)
-    with pytest.raises(ValueError):
-        run_packed_cuda(snap, device="cpu")
-    # a GPU session outside the envelope is refused, not run on the plain version
-    with pytest.raises(ValueError, match="int-exact"):
-        select_executor(snap, device="cuda")
+def test_beyond_f32_envelope_runs_int_mode():
+    """Outside the f32 floor-division envelope nothing raises any more:
+    the kernel's wrapper scores least-requested in int32 and equals the
+    JAX package's run_packed, and a GPU session goes to the kernel."""
+    kwargs = dict(n_tasks=16, n_nodes=4, gang_size=2, seed=6, node_cpu_milli=2_000_000,
+                  node_mem_mib=4_000_000)
+    snap = generate_snapshot(**kwargs)
+    got = run_packed_cuda(snap, device="cpu")
+    assert np.array_equal(jax_run_packed(jax_generate_snapshot(**kwargs)), got)
+    assert (got >= 0).any()
+    assert select_executor(snap, device="cuda") == "cuda"
     assert select_executor(snap, device="cpu") == "torch-scan"
 
 
@@ -179,10 +182,16 @@ def test_wrapper_rejects_bad_operands():
         session_pass_cuda(taskrow, cf, nd[:, :-1], tol, *lists)
     with pytest.raises(ValueError, match="contiguous"):
         session_pass_cuda(taskrow, cf, nd.t().contiguous().t(), tol, *lists)
-    # node state beyond one block's shared memory is refused before launch
+    # node state beyond one block's shared memory is taken (the wide
+    # instance's layout); a lane count whose task rows alone overflow
+    # shared memory is refused before launch
     NK = 20_480  # 3 x 20,480 x 4 bytes > 227 KB
+    wide = session_pass_cuda(taskrow, torch.zeros(cf.shape[0], NK, dtype=torch.uint8),
+                             torch.zeros(8, NK), tol, *lists)
+    assert (wide == -1).all()
+    R = 20_000
     with pytest.raises(ValueError, match="shared memory"):
         session_pass_cuda(
-            taskrow, torch.zeros(cf.shape[0], NK, dtype=torch.uint8),
-            torch.zeros(8, NK), tol, *lists,
+            torch.zeros(taskrow.shape[0], R + 2), cf, torch.zeros(3 * R + 2, cf.shape[1]),
+            torch.zeros(R), *lists,
         )

@@ -42,10 +42,28 @@
 //     landed row before the step's first barrier;
 //   * the argmax is warp shuffles over (value, key), then one warp over
 //     the 32 warp results; a key packs (list position, node id), so the
-//     pick carries its plane slot; thread 0 applies the update.
+//     pick carries its plane slot; thread 0 applies the update;
+//   * least-requested runs in f32 or, for nodes outside the f32
+//     floor-division envelope, in exact int32: a template flag beside R
+//     (14 instances), so the f32 instances compile as they did before
+//     the int mode.
 // Two block barriers per task set the latency floor of a step.  One SM
 // of 132 does the work: spreading a pass over a cluster of SMs is the
 // next design step.
+//
+// The wide instances (R = vt::kWide, one per least-requested mode) take
+// every session the shared-memory layout does not: node state beyond
+// one block's shared memory (more than ~19,000 nodes at R = 2) or more
+// than kMaxLanes lanes.  The same loop, with three changes: the used
+// lanes and pod counts live in a global-memory scratch the wrapper
+// allocates ((R+1)*NK*4 bytes, L2-resident at cluster sizes; the block's
+// barriers order its stores for the other threads); the lane count is a
+// run-time value and the task rows and tolerance sit in dynamic shared
+// memory, the masked-score plane beside them where it fits and in a
+// global scratch where it does not (each plane slot is only ever touched
+// by one thread); a key is the list position alone, so node ids and
+// list lengths have no 2^15 limit, and the pick's node is read back
+// from the list by thread 0.
 //
 // Build (ops/_build.py): nvcc -gencode arch=compute_90a,code=sm_90a
 //   -std=c++17 -O3 --fmad=false -shared -Xcompiler -fPIC
@@ -98,6 +116,7 @@ struct PassIn {
   const float* tol;       // [R]
   const int* done;        // [1] or null: skip the pass
   int NK;
+  int R;                  // lanes (read by the wide instances only)
   vt::Weights w;
 };
 
@@ -108,22 +127,41 @@ struct PassOut {
   int* stats;   // [2] or null: full steps, fast steps
 };
 
-template <int R>
+// gstate (wide instances): [R+1, NK] f32 scratch for the used lanes and
+// pod counts; gplane: a global plane of plane_len scores, or null.
+template <int R, bool LrInt>
 __global__ void __launch_bounds__(kThreads, 1)
-session_pass_kernel(PassIn in, PassOut out, int plane_len) {
-  constexpr int RC = R + 2;
+session_pass_kernel(PassIn in, PassOut out, int plane_len, float* gstate, float* gplane) {
+  constexpr bool kWide = R == vt::kWide;
+  const int nR = kWide ? in.R : R;
+  const int RC = nR + 2;
   extern __shared__ float smem[];
   const int NK = in.NK;
-  float* used = smem;                                   // [R, NK]
-  float* cnt = smem + static_cast<size_t>(R) * NK;      // [NK]
-  float* plane = plane_len > 0 ? cnt + NK : nullptr;    // [plane_len] masked scores
   __shared__ float warp_v[kWarps];
   __shared__ int warp_k[kWarps];
-  __shared__ float srow[kSlots][RC];  // task rows t, t+1 and t+2
-  __shared__ int slist[kSlots][2];    // their list start and length
+  __shared__ float srow_s[kWide ? 1 : kSlots * (R + 2)];
+  __shared__ int slist[kSlots][2];    // the rows' list start and length
   __shared__ int ssame[kSlots];       // row equal to the row before it
   __shared__ int spick;          // key of the last pick, kNoPick after -1
-  __shared__ float stol[R];
+  __shared__ float stol_s[kWide ? 1 : R];
+  float* used;   // [R, NK]
+  float* cnt;    // [NK]
+  float* srow;   // [kSlots, RC]: task rows t, t+1 and t+2
+  float* stol;   // [R]
+  float* plane;  // [plane_len] masked scores, or null
+  if constexpr (kWide) {
+    used = gstate;
+    cnt = gstate + static_cast<size_t>(nR) * NK;
+    srow = smem;
+    stol = smem + kSlots * RC;
+    plane = plane_len > 0 ? (gplane != nullptr ? gplane : stol + nR) : nullptr;
+  } else {
+    used = smem;
+    cnt = smem + static_cast<size_t>(R) * NK;
+    srow = srow_s;
+    stol = stol_s;
+    plane = plane_len > 0 ? cnt + NK : nullptr;
+  }
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -138,26 +176,28 @@ session_pass_kernel(PassIn in, PassOut out, int plane_len) {
   }
 
   for (int t = tid; t < T; t += kThreads) {
-    vt::task_list(in.taskrow[static_cast<size_t>(t) * RC + R], in.C, in.cls_off,
+    vt::task_list(in.taskrow[static_cast<size_t>(t) * RC + nR], in.C, in.cls_off,
                   out.tlist[2 * t], out.tlist[2 * t + 1]);
   }
-  const float* used0 = in.nd + static_cast<size_t>(2 * R) * NK;
-  for (int i = tid; i < R * NK; i += kThreads) used[i] = used0[i];
-  for (int n = tid; n < NK; n += kThreads) cnt[n] = used0[R * NK + n];
-  if (tid < R) stol[tid] = in.tol[tid];
+  const float* used0 = in.nd + static_cast<size_t>(2 * nR) * NK;
+  for (int i = tid; i < nR * NK; i += kThreads) used[i] = used0[i];
+  for (int n = tid; n < NK; n += kThreads) cnt[n] = used0[nR * NK + n];
+  for (int r = tid; r < nR; r += kThreads) stol[r] = in.tol[r];
   __syncthreads();  // tlist is read below, by warp 0
 
-  const vt::NodeState ns{in.cls_nodes, in.lnd, in.LT, used, cnt, NK};
+  const vt::NodeState ns{in.cls_nodes, in.lnd, in.LT, used, cnt, NK, nR};
 
-  // warp 0 copies task k into slot k % kSlots: lane r < RC its column r,
-  // lanes RC and RC+1 its list start and length
+  // warp 0 copies task k into slot k % kSlots: column c < RC from lane
+  // c % 32, then its list start and length
   auto fetch = [&](int k) {
     if (k >= T) return;
     const int slot = k % kSlots;
-    if (lane < RC) {
-      cp_async4(&srow[slot][lane], in.taskrow + static_cast<size_t>(k) * RC + lane);
-    } else if (lane < RC + 2) {
-      cp_async4(&slist[slot][lane - RC], out.tlist + 2 * k + lane - RC);
+    for (int c = lane; c < RC + 2; c += 32) {
+      if (c < RC) {
+        cp_async4(&srow[slot * RC + c], in.taskrow + static_cast<size_t>(k) * RC + c);
+      } else {
+        cp_async4(&slist[slot][c - RC], out.tlist + 2 * k + c - RC);
+      }
     }
     cp_async_commit();
   };
@@ -177,19 +217,19 @@ session_pass_kernel(PassIn in, PassOut out, int plane_len) {
   int n_full = 0, n_fast = 0;  // thread 0's step counts
   for (int t = 0, cur = 0; t < T; ++t, cur = cur + 1 == kSlots ? 0 : cur + 1) {
     const int nxt = cur + 1 == kSlots ? 0 : cur + 1;
-    const float* row = srow[cur];
-    const float act = row[R + 1];
+    const float* row = srow + cur * RC;
+    const float act = row[nR + 1];
     const int start = slist[cur][0];
     const int len = slist[cur][1];
     const bool fast = plane != nullptr && ssame[cur] != 0;
     const int prev = spick;
-    const int owner = prev == vt::kNoPick ? -1 : vt::key_pos(prev) % kThreads;
+    const int owner = prev == vt::kNoPick ? -1 : vt::key_pos_of<R>(prev) % kThreads;
 
     bool reduce = true;
     if (!fast) {
       if (act > 0.0f && len > 0) {
-        vt::sweep_list<R>(ns, start, len, tid, kThreads, -1, 0, plane, row, stol, act, in.w,
-                          my_v, my_k);
+        vt::sweep_list<R, LrInt>(ns, start, len, tid, kThreads, -1, 0, plane, row, stol, act,
+                                 in.w, my_v, my_k);
       } else {
         my_v = -INFINITY;
         my_k = vt::kNoPick;
@@ -199,8 +239,9 @@ session_pass_kernel(PassIn in, PassOut out, int plane_len) {
       // warps' results from the last step stand
       reduce = owner >= 0 && warp == owner / 32;
       if (tid == owner) {
-        vt::sweep_list<R>(ns, start, len, tid, kThreads, vt::key_pos(prev), vt::key_node(prev),
-                          plane, row, stol, act, in.w, my_v, my_k);
+        vt::sweep_list<R, LrInt>(ns, start, len, tid, kThreads, vt::key_pos_of<R>(prev),
+                                 vt::key_node_of<R>(prev, in.cls_nodes + start), plane, row,
+                                 stol, act, in.w, my_v, my_k);
       }
     }
     if (reduce) {
@@ -217,7 +258,7 @@ session_pass_kernel(PassIn in, PassOut out, int plane_len) {
       // and start copying task t+2
       cp_async_wait_all();
       __syncwarp();
-      if (lane == 0) ssame[nxt] = vt::same_row(srow[nxt], row, RC);
+      if (lane == 0) ssame[nxt] = vt::same_row(srow + nxt * RC, row, RC);
       fetch(t + 2);
     }
     __syncthreads();
@@ -228,8 +269,8 @@ session_pass_kernel(PassIn in, PassOut out, int plane_len) {
       warp_argmax(bv, bk);
       if (lane == 0) {
         if (bv > -INFINITY) {  // some node is feasible
-          const int n = vt::key_node(bk);
-          vt::apply_pick<R>(used, cnt, NK, row, n);
+          const int n = vt::key_node_of<R>(bk, in.cls_nodes + start);
+          vt::apply_pick<R>(used, cnt, NK, row, n, nR);
           out.chosen[t] = n;
           spick = bk;
         } else {
@@ -251,14 +292,30 @@ session_pass_kernel(PassIn in, PassOut out, int plane_len) {
   }
 }
 
-template <int R>
-cudaError_t launch(const PassIn& in, const PassOut& out, int plane_len, cudaStream_t stream) {
-  const size_t smem = (static_cast<size_t>(R + 1) * in.NK + plane_len) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      session_pass_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+template <int R, bool LrInt>
+cudaError_t launch_mode(const PassIn& in, const PassOut& out, int plane_len, float* gstate,
+                        float* gplane, cudaStream_t stream) {
+  // shared layout: node state and plane; wide: task rows, tolerance and
+  // the plane where it is not in global memory
+  const size_t words =
+      R == vt::kWide
+          ? static_cast<size_t>(kSlots) * (in.R + 2) + in.R + (gplane != nullptr ? 0 : plane_len)
+          : static_cast<size_t>(R + 1) * in.NK + plane_len;
+  const size_t smem = words * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(session_pass_kernel<R, LrInt>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  session_pass_kernel<R><<<1, kThreads, smem, stream>>>(in, out, plane_len);
+  session_pass_kernel<R, LrInt><<<1, kThreads, smem, stream>>>(in, out, plane_len, gstate,
+                                                                gplane);
   return cudaGetLastError();
+}
+
+template <int R>
+cudaError_t launch(const PassIn& in, const PassOut& out, int plane_len, bool lr_int,
+                   float* gstate, float* gplane, cudaStream_t stream) {
+  return lr_int ? launch_mode<R, true>(in, out, plane_len, gstate, gplane, stream)
+                : launch_mode<R, false>(in, out, plane_len, gstate, gplane, stream);
 }
 
 __device__ __forceinline__ long long global_ns() {
@@ -432,33 +489,44 @@ extern "C" int vt_score_probe(const float* nd, const float* rr, const float* tol
 }
 
 // Launch one pass on ``stream``.  ``lnd`` is nd[:, cls_nodes] ([3R+2, LT],
-// LT = len(cls_nodes)), gathered by the caller.  ``plane_len`` > 0 keeps a plane of that
-// many masked scores (at least the longest list) in shared memory for
-// the repeated-row fast path; 0 sweeps the list at every step.  Returns
-// the cudaError_t of the launch (0 on success): a launch refused for its
-// shared memory never runs, and only cudaGetLastError reports it;
-// cudaErrorInvalidValue for a lane count the library has no instance for
-// (2 <= R <= vt::kMaxLanes).
+// LT = len(cls_nodes)), gathered by the caller.  ``lr_int`` nonzero scores
+// least-requested by exact int32 division (the LrInt instances).
+// ``plane_len`` > 0 keeps a plane of that many masked scores (at least
+// the longest list) for the repeated-row fast path; 0 sweeps the list at
+// every step.  ``gstate`` non-null ([R+1, NK] f32 scratch) runs the wide
+// instance, any R >= 2, its node state there; ``gplane`` non-null
+// ([plane_len] f32) puts its plane in global memory.  Null ``gstate``
+// runs the shared-memory layout, the plane beside the node state.
+// Returns the cudaError_t of the launch (0 on success): a launch refused
+// for its shared memory never runs, and only cudaGetLastError reports
+// it; cudaErrorInvalidValue for a lane count the shared layout has no
+// instance for (2 <= R <= vt::kMaxLanes).
 extern "C" int vt_session_pass(const float* taskrow, int T, int R, const int* cls_off, int C,
                                const int* cls_nodes, const float* lnd, int LT,
                                const float* nd, const float* tol, const int* done, int NK, float w_bp, float w_cpu, float w_mem,
-                               float w_scalar, float w_lr, float w_bal, int plane_len,
-                               int* tlist, int* chosen, int* stats, void* stream, int device) {
+                               float w_scalar, float w_lr, float w_bal, int lr_int, int plane_len,
+                               float* gstate, float* gplane, int* tlist, int* chosen, int* stats,
+                               void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const PassIn in{taskrow, T,  cls_off, C,    cls_nodes,
-                  lnd,     LT, nd,      tol,  done,
-                  NK,      vt::Weights{w_bp, w_cpu, w_mem, w_scalar, w_lr, w_bal}};
+  const PassIn in{taskrow, T,  cls_off, C,    cls_nodes, lnd, LT, nd, tol, done,
+                  NK,      R,  vt::Weights{w_bp, w_cpu, w_mem, w_scalar, w_lr, w_bal}};
   const PassOut out{tlist, chosen, stats};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool li = lr_int != 0;
+  if (gstate != nullptr) {
+    err = R >= 2 ? launch<vt::kWide>(in, out, plane_len, li, gstate, gplane, s)
+                 : cudaErrorInvalidValue;
+    return static_cast<int>(err);
+  }
   switch (R) {
-    case 2: err = launch<2>(in, out, plane_len, s); break;
-    case 3: err = launch<3>(in, out, plane_len, s); break;
-    case 4: err = launch<4>(in, out, plane_len, s); break;
-    case 5: err = launch<5>(in, out, plane_len, s); break;
-    case 6: err = launch<6>(in, out, plane_len, s); break;
-    case 7: err = launch<7>(in, out, plane_len, s); break;
-    case 8: err = launch<8>(in, out, plane_len, s); break;
+    case 2: err = launch<2>(in, out, plane_len, li, nullptr, nullptr, s); break;
+    case 3: err = launch<3>(in, out, plane_len, li, nullptr, nullptr, s); break;
+    case 4: err = launch<4>(in, out, plane_len, li, nullptr, nullptr, s); break;
+    case 5: err = launch<5>(in, out, plane_len, li, nullptr, nullptr, s); break;
+    case 6: err = launch<6>(in, out, plane_len, li, nullptr, nullptr, s); break;
+    case 7: err = launch<7>(in, out, plane_len, li, nullptr, nullptr, s); break;
+    case 8: err = launch<8>(in, out, plane_len, li, nullptr, nullptr, s); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

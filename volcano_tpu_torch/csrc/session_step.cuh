@@ -13,6 +13,11 @@
 // a key packs (list position << 16) | node id, and within one list both
 // halves rise together.  Node ids and positions stay below 2^15 (the
 // shared-memory gate holds NK under 19,456 nodes).
+//
+// R = kWide selects the wide kernel's step: the lane count is read at
+// run time (NodeState::R), the used lanes are read by node id at stride
+// NK beside the planes in list order, and a key is the list position
+// alone (any node count), its node read back from the list.
 #pragma once
 
 #include <string.h>
@@ -27,6 +32,27 @@ constexpr int kNoPick = 0x7fffffff;
 VT_HD int pick_key(int pos, int node) { return (pos << 16) | node; }
 VT_HD int key_pos(int key) { return key >> 16; }
 VT_HD int key_node(int key) { return key & 0xffff; }
+
+// The template lane count of the wide kernel's step.
+constexpr int kWide = 0;
+
+// Keys of the step with R lanes; ``list`` is the list the key indexes.
+template <int R>
+VT_HD int pick_key_of(int pos, int node) {
+  return R == kWide ? pos : pick_key(pos, node);
+}
+template <int R>
+VT_HD int key_pos_of(int key) {
+  return R == kWide ? key : key_pos(key);
+}
+template <int R>
+VT_HD int key_node_of(int key, const int* list) {
+  if constexpr (R == kWide) {
+    return list[key];
+  } else {
+    return key_node(key);
+  }
+}
 
 VT_HD unsigned float_bits(float x) {
 #ifdef __CUDA_ARCH__
@@ -71,20 +97,28 @@ struct NodeState {
   const float* used;     // [R, NK] used lanes, updated at each pick
   const float* cnt;      // [NK] pod count, updated at each pick
   int NK;
+  int R;                 // lanes (read by the wide step only)
 };
 
-// Masked score of the node n at list slot q for a task of the list's class.
-template <int R>
+// Masked score of the node n at list slot q for a task of the list's
+// class; least-requested in int32 where LrInt.
+template <int R, bool LrInt>
 VT_HD float list_score(const NodeState& s, const float* rr, const float* tol, float act, int q,
                        int n, const Weights& w) {
-  float base[R], alloc[R], used[R];
-  for (int r = 0; r < R; ++r) {
-    base[r] = s.lnd[r * s.LT + q];
-    alloc[r] = s.lnd[(R + r) * s.LT + q];
-    used[r] = s.used[r * s.NK + n];
+  if constexpr (R == kWide) {
+    const float* lq = s.lnd + q;
+    return masked_score<LrInt>(s.R, rr, tol, act, true, lq, lq + s.R * s.LT, s.LT,
+                               s.used + n, s.NK, s.cnt[n], lq[(3 * s.R + 1) * s.LT], w);
+  } else {
+    float base[R], alloc[R], used[R];
+    for (int r = 0; r < R; ++r) {
+      base[r] = s.lnd[r * s.LT + q];
+      alloc[r] = s.lnd[(R + r) * s.LT + q];
+      used[r] = s.used[r * s.NK + n];
+    }
+    return masked_score<LrInt>(R, rr, tol, act, true, base, alloc, used, 1, s.cnt[n],
+                               s.lnd[(3 * R + 1) * s.LT + q], w);
   }
-  return masked_score(R, rr, tol, act, true, base, alloc, used, 1, s.cnt[n],
-                      s.lnd[(3 * R + 1) * s.LT + q], w);
 }
 
 // One thread's share of a step over the list at slots [start, start + L)
@@ -96,7 +130,7 @@ VT_HD float list_score(const NodeState& s, const float* rr, const float* tol, fl
 // first, so that the node id of their best loads while ``redo`` is
 // rescored.  Out: the thread's first max as (value, key); (-inf, kNoPick)
 // when none of its positions is feasible.
-template <int R>
+template <int R, bool LrInt>
 VT_HD void sweep_list(const NodeState& s, int start, int L, int first, int stride, int redo,
                       int redo_node, float* plane, const float* rr, const float* tol, float act,
                       const Weights& w, float& bv, int& bk) {
@@ -107,7 +141,7 @@ VT_HD void sweep_list(const NodeState& s, int start, int L, int first, int strid
   if (redo < 0) {
     for (int p = first; p < L; p += stride) {
       const int n = nodes[p];
-      const float v = list_score<R>(s, rr, tol, act, start + p, n, w);
+      const float v = list_score<R, LrInt>(s, rr, tol, act, start + p, n, w);
       if (plane != nullptr) plane[p] = v;
       if (v > bv) {  // ascending positions: the first max
         bv = v;
@@ -123,8 +157,8 @@ VT_HD void sweep_list(const NodeState& s, int start, int L, int first, int strid
         bp = p;
       }
     }
-    if (bp >= 0) bn = nodes[bp];
-    const float v = list_score<R>(s, rr, tol, act, start + redo, redo_node, w);
+    if (R != kWide && bp >= 0) bn = nodes[bp];
+    const float v = list_score<R, LrInt>(s, rr, tol, act, start + redo, redo_node, w);
     plane[redo] = v;
     if (v > bv || (v == bv && redo < bp)) {  // the first max over all positions
       bv = v;
@@ -132,13 +166,14 @@ VT_HD void sweep_list(const NodeState& s, int start, int L, int first, int strid
       bn = redo_node;
     }
   }
-  bk = bp >= 0 ? pick_key(bp, bn) : kNoPick;
+  bk = bp >= 0 ? pick_key_of<R>(bp, bn) : kNoPick;
 }
 
-// Place a task with resource row rr on node n.
+// Place a task with resource row rr on node n; nR is the lane count of
+// the wide step (R = kWide).
 template <int R>
-VT_HD void apply_pick(float* used, float* cnt, int NK, const float* rr, int n) {
-  for (int r = 0; r < R; ++r) used[r * NK + n] = used[r * NK + n] + rr[r];
+VT_HD void apply_pick(float* used, float* cnt, int NK, const float* rr, int n, int nR = R) {
+  for (int r = 0; r < (R == kWide ? nR : R); ++r) used[r * NK + n] = used[r * NK + n] + rr[r];
   cnt[n] = cnt[n] + 1.0f;
 }
 

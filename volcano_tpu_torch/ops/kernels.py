@@ -21,7 +21,7 @@ dispatcher; on a GPU the session runs through the CUDA kernel in
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -59,6 +59,14 @@ def f32_lr_exact(snap: PackedSnapshot) -> bool:
     floor-division least-requested path exact (products stay below
     2^24 — see least_requested_score)."""
     return float(snap.node_alloc[:, :2].max(initial=0.0)) * MAX_PRIORITY < 2**24
+
+
+def f32_to_i32(x: torch.Tensor) -> torch.Tensor:
+    """f32 → int32 as XLA converts (the JAX package's ``astype(int32)``):
+    toward zero, saturating at the int32 range, NaN → 0.  ``.to(int32)``
+    gives INT_MIN for every value out of range on the CPU."""
+    y = torch.nan_to_num(x, nan=0.0).clamp(-(2.0**31), 2147483520.0).to(torch.int32)
+    return torch.where(x >= 2.0**31, torch.iinfo(torch.int32).max, y)
 
 
 def resolve_device(device: Union[str, torch.device, None] = None) -> torch.device:
@@ -151,10 +159,11 @@ def binpack_score(
     """[T, N] — binpack.go:200-259: per-resource (used+req)*w/alloc summed
     over requested resources, normalized by summed weights, ×10×weight."""
     R = task_resreq.shape[-1]
-    lane_w = torch.tensor(
-        [weights.binpack_cpu, weights.binpack_memory] + [weights.binpack_scalar] * (R - 2),
-        dtype=torch.float32, device=task_resreq.device,
-    )
+    # filled on the device, with no host copy, so a CUDA graph can capture it
+    lane_w = torch.full((R,), weights.binpack_scalar, dtype=torch.float32,
+                        device=task_resreq.device)
+    lane_w[0].fill_(weights.binpack_cpu)
+    lane_w[1].fill_(weights.binpack_memory)
     req = task_resreq[:, None, :]
     used_finally = req + node_used[None, :, :]
     alloc = node_alloc[None, :, :]
@@ -182,8 +191,8 @@ def least_requested_score(
     req = task_resreq[:, None, :2] + node_used[None, :, :2]
     cap = node_alloc[None, :, :2]
     if int_exact:
-        reqi = req.to(torch.int32)
-        capi = cap.to(torch.int32)
+        reqi = f32_to_i32(req)
+        capi = f32_to_i32(cap)
         lane = torch.where(
             (capi > 0) & (reqi <= capi),
             torch.div((capi - reqi) * int(MAX_PRIORITY), torch.clamp_min(capi, 1),
@@ -372,6 +381,40 @@ def _feasibility_classes(snap: PackedSnapshot):
     return result
 
 
+def gang_fixpoint(run_pass: Callable, task_job: np.ndarray, job_min_available: np.ndarray,
+                  job_ready_count: np.ndarray, n_tasks: int, t_total: int, gang_rounds: int,
+                  discard_unstable: bool = False) -> np.ndarray:
+    """The host-driven gang commit/discard loop, shared by run_packed and
+    the blocked rung: ``run_pass(active)`` with ``active`` [t_total] bool
+    numpy → (chosen, job_assigned) numpy; each round deactivates the
+    tasks of jobs short of min_available and re-runs the pass, stopping
+    as soon as the active set is stable, or after ``gang_rounds`` passes
+    (an unsettled cascade ships the last round's commits).
+
+    ``discard_unstable`` opts into the reference's Statement semantics
+    (statement.go:309-337): the loop runs to the true fixpoint, ignoring
+    the round bound.  Every non-stable round strictly shrinks the active
+    set, so the fixpoint arrives within min(n_jobs, n_tasks)+1 passes."""
+    active = np.zeros(t_total, dtype=bool)
+    active[:n_tasks] = True
+    min_avail = job_min_available.astype(np.int64)
+    ready_count = job_ready_count.astype(np.int64)
+
+    rounds = 0
+    while True:
+        chosen_np, job_assigned = run_pass(active)
+        ready = np.asarray(job_assigned, dtype=np.int64) + ready_count >= min_avail
+        committed = ready[task_job] & (chosen_np >= 0)
+        next_active = active & ready[task_job]
+        rounds += 1
+        if (next_active == active).all():
+            break
+        if not discard_unstable and rounds >= gang_rounds:
+            break
+        active = next_active
+    return np.where(committed & active, chosen_np, -1)[:n_tasks]
+
+
 def run_packed(
     snap: PackedSnapshot,
     weights: ScoreWeights = DEFAULT_WEIGHTS,
@@ -387,9 +430,6 @@ def run_packed(
     for an unsettled cascade (statement.go:309-337: discard until
     stable), ignoring the ``gang_rounds`` bound."""
     dev = resolve_device(device)
-    T = snap.task_resreq.shape[0]
-    active = np.zeros(T, dtype=bool)
-    active[: snap.n_tasks] = True
 
     # Large nodes fall outside the f32 floor-division exactness envelope
     # (see least_requested_score) — switch to exact int division.
@@ -417,27 +457,13 @@ def run_packed(
             snap.tolerance,
         )
     ]
-    task_job = snap.task_job
-    min_avail = snap.job_min_available.astype(np.int64)
-    ready_count = snap.job_ready_count.astype(np.int64)
 
-    chosen_np = np.full(T, -1, dtype=np.int32)
-    committed = np.zeros(T, dtype=bool)
-    rounds = 0
-    while True:
+    def run_pass(active: np.ndarray):
         chosen, job_assigned = schedule_pass(
             *planes, torch.from_numpy(active).to(dev), weights=weights
         )
-        chosen_np = chosen.cpu().numpy()
-        ready = job_assigned.cpu().numpy().astype(np.int64) + ready_count >= min_avail
-        committed = ready[task_job] & (chosen_np >= 0)
-        next_active = active & ready[task_job]
-        rounds += 1
-        if (next_active == active).all():
-            break
-        if not discard_unstable and rounds >= gang_rounds:
-            break
-        active = next_active
+        return chosen.cpu().numpy(), job_assigned.cpu().numpy()
 
-    assignment = np.where(committed & active, chosen_np, -1)
-    return assignment[: snap.n_tasks]
+    return gang_fixpoint(run_pass, snap.task_job, snap.job_min_available,
+                         snap.job_ready_count, snap.n_tasks, snap.task_resreq.shape[0],
+                         gang_rounds, discard_unstable=discard_unstable)

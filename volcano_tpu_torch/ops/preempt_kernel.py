@@ -47,7 +47,7 @@ from volcano_tpu_torch.ops.kernels import (
 )
 from volcano_tpu_torch.ops.preempt_pack import _fit, PreemptPacked
 from volcano_tpu_torch.ops.session_kernel import (
-    _library,
+    load_library,
     MAX_LANES,
     node_width,
     score_planes,
@@ -662,7 +662,7 @@ def _launch(args, lists: dict, weights: ScoreWeights, stats: Optional[torch.Tens
 @functools.lru_cache(maxsize=None)
 def _preempt_library() -> ctypes.CDLL:
     """The kernel library with vt_preempt_pass's signature declared."""
-    lib = _library()
+    lib = load_library()
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.vt_preempt_pass.argtypes = [
         p, i, p, i, i,  # sched, S, ptask, P, R

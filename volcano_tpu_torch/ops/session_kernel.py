@@ -4,7 +4,9 @@ PyTorch version, and the gang fixpoint around it.
 The counterpart of ``volcano_tpu/ops/pallas_session.py``.  One pass is
 one launch of ``csrc/session_kernel.cu`` (a single 1024-thread block
 with node state resident in shared memory, sweeping only the nodes of
-each task's feasibility class); ``schedule_session_cuda`` runs the gang
+each task's feasibility class; the wide instance, for node state beyond
+one block's shared memory or more than ``MAX_LANES`` lanes, keeps it in
+a global-memory scratch instead); ``schedule_session_cuda`` runs the gang
 commit/discard fixpoint of ``schedule_session_pallas`` as torch ops
 around up to ``gang_rounds`` launches with no host sync in between — a
 device ``done`` flag makes the launches after a settled round return at
@@ -20,10 +22,14 @@ them, the class-compacted node lists the kernel sweeps: ``cls_off``
 [C+1] i32 and ``cls_nodes`` [sum L_c] i32, class c's nodes being
 ``cls_nodes[cls_off[c]:cls_off[c+1]] == np.flatnonzero(cf_u8[c])``.
 
-Shared memory (``plan_shared_memory``): the node state, (R+1)*NK*4
-bytes, must fit one block (the executor's gate, ``fits_shared_memory``);
-the plane of masked scores over the longest list, max L_c * 4 bytes,
-joins it where it fits too, and turns on the repeated-row fast path.
+Shared memory (``plan_shared_memory``): where the node state, (R+1)*NK*4
+bytes, fits one block and R <= ``MAX_LANES`` (``shared_layout``), it
+stays there; the plane of masked scores over the longest list, max L_c
+* 4 bytes, joins it where it fits too, and turns on the repeated-row
+fast path.  Every other session runs the wide instance: node state in
+global memory, the plane always on, in shared memory where it fits
+beside the task rows and in global memory where it does not
+(``plan_wide``).
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from volcano_tpu_torch.ops.kernels import (
     _feasibility_classes,
     DEFAULT_WEIGHTS,
     f32_lr_exact,
+    f32_to_i32,
     MAX_PRIORITY,
     resolve_device,
     ScoreWeights,
@@ -46,7 +53,8 @@ from volcano_tpu_torch.ops.packing import PackedSnapshot
 
 #: node planes are padded to a multiple of this many nodes
 NODE_ALIGN = 128
-#: resource lanes the kernel takes (vt::kMaxLanes in session_math.cuh)
+#: resource lanes the shared-memory layout takes (vt::kMaxLanes in
+#: session_math.cuh); the wide instance takes any count
 MAX_LANES = 8
 #: shared memory one block may use on sm_90 (227 KB)
 SMEM_LIMIT = 232_448
@@ -55,8 +63,14 @@ SMEM_LIMIT = 232_448
 #: pick, tolerance
 _STATIC_SMEM = 32 * 4 * 2 + 3 * ((MAX_LANES + 2) * 4 + 2 * 4 + 4) + 4 + MAX_LANES * 4
 
-#: launches of the CUDA kernel in this process
+#: the wide instance's static shared memory: warp argmax slots, list
+#: bounds and repeat flags of three rows, the last pick, two unused words
+_WIDE_STATIC_SMEM = 32 * 4 * 2 + 3 * (2 * 4 + 4) + 4 + 2 * 4
+
+#: launches of the CUDA kernel's shared-memory layout in this process
 LAUNCHES = 0
+#: launches of its wide instance (node state in global memory)
+WIDE_LAUNCHES = 0
 
 #: the counts a pass writes into ``stats``
 STATS = ("full_steps", "fast_steps")
@@ -75,9 +89,25 @@ def session_smem_bytes(R: int, NK: int) -> int:
 
 
 def fits_shared_memory(R: int, NK: int) -> bool:
-    """The cuda executor's one gate: the node state of a pass must fit
-    one block's shared memory."""
+    """Whether the node state of a pass fits one block's shared memory."""
     return session_smem_bytes(R, NK) + _STATIC_SMEM <= SMEM_LIMIT
+
+
+def shared_layout(R: int, NK: int) -> bool:
+    """Whether a pass runs the shared-memory layout (else the wide
+    instance): R <= MAX_LANES lanes and node state that fits one block."""
+    return R <= MAX_LANES and fits_shared_memory(R, NK)
+
+
+def plan_wide(R: int, max_len: int) -> bool:
+    """Whether the wide instance keeps its masked-score plane (the
+    longest list, ``max_len`` scores) in shared memory beside the three
+    task rows and the tolerance (else in global memory).  Raises where
+    even those do not fit."""
+    rows = (3 * (R + 2) + R) * 4 + _WIDE_STATIC_SMEM
+    if rows > SMEM_LIMIT:
+        raise ValueError(f"{R} lanes: the task rows need {rows} bytes of shared memory")
+    return rows + max_len * 4 <= SMEM_LIMIT
 
 
 def plan_shared_memory(R: int, NK: int, max_len: int) -> int:
@@ -189,7 +219,8 @@ def score_planes(
 ) -> torch.Tensor:
     """Total node-score plane for one task (binpack + least-requested +
     balanced) — the plain version of the kernel's score block
-    (vt::node_score), in the same op order and f32 rounding."""
+    (vt::node_score), in the same op order and f32 rounding;
+    least-requested in int32 where ``weights.lr_int_exact`` is set."""
     R = len(rr)
     maxal = torch.clamp_min(alloc, 1.0)
     allocpos = alloc > 0.0
@@ -216,20 +247,29 @@ def score_planes(
         if w_bp != 1.0:
             s_bp = s_bp * w_bp
 
-    # --- least-requested (f32 floor division, corrected) ---
+    # --- least-requested (f32 floor division, corrected; or int32) ---
     lr = None
     fracs = []
     for r in range(2):
         cap = alloc[r]
         c = maxal[r]
-        p = (cap - req[r]) * MAX_PRIORITY
-        q = torch.floor(p / c)
-        q = q + ((q + 1.0) * c <= p).to(torch.float32) - (q * c > p).to(torch.float32)
-        lane = torch.where(allocpos[r] & (req[r] <= cap), q, 0.0)
+        if weights.lr_int_exact:
+            reqi, capi = f32_to_i32(req[r]), f32_to_i32(cap)
+            q = torch.div((capi - reqi) * int(MAX_PRIORITY), torch.clamp_min(capi, 1),
+                          rounding_mode="floor")
+            lane = torch.where((capi > 0) & (reqi <= capi), q, 0)
+        else:
+            p = (cap - req[r]) * MAX_PRIORITY
+            q = torch.floor(p / c)
+            q = q + ((q + 1.0) * c <= p).to(torch.float32) - (q * c > p).to(torch.float32)
+            lane = torch.where(allocpos[r] & (req[r] <= cap), q, 0.0)
         lr = lane if lr is None else lr + lane
         # balanced fractions reuse req/max(alloc, 1)
         fracs.append(torch.where(allocpos[r], req[r] / c, 1.0))
-    s_lr = torch.floor(lr * 0.5)
+    if weights.lr_int_exact:
+        s_lr = torch.div(lr, 2, rounding_mode="floor").to(torch.float32)
+    else:
+        s_lr = torch.floor(lr * 0.5)
 
     # --- balanced resource ---
     cpu_f, mem_f = fracs
@@ -320,10 +360,8 @@ def _check_pass_args(taskrow, cf, nd, tol, cls_off, cls_nodes, weights, done, st
     Returns the longest class list (one device read on CUDA tensors)."""
     if taskrow.device.type not in ("cpu", "cuda"):
         raise ValueError(f"a session pass takes cuda or cpu tensors, not {taskrow.device}")
-    if weights.lr_int_exact:
-        raise ValueError("the session kernel runs the f32 least-requested path only")
-    if taskrow.dim() != 2 or not 2 <= taskrow.shape[1] - 2 <= MAX_LANES:
-        raise ValueError(f"taskrow must be [T, R+2] with 2 <= R <= {MAX_LANES}")
+    if taskrow.dim() != 2 or taskrow.shape[1] - 2 < 2:
+        raise ValueError("taskrow must be [T, R+2] with R >= 2")
     R = taskrow.shape[1] - 2
     if cf.dim() != 2:
         raise ValueError("cf must be [C, NK]")
@@ -349,7 +387,8 @@ def _check_pass_args(taskrow, cf, nd, tol, cls_off, cls_nodes, weights, done, st
             raise ValueError(f"{name} must be contiguous")
         if x.device != taskrow.device:
             raise ValueError(f"{name} is on {x.device}, taskrow on {taskrow.device}")
-    plan_shared_memory(R, NK, 0)  # raises where the node state does not fit
+    if not shared_layout(R, NK):
+        plan_wide(R, 0)  # raises where the task rows do not fit
     return _check_lists(cls_off, cls_nodes, NK)
 
 
@@ -375,7 +414,9 @@ def _check_lists(cls_off: torch.Tensor, cls_nodes: torch.Tensor, NK: int) -> int
     return longest_v
 
 
-def _library() -> ctypes.CDLL:
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built from the checkout's sources at the first
+    call (``ops/_build.py``); raises where the build fails."""
     global _lib
     if _lib is None:
         from volcano_tpu_torch.ops import _build
@@ -388,8 +429,9 @@ def _library() -> ctypes.CDLL:
             p, i,  # lnd, LT
             p, p,  # nd, tol
             p, i,  # done, NK
-            f, f, f, f, f, f,  # weights
-            i, p, p, p,  # plane_len, tlist, chosen, stats
+            f, f, f, f, f, f, i,  # weights, lr_int
+            i, p, p,  # plane_len, gstate, gplane
+            p, p, p,  # tlist, chosen, stats
             p, i,  # stream, device
         ]
         lib.vt_session_pass.restype = ctypes.c_int
@@ -415,26 +457,40 @@ class LaunchPlan(NamedTuple):
     plane_len: int  # masked-score plane, in scores (0: off)
     lnd: torch.Tensor  # [3R+2, LT] nd[:, cls_nodes]: the node planes in list order
     tlist: torch.Tensor  # [T, 2] i32 scratch: each task's list start and length
+    gstate: Optional[torch.Tensor]  # [R+1, NK] f32: the wide instance's node state
+    gplane: Optional[torch.Tensor]  # [plane_len] f32: its plane, where not in shared memory
 
 
 def launch_plan(taskrow, cf, nd, cls_nodes, max_len: int) -> Optional[LaunchPlan]:
     """The plan of launches on checked operands whose longest list is
-    ``max_len``: the plane ``plan_shared_memory`` picks, the list-order
-    gather and the list-bounds scratch.  None on CPU operands, where the
-    plain version runs."""
+    ``max_len``: the layout (``shared_layout``), the plane
+    ``plan_shared_memory`` or ``plan_wide`` picks, the list-order gather,
+    the list-bounds scratch and the wide instance's global scratch.  None
+    on CPU operands, where the plain version runs."""
     if taskrow.device.type == "cpu":
         return None
+    R, NK, dev = taskrow.shape[1] - 2, cf.shape[1], taskrow.device
+    gstate = gplane = None
+    if shared_layout(R, NK):
+        plane_len = plan_shared_memory(R, NK, max_len)
+    else:
+        plane_len = max_len
+        gstate = torch.empty((R + 1, NK), dtype=torch.float32, device=dev)
+        if not plan_wide(R, max_len):
+            gplane = torch.empty(max(max_len, 1), dtype=torch.float32, device=dev)
     return LaunchPlan(
-        plan_shared_memory(taskrow.shape[1] - 2, cf.shape[1], max_len),
+        plane_len,
         nd.index_select(1, cls_nodes),
-        torch.empty((taskrow.shape[0], 2), dtype=torch.int32, device=taskrow.device),
+        torch.empty((taskrow.shape[0], 2), dtype=torch.int32, device=dev),
+        gstate,
+        gplane,
     )
 
 
 def _launch(taskrow, cf, nd, tol, cls_off, cls_nodes, weights, done, stats,
             plan: LaunchPlan) -> torch.Tensor:
     """Launch one pass on checked CUDA operands, by ``plan``."""
-    global LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES
     T, RC = taskrow.shape
     device = taskrow.device
     chosen = torch.empty(T, dtype=torch.int32, device=device)
@@ -442,7 +498,7 @@ def _launch(taskrow, cf, nd, tol, cls_off, cls_nodes, weights, done, stats,
         if stats is not None:
             stats.zero_()
         return chosen
-    lib = _library()
+    lib = load_library()
     err = lib.vt_session_pass(
         taskrow.data_ptr(), T, RC - 2,
         cls_off.data_ptr(), cf.shape[0], cls_nodes.data_ptr(),
@@ -451,14 +507,20 @@ def _launch(taskrow, cf, nd, tol, cls_off, cls_nodes, weights, done, stats,
         None if done is None else done.data_ptr(), cf.shape[1],
         weights.binpack_weight, weights.binpack_cpu, weights.binpack_memory,
         weights.binpack_scalar, weights.least_requested_weight,
-        weights.balanced_resource_weight,
-        plan.plane_len, plan.tlist.data_ptr(), chosen.data_ptr(),
+        weights.balanced_resource_weight, int(weights.lr_int_exact),
+        plan.plane_len,
+        None if plan.gstate is None else plan.gstate.data_ptr(),
+        None if plan.gplane is None else plan.gplane.data_ptr(),
+        plan.tlist.data_ptr(), chosen.data_ptr(),
         None if stats is None else stats.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream, _device_index(device),
     )
     if err != 0:
         raise RuntimeError(f"session kernel launch failed: {lib.vt_error_string(err).decode()}")
-    LAUNCHES += 1
+    if plan.gstate is None:
+        LAUNCHES += 1
+    else:
+        WIDE_LAUNCHES += 1
     return chosen
 
 
@@ -508,7 +570,7 @@ def step_latency_probe(taskrow: torch.Tensor, reps: int = 4096) -> dict:
     T, RC = taskrow.shape
     device = taskrow.device
     out = torch.zeros(7, dtype=torch.int64, device=device)
-    lib = _library()
+    lib = load_library()
     err = lib.vt_step_probe(
         taskrow.data_ptr(), T, RC, reps, out.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream, _device_index(device),
@@ -535,7 +597,7 @@ def score_latency_probe(nd: torch.Tensor, taskrow: torch.Tensor, tol: torch.Tens
         raise ValueError("score_latency_probe takes cuda operands with R = 2")
     device = taskrow.device
     out = torch.zeros(5, dtype=torch.int64, device=device)
-    lib = _library()
+    lib = load_library()
     err = lib.vt_score_probe(
         nd.data_ptr(), taskrow[0].contiguous().data_ptr(), tol.data_ptr(), nd.shape[1], reps,
         weights.binpack_weight, weights.binpack_cpu, weights.binpack_memory,
@@ -564,6 +626,7 @@ def schedule_session_cuda(
     active0: torch.Tensor,  # [T] bool
     weights: ScoreWeights = DEFAULT_WEIGHTS,
     gang_rounds: int = 3,
+    discard_unstable: bool = False,
 ) -> torch.Tensor:
     """Whole session on the device → assignment[T] (node index or -1,
     gang-committed only).
@@ -572,8 +635,12 @@ def schedule_session_cuda(
     deactivated; a round whose active set is stable sets ``done``, and
     the launches after it return at once.  The operands are checked
     and the launches planned (``launch_plan``) once, before the first
-    launch; no host sync between rounds.
-    ``taskrow``'s active column is updated in place."""
+    launch; no host sync between rounds.  ``discard_unstable`` (the
+    reference's Statement semantics, as in ``kernels.run_packed``) runs
+    batches of ``gang_rounds`` rounds until ``done`` is set, one host
+    read of ``done`` per batch; every unstable round shrinks the active
+    set, so the loop ends.  ``taskrow``'s active column is updated in
+    place."""
     R = taskrow.shape[1] - 2
     J = job_min_avail.shape[0]
     active = active0
@@ -583,19 +650,22 @@ def schedule_session_cuda(
     plan = launch_plan(taskrow, cf, nd, cls_nodes, max_len)
     chosen = torch.full((taskrow.shape[0],), -1, dtype=torch.int32, device=taskrow.device)
     committed = torch.zeros(taskrow.shape[0], dtype=torch.bool, device=taskrow.device)
-    for _ in range(gang_rounds):
-        fresh = _pass(taskrow, cf, nd, tol, cls_off, cls_nodes, weights, done, None, plan)
-        chosen = torch.where(done.bool(), chosen, fresh)
-        placed = chosen >= 0
-        assigned = torch.zeros(J, dtype=torch.int32, device=taskrow.device).index_add_(
-            0, task_job, placed.to(torch.int32)
-        )
-        ready = (assigned + job_ready >= job_min_avail)[task_job]
-        committed = ready & placed
-        next_active = active & ready
-        done = done | (next_active == active).all().to(torch.int32)
-        active = next_active
-        taskrow[:, R + 1] = active.to(torch.float32)
+    while True:
+        for _ in range(max(gang_rounds, 1)):
+            fresh = _pass(taskrow, cf, nd, tol, cls_off, cls_nodes, weights, done, None, plan)
+            chosen = torch.where(done.bool(), chosen, fresh)
+            placed = chosen >= 0
+            assigned = torch.zeros(J, dtype=torch.int32, device=taskrow.device).index_add_(
+                0, task_job, placed.to(torch.int32)
+            )
+            ready = (assigned + job_ready >= job_min_avail)[task_job]
+            committed = ready & placed
+            next_active = active & ready
+            done = done | (next_active == active).all().to(torch.int32)
+            active = next_active
+            taskrow[:, R + 1] = active.to(torch.float32)
+        if not discard_unstable or int(done[0]):
+            break
     # committed ⊆ {chosen >= 0} ⊆ active-at-pass
     return torch.where(committed, chosen, -1)
 
@@ -605,11 +675,18 @@ def run_packed_cuda(
     weights: ScoreWeights = DEFAULT_WEIGHTS,
     gang_rounds: int = 3,
     device: Optional[Union[str, torch.device]] = None,
+    discard_unstable: bool = False,
 ) -> np.ndarray:
     """PackedSnapshot → assignment[n_tasks] (np.int32): pack, ship the
-    arrays once, run the session on the device, fetch once."""
+    arrays once, run the session on the device, fetch once.
+    ``discard_unstable`` runs the gang fixpoint to its end
+    (``schedule_session_cuda``).
+
+    Least-requested runs in int32 where ``weights.lr_int_exact`` asks for
+    it or a node's capacity leaves the f32 floor-division envelope — the
+    rule of ``kernels.run_packed``."""
     if not f32_lr_exact(snap):
-        raise ValueError("node capacity outside the f32-exact envelope")
+        weights = weights._replace(lr_int_exact=True)
     dev = resolve_device(device)
     arrays, T_act, NK = prepare_session_arrays(snap)
     if T_act == 0:
@@ -631,5 +708,6 @@ def run_packed_cuda(
         torch.ones(T_act, dtype=torch.bool, device=dev),
         weights=weights,
         gang_rounds=gang_rounds,
+        discard_unstable=discard_unstable,
     )
     return out.cpu().numpy()

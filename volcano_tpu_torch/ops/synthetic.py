@@ -3,7 +3,8 @@
 Copies of ``generate_snapshot`` and ``generate_preempt_packed`` from
 ``volcano_tpu/ops/synthetic.py``: generation is numpy
 ``RandomState(seed)`` in the same call order, so the same arguments give
-byte-identical arrays in both packages.
+byte-identical arrays in both packages.  ``generate_lr_mode_split`` and
+``add_scalar_lanes`` are the port's own.
 """
 
 from __future__ import annotations
@@ -102,6 +103,51 @@ def generate_snapshot(
     snap.task_uids = [f"t{i}" for i in range(n_tasks)]
     snap.node_names = [f"n{i}" for i in range(n_nodes)]
     snap.job_uids = [f"j{i}" for i in range(n_jobs)]
+    return snap
+
+
+def generate_lr_mode_split() -> PackedSnapshot:
+    """A session outside the f32 floor-division envelope whose one task
+    the f32 least-requested path and the exact int32 path place on
+    different nodes (the port's own generator, not a copy).
+
+    Node 0's memory lane is ((5,000,003 - 1,500,001) * 10) // 5,000,003
+    = 6 in int32 and 7 in f32: the correction's product 7 * 5,000,003
+    rounds to 35,000,020, which no longer exceeds p.  With its cpu lane
+    at 5, node 0 scores 18.0 in f32 and 17.0 in int32, around node 1's
+    17.526417 in both, so f32 picks node 0 and int32 node 1."""
+    snap = generate_snapshot(n_tasks=1, n_nodes=2, gang_size=1)
+    snap.task_resreq[0] = (1_000.0, 4_096.0)
+    snap.node_alloc[:2] = (224_000.0, 5_000_003.0)
+    snap.node_used[:2] = ((111_000.0, 1_495_905.0), (0.0, 500_000.0))
+    snap.node_idle[:2] = snap.node_alloc[:2] - snap.node_used[:2]
+    return snap
+
+
+def add_scalar_lanes(snap, n_lanes: int, seed: int):
+    """Append ``n_lanes`` scalar resource lanes (device-plugin counts in
+    milli-units: GPUs, RDMA devices, hugepages) to a packed snapshot's
+    arrays, in place, and return it: a fifth of the nodes have none of a
+    lane, and each gang asks for 0 to 2 units of each lane (the port's
+    own generator; numpy only, so it serves either package's
+    snapshot)."""
+    rng = np.random.RandomState(seed)
+    N = snap.node_idle.shape[0]
+    cap = rng.choice([0.0, 4_000.0, 8_000.0], size=(N, n_lanes), p=[0.2, 0.4, 0.4])
+    used = np.minimum(cap, rng.randint(0, 3, size=(N, n_lanes)) * 1_000.0)
+    job_req = rng.randint(0, 3, size=(snap.job_min_available.shape[0], n_lanes)) * 1_000.0
+    req = job_req[snap.task_job]
+    req[snap.n_tasks:] = 0.0
+
+    def grow(a, extra):
+        return np.ascontiguousarray(np.concatenate([a, extra.astype(a.dtype)], axis=1))
+
+    snap.task_resreq = grow(snap.task_resreq, req)
+    snap.node_alloc = grow(snap.node_alloc, cap)
+    snap.node_used = grow(snap.node_used, used)
+    snap.node_idle = grow(snap.node_idle, cap - used)
+    snap.tolerance = np.concatenate([snap.tolerance, np.full(n_lanes, 10.0, np.float32)])
+    snap.resource_names = list(snap.resource_names) + [f"scalar-{i}" for i in range(n_lanes)]
     return snap
 
 
