@@ -45,8 +45,20 @@ Phases, each of which fails the run:
      its plain version; a 9-lane session at 10k x 1k on the wide
      instance, equal to the torch spec; ``run_packed_blocked`` (torch
      ops, on no dispatch path) at 50k x 10k and on the wide cell, equal
-     to the kernel.  No kernel failure may be counted on any main path;
-  6. failures — the fault plane drives the breakers on the card: an
+     to the kernel;
+  6. the cycle — the port's scheduling cycle, a scheduler's entry
+     point: cluster objects (``generate_cluster_objects``) fed to a fresh
+     ``SchedulerCache``, ``open_session`` with the headline tiers,
+     ``GpuAllocateAction().execute`` (ORDER, pack, the session kernel,
+     the bulk commit), ``close_session``; CYCLE_RUNS cycles at 50k x 10k
+     and again at 10k x 1k, each placing every pod through the kernel
+     (executor ``cuda``, launches > 0) with the bulk commit taking every
+     task, no kernel failure, and binds whose sha256 is the JAX
+     package's jax-allocate's on the same objects (CYCLE_DIGESTS); the
+     median and max of each step and of the action's phases are printed,
+     and a ``{"cycle": ...}`` line for each config.  No kernel failure
+     may be counted on any main path;
+  7. failures — the fault plane drives the breakers on the card: an
      injected lowering failure or corrupt output raises ``ExecutorFailed``
      and is counted, three open the breaker, the fourth call is refused
      without a launch, the same for preempt-cuda; nothing runs in the
@@ -173,6 +185,18 @@ MAIN_CONFIG = "50k_pods_10k_nodes_gang_predicates"
 SECOND_CONFIG = "10k_pods_1k_nodes_fairshare"
 PREEMPT_CONFIG = "100k_pods_10k_nodes_preempt"
 WARM_RUNS = 5
+
+#: the scheduling cycle's tiers (the JAX package's bench/_profsetup.py)
+CYCLE_TIERS = (("priority", "gang"), ("drf", "predicates", "proportion", "nodeorder", "binpack"))
+#: sha256 of repr(sorted(binds)) that the JAX package's jax-allocate gives
+#: for each config's cluster objects (generate_cluster_objects, seed 0)
+#: under CYCLE_TIERS; tests/test_torch_digests.py recomputes them
+CYCLE_DIGESTS = {
+    MAIN_CONFIG: "c5ccf48727093b88dd6634c8eb317b91cf968f30e419d920f5d637d389b374ca",
+    SECOND_CONFIG: "9853688e576b441a556020ec00bb36671927f220ec2514ed5e728276f2e4859a",
+}
+#: cycles a cycle cell runs, each on a fresh cache
+CYCLE_RUNS = 5
 
 #: phase 2 sessions: the equivalence shapes of the JAX package's Pallas
 #: tests, plus one gang session with predicates at 2,000 x 1,000
@@ -1299,6 +1323,127 @@ def phase_blocked_vs_kernel(card: str, main_rec: dict) -> dict:
                 main_stops=graph_stats["stops"])
 
 
+class ListBinder:
+    """Records ``(ns/name, hostname)`` in the order binds arrive."""
+
+    def __init__(self):
+        self.binds = []
+
+    def bind(self, task, hostname):
+        self.binds.append((f"{task.namespace}/{task.name}", hostname))
+
+
+def cycle_digest(binds) -> str:
+    import hashlib
+
+    return hashlib.sha256(repr(sorted(binds)).encode()).hexdigest()
+
+
+def run_cycle(objects, device=None) -> dict:
+    """One scheduling cycle of the port on a fresh cache: feed the
+    cluster objects, open_session, gpu-allocate, close_session; the
+    binds, each step's seconds, the action's phases and its apply
+    route."""
+    import volcano_tpu_torch.actions  # noqa: F401 — registers the actions
+    import volcano_tpu_torch.plugins  # noqa: F401 — registers the plugins
+    from volcano_tpu_torch.actions import gpu_allocate
+    from volcano_tpu_torch.cache import SchedulerCache
+    from volcano_tpu_torch.conf import PluginOption, Tier
+    from volcano_tpu_torch.framework import close_session, open_session
+
+    nodes, pods, pod_groups, queues = objects
+    t0 = time.perf_counter()
+    cache = SchedulerCache(binder=ListBinder())
+    for node in nodes:
+        cache.add_node(node)
+    for pod in pods:
+        cache.add_pod(pod)
+    for pg in pod_groups:
+        cache.add_pod_group(pg)
+    for queue in queues:
+        cache.add_queue(queue)
+    t1 = time.perf_counter()
+    ssn = open_session(cache, [Tier(plugins=[PluginOption(name=n) for n in tier])
+                               for tier in CYCLE_TIERS], [])
+    action = gpu_allocate.GpuAllocateAction(device=device)
+    t2 = time.perf_counter()
+    action.execute(ssn)
+    t3 = time.perf_counter()
+    close_session(ssn)
+    t4 = time.perf_counter()
+    return dict(binds=cache.binder.binds, feed_s=t1 - t0, open_s=t2 - t1, execute_s=t3 - t2,
+                close_s=t4 - t3, phases=action.last_phase_stats,
+                route=action.last_apply_route)
+
+
+def phase_cycle(name: str, card: str) -> dict:
+    """CYCLE_RUNS scheduling cycles of the config's cluster objects on
+    fresh caches through gpu-allocate on the card (the port's entry
+    point a scheduler calls): each places every pod, through the session
+    kernel (launch counts set to 0 before the cycle, read after), with
+    the bulk commit taking every task, no kernel failure (a deadline
+    overrun counts as one), and binds whose digest is the JAX package's."""
+    import torch
+
+    from volcano_tpu_torch.ops import session_kernel
+    from volcano_tpu_torch.ops.executor import last_allocate_executor
+    from volcano_tpu_torch.ops.synthetic import BASELINE_CONFIGS, generate_cluster_objects
+
+    t0 = time.perf_counter()
+    objects = generate_cluster_objects(**BASELINE_CONFIGS[name])
+    build_s = time.perf_counter() - t0
+    n_pods = len(objects[1])
+    runs = []
+    for i in range(CYCLE_RUNS):
+        failures = kernel_failures()
+        torch.cuda.synchronize()
+        session_kernel.LAUNCHES = session_kernel.WIDE_LAUNCHES = 0
+        rec = run_cycle(objects)
+        launches, wide = session_kernel.LAUNCHES, session_kernel.WIDE_LAUNCHES
+        what = f"{name} cycle {i + 1}"
+        check(len(rec["binds"]) == n_pods, f"{what}: {len(rec['binds'])} binds, not {n_pods}")
+        check(last_allocate_executor() == "cuda",
+              f"{what}: executor {last_allocate_executor()!r}, expected 'cuda'")
+        check(launches + wide > 0, f"{what}: the session kernel was not launched")
+        check(rec["route"] == "fast", f"{what}: apply route {rec['route']!r}, not the bulk commit")
+        check(kernel_failures() == failures, f"{what}: kernel failures counted")
+        digest = cycle_digest(rec["binds"])
+        check(digest == CYCLE_DIGESTS[name],
+              f"{what}: binds digest {digest} != the JAX package's {CYCLE_DIGESTS[name]}")
+        rec.update(launches=launches, wide_launches=wide)
+        runs.append(rec)
+
+    def stat(key, scale=1e3):
+        vals = [r[key] * scale for r in runs]
+        return statistics.median(vals), max(vals)
+
+    def phase(key):
+        vals = [r["phases"].get(key, 0.0) for r in runs]
+        return statistics.median(vals), max(vals)
+
+    out = dict(config=name, cycles=CYCLE_RUNS, binds=n_pods, digest=CYCLE_DIGESTS[name],
+               build_objects_ms=build_s * 1e3, launches_per_cycle=runs[-1]["launches"],
+               wide_launches_per_cycle=runs[-1]["wide_launches"], card=card)
+    for key in ("feed_s", "open_s", "execute_s", "close_s"):
+        med, mx = stat(key)
+        out[f"{key[:-2]}_ms_median"], out[f"{key[:-2]}_ms_max"] = med, mx
+    for key in ("order_ms", "pack_ms", "execute_ms", "apply_ms", "commit_ms"):
+        med, mx = phase(key)
+        out[f"phase_{key[:-3]}_ms_median"], out[f"phase_{key[:-3]}_ms_max"] = med, mx
+    out["pods_per_s"] = n_pods / (out["execute_ms_median"] / 1e3)
+    print(f"{name}: {CYCLE_RUNS} cycles through gpu-allocate, each {n_pods} binds with the "
+          f"JAX package's digest, executor cuda, bulk commit, {out['launches_per_cycle']} "
+          f"launches; execute() median {out['execute_ms_median']:.3f} ms, max "
+          f"{out['execute_ms_max']:.3f} (order {out['phase_order_ms_median']:.3f}, pack "
+          f"{out['phase_pack_ms_median']:.3f}, device {out['phase_execute_ms_median']:.3f}, "
+          f"apply {out['phase_apply_ms_median']:.3f} of which commit "
+          f"{out['phase_commit_ms_median']:.3f}); open_session "
+          f"{out['open_ms_median']:.3f}, close_session {out['close_ms_median']:.3f}; "
+          f"{out['pods_per_s']:.1f} pods/s; card {card}")
+    print(json.dumps({"cycle": out}))
+    return out
+
+
 def kernel_failures() -> float:
     """Every failed or refused kernel call counted in this process."""
     from volcano_tpu_torch import metrics
@@ -1419,6 +1564,8 @@ def main() -> int:
     wide_rec = phase_wide_cell(card)
     phase_lanes_session(card)
     blocked_rec = phase_blocked_vs_kernel(card, main_rec)
+    cycle_rec = phase_cycle(MAIN_CONFIG, card)
+    phase_cycle(SECOND_CONFIG, card)
     from volcano_tpu_torch import faults
 
     check(kernel_failures() == 0 and not faults.degraded_reasons(),
@@ -1445,6 +1592,7 @@ def main() -> int:
             "int_bound_ms": dgx_rec["int_bound_ms"],
             "int_bound_by": dgx_rec["int_bound_by"],
             "int_launches": dgx_rec["launches"],
+            "cycle_launches": cycle_rec["launches_per_cycle"],
             "library_ms": None,
         },
         {

@@ -3,8 +3,9 @@
 A fresh interpreter with ``jax`` blocked and a meta-path finder that
 refuses ``volcano_tpu`` and its submodules (but not
 ``volcano_tpu_torch``) imports every module of the port and runs an
-allocate session (also through the blocked executor) and a preempt pass
-on the CPU."""
+allocate session (also through the blocked executor), a preempt pass
+and a scheduling cycle (cache → session → gpu-allocate → binds) on the
+CPU."""
 
 from __future__ import annotations
 
@@ -12,6 +13,9 @@ import ast
 import os
 import subprocess
 import sys
+
+import pytest
+import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -32,16 +36,13 @@ sys.meta_path.insert(0, RefuseReference())
 for name in [m for m in sys.modules if m == "volcano_tpu" or m.startswith("volcano_tpu.")]:
     del sys.modules[name]
 
-for mod in ("volcano_tpu_torch", "volcano_tpu_torch.api.resource",
-            "volcano_tpu_torch.ops", "volcano_tpu_torch.ops.packing",
-            "volcano_tpu_torch.ops.synthetic", "volcano_tpu_torch.ops.kernels",
-            "volcano_tpu_torch.ops._build", "volcano_tpu_torch.ops.session_kernel",
-            "volcano_tpu_torch.ops.preempt_pack", "volcano_tpu_torch.ops.preempt_kernel",
-            "volcano_tpu_torch.ops.dispatch", "volcano_tpu_torch.ops.executor",
-            "volcano_tpu_torch.ops.blocked", "volcano_tpu_torch.metrics",
-            "volcano_tpu_torch.faults", "volcano_tpu_torch.faults.plane",
-            "volcano_tpu_torch.faults.breaker", "volcano_tpu_torch.faults.watchdog"):
+import pkgutil
+import volcano_tpu_torch
+
+modules = [m.name for m in pkgutil.walk_packages(volcano_tpu_torch.__path__, "volcano_tpu_torch.")]
+for mod in modules:
     importlib.import_module(mod)
+assert len(modules) > 50 and "volcano_tpu_torch.actions.gpu_allocate" in modules
 
 from volcano_tpu_torch.ops.executor import (
     execute_allocate, execute_preempt, last_allocate_executor, last_preempt_executor,
@@ -57,19 +58,36 @@ assert (run_packed_blocked(generate_snapshot(n_tasks=48, n_nodes=12, gang_size=4
 evicted, pipelined = execute_preempt(
     generate_preempt_packed(n_victims=90, n_nodes=10, n_preemptors=16, seed=2), device="cpu")
 assert last_preempt_executor() == "dense"
+import chip_smoke
+from volcano_tpu_torch.ops.synthetic import generate_cluster_objects
+
+cycle = chip_smoke.run_cycle(generate_cluster_objects(n_tasks=48, n_nodes=12, gang_size=4,
+                                                      seed=1), device="cpu")
 assert "jax" not in {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
 print("placed", int((out >= 0).sum()), "of", len(out))
 print("evicted", int(evicted.sum()), "pipelined", int((pipelined >= 0).sum()))
+print("bound", len(cycle["binds"]), "route", cycle["route"])
 """
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread here and in the child keeps the suite's
+    parallel workers from contending for every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_port_imports_and_runs_without_jax_or_reference():
     proc = subprocess.run(
         [sys.executable, "-c", CHILD], cwd=ROOT, capture_output=True, text=True,
-        timeout=120, env=dict(os.environ, PYTHONPATH=ROOT),
+        timeout=120, env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1"),
     )
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip().splitlines() == ["placed 48 of 48", "evicted 10 pipelined 10"]
+    assert proc.stdout.strip().splitlines() == [
+        "placed 48 of 48", "evicted 10 pipelined 10", "bound 48 route fast"]
 
 
 def test_port_sources_import_neither_jax_nor_reference():

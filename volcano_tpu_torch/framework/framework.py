@@ -1,0 +1,125 @@
+"""OpenSession/CloseSession — session lifecycle.
+
+A copy of ``volcano_tpu/framework/framework.py`` for full sessions: the
+port has no restricted (incremental) sessions and no snapshot clone
+pool, so ``open_session`` always takes a full snapshot and
+``close_session`` hands nothing back.
+
+Reference: pkg/scheduler/framework/framework.go:30-66.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import List
+
+from volcano_tpu_torch import metrics
+from volcano_tpu_torch.apis import scheduling
+from volcano_tpu_torch.cache.interface import Cache
+from volcano_tpu_torch.conf import Configuration, Tier
+from volcano_tpu_torch.framework.arguments import Arguments
+from volcano_tpu_torch.framework.interface import get_plugin_builder
+from volcano_tpu_torch.framework.job_updater import JobUpdater
+from volcano_tpu_torch.framework.session import Session
+from volcano_tpu_torch.utils.logging import get_logger
+
+log = get_logger(__name__)
+
+
+def open_session(
+    cache: Cache, tiers: List[Tier], configurations: List[Configuration],
+) -> Session:
+    """framework.go:30-53 + session.go openSession:72-139."""
+    ssn = Session(cache)
+    ssn.tiers = tiers
+    ssn.configurations = configurations
+
+    snapshot = cache.snapshot()
+    ssn.jobs = snapshot.jobs
+    ssn.nodes = snapshot.nodes
+    ssn.queues = snapshot.queues
+    ssn.namespace_info = snapshot.namespace_info
+    ssn.pvcs = snapshot.pvcs
+
+    # Instantiate plugins listed in tiers (framework.go:37-45).
+    for tier in tiers:
+        for opt in tier.plugins:
+            builder = get_plugin_builder(opt.name)
+            if builder is None:
+                log.error("Failed to get plugin %s", opt.name)
+                continue
+            plugin = builder(opt.arguments or Arguments())
+            ssn.plugins[plugin.name()] = plugin
+
+    # Record incoming PodGroup status, filter invalid jobs at open
+    # (session.go:105-129; the reference DeepCopies).  Must be a COPY:
+    # Session.job_status mutates job.pod_group.status in place, so a
+    # stored reference would alias the "new" status and the updater's
+    # is_pod_group_status_updated gate could never fire again once a
+    # job carried conditions.  Conditions entries are replaced (not
+    # mutated) by update_job_condition, so a shallow list copy is deep
+    # enough.
+    for job in list(ssn.jobs.values()):
+        if job.pod_group is not None:
+            st = job.pod_group.status
+            ssn.pod_group_phase0[job.uid] = st.phase
+            if st.conditions:
+                ssn.pod_group_status[job.uid] = scheduling.PodGroupStatus(
+                    phase=st.phase,
+                    conditions=list(st.conditions),
+                    running=st.running,
+                    succeeded=st.succeeded,
+                    failed=st.failed,
+                )
+
+    for plugin in ssn.plugins.values():
+        start = time.perf_counter()
+        plugin.on_session_open(ssn)
+        metrics.update_plugin_duration(plugin.name(), time.perf_counter() - start)
+
+    for job in list(ssn.jobs.values()):
+        vr = ssn.job_valid(job)
+        if vr is not None:
+            if not vr.pass_:
+                # rejected before any action ran — still one scheduling
+                # attempt in the reference's attempts accounting
+                metrics.register_schedule_attempt("unschedulable")
+                ssn.update_job_condition(
+                    job,
+                    scheduling.PodGroupCondition(
+                        type=scheduling.POD_GROUP_UNSCHEDULABLE_TYPE,
+                        status="True",
+                        transition_id=ssn.uid,
+                        last_transition_time=time.time(),
+                        reason=vr.reason,
+                        message=vr.message,
+                    ),
+                )
+            del ssn.jobs[job.uid]
+
+    log.debug(
+        "Open session %s with %d jobs and %d queues",
+        ssn.uid,
+        len(ssn.jobs),
+        len(ssn.queues),
+    )
+    return ssn
+
+
+def close_session(ssn: Session) -> None:
+    """framework.go:56-66 + session.go closeSession:141-155."""
+    for plugin in ssn.plugins.values():
+        start = time.perf_counter()
+        plugin.on_session_close(ssn)
+        metrics.update_plugin_duration(plugin.name(), time.perf_counter() - start)
+
+    JobUpdater(ssn).update_all()
+
+    ssn.jobs = {}
+    ssn.nodes = {}
+    ssn.plugins = {}
+    ssn.event_handlers = []
+    ssn.job_order_fns = {}
+    ssn.namespace_order_fns = {}
+    ssn.queue_order_fns = {}
+    log.debug("Close session %s", ssn.uid)

@@ -2,8 +2,12 @@
 
 The local route of ``volcano_tpu/ops/executor.py``: PackedSnapshot in,
 assignment out, and PreemptPacked in, (evicted, pipelined) out, through
-the dispatcher.  The compute-plane sidecar route is not part of this
-package yet.
+the dispatcher.  The allocate session runs under the cycle deadline
+(``faults/watchdog.py``), as the reference's local route does: with no
+deadline armed (the default) it runs inline, and an overrun is counted
+as a failure of the executor (cause ``deadline``) and raises
+``CycleDeadlineExceeded``.  The compute-plane sidecar route is not part
+of this package yet.
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from volcano_tpu_torch import metrics
+from volcano_tpu_torch.faults import watchdog
 from volcano_tpu_torch.ops import dispatch
 from volcano_tpu_torch.ops.kernels import DEFAULT_WEIGHTS, ScoreWeights
 from volcano_tpu_torch.ops.packing import PackedSnapshot
@@ -27,10 +33,20 @@ def execute_allocate(
 ) -> np.ndarray:
     """PackedSnapshot → assignment[n_tasks] (node index or -1).  Runs on
     ``cuda`` unless ``device`` names another device; raises when no GPU
-    is present and no device is named."""
-    return dispatch.run_packed_auto(
-        snap, weights=weights or DEFAULT_WEIGHTS, gang_rounds=gang_rounds, device=device
-    )
+    is present and no device is named, and raises
+    ``CycleDeadlineExceeded`` when an armed cycle deadline runs out."""
+    try:
+        return watchdog.run_with_deadline(
+            lambda: dispatch.run_packed_auto(
+                snap, weights=weights or DEFAULT_WEIGHTS, gang_rounds=gang_rounds,
+                device=device),
+            watchdog.remaining_s(),
+            "local-allocate",
+        )
+    except watchdog.CycleDeadlineExceeded:
+        metrics.register_executor_failure(dispatch.select_executor(snap, device=device),
+                                          "deadline")
+        raise
 
 
 def last_allocate_executor() -> str:

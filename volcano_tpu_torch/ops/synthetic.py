@@ -1,9 +1,10 @@
 """Synthetic packed-session generators for the configs of BASELINE.json.
 
-Copies of ``generate_snapshot`` and ``generate_preempt_packed`` from
-``volcano_tpu/ops/synthetic.py``: generation is numpy
-``RandomState(seed)`` in the same call order, so the same arguments give
-byte-identical arrays in both packages.  ``generate_lr_mode_split`` and
+Copies of ``generate_snapshot``, ``generate_cluster_objects`` and
+``generate_preempt_packed`` from ``volcano_tpu/ops/synthetic.py``:
+generation is numpy ``RandomState(seed)`` in the same call order, so the
+same arguments give byte-identical arrays (and API objects whose dicts
+are equal) in both packages.  ``generate_lr_mode_split`` and
 ``add_scalar_lanes`` are the port's own.
 """
 
@@ -149,6 +150,131 @@ def add_scalar_lanes(snap, n_lanes: int, seed: int):
     snap.tolerance = np.concatenate([snap.tolerance, np.full(n_lanes, 10.0, np.float32)])
     snap.resource_names = list(snap.resource_names) + [f"scalar-{i}" for i in range(n_lanes)]
     return snap
+
+
+def generate_cluster_objects(
+    n_tasks: int,
+    n_nodes: int,
+    gang_size: int = 8,
+    seed: int = 0,
+    label_classes: int = 0,
+    taint_fraction: float = 0.0,
+    node_cpu_milli: int = 64_000,
+    node_mem_mib: int = 262_144,
+):
+    """The same cluster shape as :func:`generate_snapshot`, but as API
+    objects (nodes/pods/pod groups/queues) for driving the REAL framework
+    path: cache feed → session open → gpu-allocate action → bindings.
+    Resource values are MiB-aligned so the packed session stays inside
+    the exactness envelope (the bulk-apply fast path refuses otherwise).
+
+    Returns (nodes, pods, pod_groups, queues)."""
+    from volcano_tpu_torch.apis import core, scheduling
+
+    rng = np.random.RandomState(seed)
+    n_jobs = max(1, n_tasks // gang_size)
+
+    job_cpu = rng.choice([250, 500, 1000, 2000, 4000], size=n_jobs)
+    job_mem = rng.choice([256, 512, 1024, 2048, 4096, 8192], size=n_jobs)
+    job_zone = (
+        rng.randint(0, label_classes, size=n_jobs) if label_classes > 0 else None
+    )
+    tainted = (
+        rng.rand(n_nodes) < taint_fraction if taint_fraction > 0 else None
+    )
+    tolerant = (
+        rng.rand(n_tasks) < 0.33 if taint_fraction > 0 else None
+    )
+
+    nodes = []
+    for i in range(n_nodes):
+        labels = {}
+        if label_classes > 0:
+            labels["zone"] = f"z{i % label_classes}"
+        taints = (
+            [core.Taint(key="dedicated", value="special", effect="NoSchedule")]
+            if tainted is not None and tainted[i]
+            else []
+        )
+        alloc = {
+            "cpu": f"{node_cpu_milli}m",
+            "memory": f"{node_mem_mib}Mi",
+            "pods": 110,
+        }
+        nodes.append(
+            core.Node(
+                metadata=core.ObjectMeta(
+                    name=f"n{i:05d}", namespace="", uid=f"node-{i}",
+                    labels=labels, creation_timestamp=float(i),
+                ),
+                spec=core.NodeSpec(taints=taints, unschedulable=False),
+                status=core.NodeStatus(allocatable=alloc, capacity=dict(alloc)),
+            )
+        )
+
+    queues = [
+        scheduling.Queue(
+            metadata=core.ObjectMeta(
+                name="default", namespace="", uid="q-default",
+                creation_timestamp=0.0,
+            ),
+            spec=scheduling.QueueSpec(weight=1, capability={}),
+        )
+    ]
+
+    pod_groups, pods = [], []
+    for j in range(n_jobs):
+        pod_groups.append(
+            scheduling.PodGroup(
+                metadata=core.ObjectMeta(
+                    name=f"pg{j:05d}", namespace="bench", uid=f"pg-{j}",
+                    creation_timestamp=float(j),
+                ),
+                spec=scheduling.PodGroupSpec(
+                    min_member=gang_size, queue="default", min_resources={},
+                ),
+                status=scheduling.PodGroupStatus(
+                    phase=scheduling.POD_GROUP_INQUEUE
+                ),
+            )
+        )
+    for i in range(n_tasks):
+        j = min(i // gang_size, n_jobs - 1)
+        selector = (
+            {"zone": f"z{job_zone[j]}"} if job_zone is not None else {}
+        )
+        tols = (
+            [core.Toleration(key="dedicated", operator="Equal",
+                             value="special", effect="NoSchedule")]
+            if tolerant is not None and tolerant[i]
+            else []
+        )
+        container = core.Container(
+            name="main",
+            resources={
+                "requests": {
+                    "cpu": f"{int(job_cpu[j])}m",
+                    "memory": f"{int(job_mem[j])}Mi",
+                }
+            },
+        )
+        pods.append(
+            core.Pod(
+                metadata=core.ObjectMeta(
+                    name=f"p{i:06d}", namespace="bench", uid=f"pod-{i}",
+                    annotations={
+                        scheduling.GROUP_NAME_ANNOTATION_KEY: f"pg{j:05d}"
+                    },
+                    creation_timestamp=float(i),
+                ),
+                spec=core.PodSpec(
+                    containers=[container], node_name="",
+                    node_selector=selector, tolerations=tols, affinity={},
+                ),
+                status=core.PodStatus(phase="Pending"),
+            )
+        )
+    return nodes, pods, pod_groups, queues
 
 
 #: The configs of BASELINE.json (name → generator kwargs).
