@@ -56,8 +56,19 @@ Phases, each of which fails the run:
      task, no kernel failure, and binds whose sha256 is the JAX
      package's jax-allocate's on the same objects (CYCLE_DIGESTS); the
      median and max of each step and of the action's phases are printed,
-     and a ``{"cycle": ...}`` line for each config.  No kernel failure
-     may be counted on any main path;
+     and a ``{"cycle": ...}`` line for each config; then the preempting
+     cycle (``phase_preempt_cycle``): the preempt config's cluster as
+     objects (``generate_preempt_cluster_objects``: 90k Running victims
+     saturating 10k nodes, 10k pending high-priority preemptors in gangs
+     of 8, 4 queues; and the same at 9k x 1k), ``enqueue``,
+     ``gpu-allocate`` (every preemptor unplaceable, explained from the
+     device's reason counts with no host-chooser sweep), ``gpu-preempt``
+     (the preempt kernel, one launch, executor ``cuda``, route
+     ``device``; evictions and pipelines applied through a statement),
+     ``backfill``; PREEMPT_CYCLE_RUNS cycles a cell on fresh caches, each
+     with the JAX package's digest of (evictions, pipelined placements)
+     (PREEMPT_CYCLE_DIGESTS) and a ``{"preempt_cycle": ...}`` line a
+     cell.  No kernel failure may be counted on any main path;
   7. failures — the fault plane drives the breakers on the card: an
      injected lowering failure or corrupt output raises ``ExecutorFailed``
      and is counted, three open the breaker, the fourth call is refused
@@ -197,6 +208,28 @@ CYCLE_DIGESTS = {
 }
 #: cycles a cycle cell runs, each on a fresh cache
 CYCLE_RUNS = 5
+
+#: the preempting cycle: its tiers (tests/test_preempt_kernel.py's), its
+#: actions, and its cells (generate_preempt_cluster_objects, seed 0) with
+#: the cycles each runs on fresh caches
+PREEMPT_CYCLE_TIERS = (("priority", "gang", "conformance"),
+                       ("drf", "predicates", "proportion", "nodeorder", "binpack"))
+PREEMPT_CYCLE_ACTIONS = ("enqueue", "gpu-allocate", "gpu-preempt", "backfill")
+PREEMPT_CYCLE_MAIN = "100k_pods_10k_nodes_preempt"
+PREEMPT_CYCLE_SECOND = "10k_pods_1k_nodes_preempt"
+PREEMPT_CYCLE_CELLS = {
+    PREEMPT_CYCLE_MAIN: dict(n_victims=90_000, n_nodes=10_000, n_preemptors=10_000),
+    PREEMPT_CYCLE_SECOND: dict(n_victims=9_000, n_nodes=1_000, n_preemptors=1_000),
+}
+PREEMPT_CYCLE_RUNS = {PREEMPT_CYCLE_MAIN: 5, PREEMPT_CYCLE_SECOND: 3}
+#: sha256 of repr((sorted evicted names, sorted (name, node) pipelined
+#: pairs)) that the JAX package's enqueue, jax-allocate, jax-preempt,
+#: backfill give on each cell's objects under PREEMPT_CYCLE_TIERS;
+#: tests/test_torch_digests.py recomputes them
+PREEMPT_CYCLE_DIGESTS = {
+    PREEMPT_CYCLE_MAIN: "6c98d6e0cbff4d587fd0b4a2eb10f03dc12138bc306754617907b701b04148a9",
+    PREEMPT_CYCLE_SECOND: "8bad40bf659689c3508a934dc810f6213a868194a3f6f81e10d0eaeaa792317d",
+}
 
 #: phase 2 sessions: the equivalence shapes of the JAX package's Pallas
 #: tests, plus one gang session with predicates at 2,000 x 1,000
@@ -1376,6 +1409,75 @@ def run_cycle(objects, device=None) -> dict:
                 route=action.last_apply_route)
 
 
+class ListEvictor:
+    """Records ``ns/name`` in the order evictions arrive."""
+
+    def __init__(self):
+        self.evicts = []
+
+    def evict(self, task):
+        self.evicts.append(f"{task.namespace}/{task.name}")
+
+
+def preempt_cycle_digest(evicted, pipelined) -> str:
+    import hashlib
+
+    return hashlib.sha256(repr((sorted(evicted), sorted(pipelined))).encode()).hexdigest()
+
+
+def run_preempt_cycle(objects, device=None) -> dict:
+    """One preempting scheduling cycle of the port on a fresh cache:
+    feed the cluster objects, open_session, enqueue, gpu-allocate,
+    gpu-preempt, backfill, close_session.  The evictions (in order), the
+    pipelined (name, node) pairs read from the session before close, the
+    binds, each step's and each action's seconds, and the device
+    actions' phases and routes."""
+    import volcano_tpu_torch.actions  # noqa: F401 — registers the actions
+    import volcano_tpu_torch.plugins  # noqa: F401 — registers the plugins
+    from volcano_tpu_torch.actions import backfill, enqueue, gpu_allocate, gpu_preempt
+    from volcano_tpu_torch.api import TaskStatus
+    from volcano_tpu_torch.cache import SchedulerCache
+    from volcano_tpu_torch.conf import PluginOption, Tier
+    from volcano_tpu_torch.framework import close_session, open_session
+
+    nodes, pods, pod_groups, queues, priority_classes = objects
+    t0 = time.perf_counter()
+    cache = SchedulerCache(binder=ListBinder(), evictor=ListEvictor())
+    for pc in priority_classes:
+        cache.add_priority_class(pc)
+    for node in nodes:
+        cache.add_node(node)
+    for pod in pods:
+        cache.add_pod(pod)
+    for pg in pod_groups:
+        cache.add_pod_group(pg)
+    for queue in queues:
+        cache.add_queue(queue)
+    t1 = time.perf_counter()
+    ssn = open_session(cache, [Tier(plugins=[PluginOption(name=n) for n in tier])
+                               for tier in PREEMPT_CYCLE_TIERS], [])
+    t2 = time.perf_counter()
+    allocate = gpu_allocate.GpuAllocateAction(device=device)
+    preempt = gpu_preempt.GpuPreemptAction(device=device)
+    actions = dict(zip(PREEMPT_CYCLE_ACTIONS, (enqueue.EnqueueAction(), allocate, preempt,
+                                               backfill.BackfillAction())))
+    action_s = {}
+    for name, action in actions.items():
+        ta = time.perf_counter()
+        action.execute(ssn)
+        action_s[name] = time.perf_counter() - ta
+    pipelined = [(f"{t.namespace}/{t.name}", t.node_name) for job in ssn.jobs.values()
+                 for t in job.task_status_index.get(TaskStatus.Pipelined, {}).values()]
+    t3 = time.perf_counter()
+    close_session(ssn)
+    t4 = time.perf_counter()
+    return dict(evicted=cache.evictor.evicts, pipelined=pipelined, binds=cache.binder.binds,
+                feed_s=t1 - t0, open_s=t2 - t1, close_s=t4 - t3, action_s=action_s,
+                allocate_phases=allocate.last_phase_stats,
+                preempt_phases=preempt.last_phase_stats, preempt_route=preempt.last_route,
+                preempt_executor=preempt.last_executor)
+
+
 def phase_cycle(name: str, card: str) -> dict:
     """CYCLE_RUNS scheduling cycles of the config's cluster objects on
     fresh caches through gpu-allocate on the card (the port's entry
@@ -1441,6 +1543,97 @@ def phase_cycle(name: str, card: str) -> dict:
           f"{out['open_ms_median']:.3f}, close_session {out['close_ms_median']:.3f}; "
           f"{out['pods_per_s']:.1f} pods/s; card {card}")
     print(json.dumps({"cycle": out}))
+    return out
+
+
+def phase_preempt_cycle(name: str, card: str) -> dict:
+    """PREEMPT_CYCLE_RUNS preempting scheduling cycles of the cell's
+    cluster objects on fresh caches through enqueue, gpu-allocate,
+    gpu-preempt and backfill on the card (a scheduler's entry point
+    under the conf ``enqueue, allocate, preempt, backfill``).  Each
+    cycle: gpu-preempt ran the preempt kernel (executor ``cuda``, one
+    launch, launch counts set to 0 before the cycle and read after) on
+    the device route; gpu-allocate bound nothing, explained at least one
+    task from the device's reason counts and swept the host chooser for
+    none; no kernel failure; and the sha256 of (sorted evictions, sorted
+    pipelined (name, node) pairs) is the JAX package's on the same
+    objects."""
+    import torch
+
+    from volcano_tpu_torch.ops import preempt_kernel, session_kernel
+    from volcano_tpu_torch.ops.synthetic import generate_preempt_cluster_objects
+
+    t0 = time.perf_counter()
+    objects = generate_preempt_cluster_objects(**PREEMPT_CYCLE_CELLS[name])
+    build_s = time.perf_counter() - t0
+    cycles = PREEMPT_CYCLE_RUNS[name]
+    runs = []
+    for i in range(cycles):
+        failures = kernel_failures()
+        torch.cuda.synchronize()
+        preempt_kernel.LAUNCHES = 0
+        session_kernel.LAUNCHES = session_kernel.WIDE_LAUNCHES = 0
+        rec = run_preempt_cycle(objects)
+        launches = preempt_kernel.LAUNCHES
+        alloc_launches = session_kernel.LAUNCHES + session_kernel.WIDE_LAUNCHES
+        what = f"{name} preempt cycle {i + 1}"
+        alloc = rec["allocate_phases"]
+        check(rec["preempt_executor"] == "cuda",
+              f"{what}: preempt executor {rec['preempt_executor']!r}, expected 'cuda'")
+        check(launches == 1, f"{what}: the preempt kernel launched {launches} times, not once")
+        check(rec["preempt_route"] == "device",
+              f"{what}: gpu-preempt route {rec['preempt_route']!r}, expected 'device'")
+        check(alloc_launches > 0, f"{what}: gpu-allocate did not launch the session kernel")
+        check(not rec["binds"], f"{what}: gpu-allocate bound {len(rec['binds'])} pods")
+        check(alloc.get("explained", 0) >= 1,
+              f"{what}: gpu-allocate explained no task from the device counts")
+        check(alloc.get("host_sweeps", -1) == 0,
+              f"{what}: gpu-allocate swept the host chooser {alloc.get('host_sweeps')} times")
+        check(kernel_failures() == failures, f"{what}: kernel failures counted")
+        check(rec["evicted"] and rec["pipelined"], f"{what}: the cycle preempted nothing")
+        digest = preempt_cycle_digest(rec["evicted"], rec["pipelined"])
+        check(digest == PREEMPT_CYCLE_DIGESTS[name],
+              f"{what}: digest {digest} != the JAX package's {PREEMPT_CYCLE_DIGESTS[name]}")
+        rec.update(launches=launches, alloc_launches=alloc_launches)
+        runs.append(rec)
+
+    def med_max(vals):
+        return statistics.median(vals), max(vals)
+
+    out = dict(config=name, cycles=cycles, pods=len(objects[1]), nodes=len(objects[0]),
+               digest=PREEMPT_CYCLE_DIGESTS[name], build_objects_ms=build_s * 1e3,
+               evicted=len(runs[-1]["evicted"]), pipelined=len(runs[-1]["pipelined"]),
+               explained=runs[-1]["allocate_phases"]["explained"],
+               host_sweeps=runs[-1]["allocate_phases"]["host_sweeps"],
+               explain_rows=runs[-1]["allocate_phases"].get("explain_rows", 0),
+               preempt_launches_per_cycle=runs[-1]["launches"],
+               allocate_launches_per_cycle=runs[-1]["alloc_launches"], card=card)
+    for key in ("feed_s", "open_s", "close_s"):
+        out[f"{key[:-2]}_ms_median"], out[f"{key[:-2]}_ms_max"] = med_max(
+            [r[key] * 1e3 for r in runs])
+    for action in PREEMPT_CYCLE_ACTIONS:
+        out[f"{action}_ms_median"], out[f"{action}_ms_max"] = med_max(
+            [r["action_s"][action] * 1e3 for r in runs])
+    for prefix, phases, keys in (
+            ("allocate", "allocate_phases", ("order", "pack", "execute", "explain",
+                                             "explain_pack", "explain_reduce", "apply")),
+            ("preempt", "preempt_phases", ("pack", "execute", "apply"))):
+        for key in keys:
+            out[f"{prefix}_{key}_ms_median"], out[f"{prefix}_{key}_ms_max"] = med_max(
+                [r[phases].get(f"{key}_ms", 0.0) for r in runs])
+    print(f"{name}: {cycles} preempting cycles (enqueue, gpu-allocate, gpu-preempt, "
+          f"backfill), each {out['evicted']} evictions and {out['pipelined']} pipelined with "
+          f"the JAX package's digest, preempt executor cuda, {out['preempt_launches_per_cycle']} "
+          f"preempt launch, route device; gpu-allocate explained {out['explained']} tasks, "
+          f"{out['host_sweeps']} host sweeps; gpu-allocate median "
+          f"{out['gpu-allocate_ms_median']:.3f} ms (explain {out['allocate_explain_ms_median']:.3f}"
+          f" over {out['explain_rows']} rows: pack {out['allocate_explain_pack_ms_median']:.3f},"
+          f" reduce {out['allocate_explain_reduce_ms_median']:.3f}),"
+          f" gpu-preempt median {out['gpu-preempt_ms_median']:.3f} ms (pack "
+          f"{out['preempt_pack_ms_median']:.3f}, device {out['preempt_execute_ms_median']:.3f}, "
+          f"apply {out['preempt_apply_ms_median']:.3f}); open_session {out['open_ms_median']:.3f}, "
+          f"close_session {out['close_ms_median']:.3f}; card {card}")
+    print(json.dumps({"preempt_cycle": out}))
     return out
 
 
@@ -1566,6 +1759,8 @@ def main() -> int:
     blocked_rec = phase_blocked_vs_kernel(card, main_rec)
     cycle_rec = phase_cycle(MAIN_CONFIG, card)
     phase_cycle(SECOND_CONFIG, card)
+    preempt_cycle_rec = phase_preempt_cycle(PREEMPT_CYCLE_MAIN, card)
+    phase_preempt_cycle(PREEMPT_CYCLE_SECOND, card)
     from volcano_tpu_torch import faults
 
     check(kernel_failures() == 0 and not faults.degraded_reasons(),
@@ -1626,6 +1821,7 @@ def main() -> int:
             "chain_floor_ms": pre_rec["chain_floor_ms"],
             "fast_attempt_share": pre_rec["fast_attempt_share"],
             "plane_off_ms": pre_rec["plane_off_ms"],
+            "cycle_launches": preempt_cycle_rec["preempt_launches_per_cycle"],
             "library_ms": None,
         },
     ]

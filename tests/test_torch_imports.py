@@ -3,9 +3,10 @@
 A fresh interpreter with ``jax`` blocked and a meta-path finder that
 refuses ``volcano_tpu`` and its submodules (but not
 ``volcano_tpu_torch``) imports every module of the port and runs an
-allocate session (also through the blocked executor), a preempt pass
-and a scheduling cycle (cache → session → gpu-allocate → binds) on the
-CPU."""
+allocate session (also through the blocked executor), a preempt pass,
+a scheduling cycle (cache → session → gpu-allocate → binds) and a
+preempting cycle (enqueue → gpu-allocate → gpu-preempt → backfill) on
+the CPU."""
 
 from __future__ import annotations
 
@@ -43,6 +44,9 @@ modules = [m.name for m in pkgutil.walk_packages(volcano_tpu_torch.__path__, "vo
 for mod in modules:
     importlib.import_module(mod)
 assert len(modules) > 50 and "volcano_tpu_torch.actions.gpu_allocate" in modules
+for mod in ("actions.enqueue", "actions.backfill", "actions.preempt", "actions.reclaim",
+            "actions.gpu_preempt", "actions.gpu_reclaim", "ops.explain", "ops.reclaim_pack"):
+    assert "volcano_tpu_torch." + mod in modules, mod
 
 from volcano_tpu_torch.ops.executor import (
     execute_allocate, execute_preempt, last_allocate_executor, last_preempt_executor,
@@ -63,10 +67,17 @@ from volcano_tpu_torch.ops.synthetic import generate_cluster_objects
 
 cycle = chip_smoke.run_cycle(generate_cluster_objects(n_tasks=48, n_nodes=12, gang_size=4,
                                                       seed=1), device="cpu")
+from volcano_tpu_torch.ops.synthetic import generate_preempt_cluster_objects
+
+preempting = chip_smoke.run_preempt_cycle(generate_preempt_cluster_objects(
+    n_victims=90, n_nodes=10, n_preemptors=16, seed=2), device="cpu")
 assert "jax" not in {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
 print("placed", int((out >= 0).sum()), "of", len(out))
 print("evicted", int(evicted.sum()), "pipelined", int((pipelined >= 0).sum()))
 print("bound", len(cycle["binds"]), "route", cycle["route"])
+print("preempt cycle evicted", len(preempting["evicted"]), "pipelined",
+      len(preempting["pipelined"]), "route", preempting["preempt_route"], "host sweeps",
+      preempting["allocate_phases"]["host_sweeps"])
 """
 
 
@@ -87,7 +98,8 @@ def test_port_imports_and_runs_without_jax_or_reference():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines() == [
-        "placed 48 of 48", "evicted 10 pipelined 10", "bound 48 route fast"]
+        "placed 48 of 48", "evicted 10 pipelined 10", "bound 48 route fast",
+        "preempt cycle evicted 10 pipelined 10 route device host sweeps 0"]
 
 
 def test_port_sources_import_neither_jax_nor_reference():

@@ -27,7 +27,9 @@ actions/allocate.py (drive_allocate_loop):
    predicates + fit on that node only).  Tasks whose proposal fails
    validation — and tasks the kernel cannot score faithfully
    (preferred-affinity terms) — take the host scoring path for that
-   task alone.
+   task alone, unless the device's reason counts prove the task fits
+   no node (explain, ops/explain.py): then its FitErrors are synthesized
+   from the counts and the O(N) host predicate sweep is skipped.
 
 Failures: a kernel that fails raises ``ExecutorFailed`` out of
 ``execute`` before anything is applied, and an armed cycle deadline that
@@ -36,8 +38,7 @@ runs out raises ``CycleDeadlineExceeded`` the same way (counted by
 Either way nothing is bound and nothing runs in the kernel's place.
 
 Not present in the port yet: the reference's host-chooser route under an
-expired deadline, the device-derived unschedulability explanations
-(``explain``), the warm packer and node-plane prestage, and the trace
+expired deadline, the warm packer and node-plane prestage, and the trace
 journal's capture of the packed session.
 """
 
@@ -46,11 +47,13 @@ from __future__ import annotations
 import time
 from typing import Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from volcano_tpu_torch import metrics
 from volcano_tpu_torch.actions.allocate import (
     drive_allocate_loop,
+    eligible_jobs,
     gang_end_job,
     host_node_chooser,
     make_place_task,
@@ -62,7 +65,83 @@ from volcano_tpu_torch.api import FitError, TaskInfo, TaskStatus
 from volcano_tpu_torch.framework.interface import Action
 from volcano_tpu_torch.framework.session import Session
 from volcano_tpu_torch.ops.executor import execute_allocate
+from volcano_tpu_torch.ops.explain import (
+    ExplainResult,
+    run_explain,
+    session_explain_compatible,
+    task_exactly_encoded,
+)
 from volcano_tpu_torch.ops.packing import pack_session
+
+
+class _ExplainContext:
+    """Device-derived unschedulability explanations for one session.
+
+    Built from reason-count matrices (ops/explain): one for the kernel's
+    unplaced rows, and one for the pending tasks the ORDER replay left
+    out.  ``try_explain`` replaces the host fallback's O(N) predicate sweep
+    for a task the device PROVED fits no node — synthesizing the
+    reference-identical FitErrors from the counts — under gates that
+    keep the messages byte-faithful to what the host path would have
+    recorded on the same snapshot:
+
+      * the predicates plugin is in the session, with no opt-in
+        pressure predicates (ops.explain.session_explain_compatible;
+        the caller builds no context otherwise);
+      * the task row is bitset-exact and memory-exact
+        (ops.explain.task_exactly_encoded);
+      * no placement has mutated node state since the pack — after a
+        placement the host's pop-time first failure can shift to a
+        resource-fit failure the snapshot-time counts predate, so those
+        tasks take the host sweep instead.
+    """
+
+    def __init__(self, ssn: Session):
+        self.ssn = ssn
+        #: node-state epoch at pack time — any later mutation advances it
+        self._epoch0 = ssn.node_state_epoch
+        #: task uid → (its snapshot, that snapshot's result, its row)
+        self._rows: Dict[str, Tuple[object, ExplainResult, int]] = {}
+        #: tasks whose FitErrors came from the counts
+        self.explained = 0
+
+    def add(self, snap, result: ExplainResult, tasks) -> None:
+        """The reason counts of ``snap``, whose row i is ``tasks[i]``."""
+        for i, t in enumerate(tasks):
+            self._rows.setdefault(t.uid, (snap, result, i))
+
+    def try_explain(self, task: TaskInfo):
+        """FitErrors for ``task`` when the device counts prove it
+        unschedulable everywhere — None sends the caller to the host
+        sweep."""
+        if self.ssn.node_state_epoch != self._epoch0:
+            return None
+        row = self._rows.get(task.uid)
+        if row is None:
+            return None
+        snap, result, i = row
+        if not task_exactly_encoded(snap, i) or not result.all_infeasible(i):
+            return None
+        self.explained += 1
+        for reason in result.histogram(i):
+            metrics.register_unschedulable_reason(reason)
+        return result.fit_errors(i)
+
+
+def unordered_pending(ssn: Session, ordered: List[TaskInfo]) -> List[TaskInfo]:
+    """The pending tasks the allocate loop may try that ORDER left out:
+    a queue that went overused in the replay (every task placing) drops
+    the jobs behind it, while the real loop, where tasks fail, still
+    reaches them.  Jobs in uid order, tasks in uid order."""
+    seen = {t.uid for t in ordered}
+    return [
+        t
+        for job in eligible_jobs(ssn)
+        for t in sorted(job.task_status_index.get(TaskStatus.Pending, {}).values(),
+                        key=lambda t: t.uid)
+        if t.uid not in seen and not t.resreq.is_empty()
+    ]
+
 
 def compute_task_order(ssn: Session) -> List[TaskInfo]:
     """Phase 1: the task processing order.
@@ -108,15 +187,22 @@ def compute_task_order_replay(ssn: Session) -> List[TaskInfo]:
 
 class GpuAllocateAction(Action):
     def __init__(self, device: Optional[Union[str, torch.device]] = None):
-        """``device`` is where the KERNEL phase runs: ``cuda`` when None
-        (raising where there is no GPU), ``"cpu"`` for the PyTorch
-        specification."""
+        """``device`` is where the KERNEL phase and the explain reduction
+        run: ``cuda`` when None (raising where there is no GPU),
+        ``"cpu"`` for the PyTorch specification.  Explain is always on:
+        its reduction runs only when a task went unplaced, so
+        fully-placed cycles pay nothing."""
         self.device = device
         #: how the last execute() applied: "fast" (every task through the
         #: bulk commit), "loop" (the per-task loop), "" (nothing to apply)
         self.last_apply_route = ""
         #: phase timings (ms) of the last execute(): order, pack, execute,
-        #: apply, and commit (the bulk bind inside apply)
+        #: explain (split into explain_pack, the pack of the rows ORDER
+        #: left out, and explain_reduce, the reductions), apply, and
+        #: commit (the bulk bind inside apply); explain_rows, the rows
+        #: reduced; host_sweeps, the tasks that took the host chooser's
+        #: O(N) predicate sweep, and explained, the tasks whose FitErrors
+        #: came from the device's reason counts
         self.last_phase_stats: Dict[str, float] = {}
 
     def name(self) -> str:
@@ -126,8 +212,9 @@ class GpuAllocateAction(Action):
 
     def _kernel_proposals(
         self, ssn: Session, ordered_tasks: List[TaskInfo], nodes: List,
-    ) -> Tuple[Dict[str, str], Optional[object]]:
-        """Pack + run the session kernel; ({task uid → node name}, snap).
+    ) -> Tuple[Dict[str, str], Optional[object], Optional[np.ndarray]]:
+        """Pack + run the session kernel; ({task uid → node name}, snap,
+        assignment).
 
         Tasks flagged ``task_has_preferences`` are excluded — the kernel
         has no lanes for preferred (anti-)affinity scores, so those route
@@ -140,7 +227,7 @@ class GpuAllocateAction(Action):
             if job is not None and job.uid not in jobs:
                 jobs[job.uid] = job
         if not nodes or not ordered_tasks:
-            return {}, None
+            return {}, None, None
 
         t0 = time.perf_counter()
         snap = pack_session(
@@ -165,12 +252,12 @@ class GpuAllocateAction(Action):
         for i, task in enumerate(ordered_tasks):
             if assignment[i] >= 0 and not snap.task_has_preferences[i]:
                 proposals[task.uid] = nodes[assignment[i]].name
-        return proposals, snap
+        return proposals, snap, assignment
 
     # ---- phase 3 ----
 
     def execute(self, ssn: Session) -> None:
-        self.last_phase_stats = {}
+        self.last_phase_stats = {"host_sweeps": 0, "explained": 0}
         self.last_apply_route = ""
         nodes = [ssn.nodes[name] for name in sorted(ssn.nodes)]
 
@@ -180,12 +267,54 @@ class GpuAllocateAction(Action):
         self.last_phase_stats["order_ms"] = (time.perf_counter() - t0) * 1e3
         if not ordered:
             return
-        proposals, snap = self._kernel_proposals(ssn, ordered, nodes)
+        proposals, snap, assignment = self._kernel_proposals(ssn, ordered, nodes)
+
+        explain_ctx = None
+        if snap is not None:
+            explain_ctx = self._explain_context(ssn, ordered, nodes, snap, assignment)
+
         t0 = time.perf_counter()
-        self.last_apply_route = self._apply(ssn, ordered, proposals, snap)
+        try:
+            self.last_apply_route = self._apply(ssn, ordered, proposals, snap, explain_ctx)
+        finally:
+            if explain_ctx is not None:
+                self.last_phase_stats["explained"] = explain_ctx.explained
         self.last_phase_stats["apply_ms"] = (time.perf_counter() - t0) * 1e3
 
-    def _apply(self, ssn, ordered, proposals, snap) -> str:
+    def _explain_context(self, ssn, ordered, nodes, snap, assignment
+                         ) -> Optional[_ExplainContext]:
+        """The reason counts of this cycle, or None when every ordered
+        task placed or the session's predicates are not the ones the
+        counts encode: a reduction over the kernel's unplaced rows, and —
+        the port's addition to the reference, which sends these to the
+        host sweep — one over an explain-only pack of the pending tasks
+        ORDER left out, both on the kernel's device, so a saturated cycle
+        explains every task it tries."""
+        unplaced = np.nonzero(np.asarray(assignment)[: snap.n_tasks] < 0)[0]
+        if not unplaced.size or not session_explain_compatible(ssn):
+            return None
+        t0 = time.perf_counter()
+        ctx = _ExplainContext(ssn)
+        ctx.add(snap, run_explain(snap, task_rows=unplaced, device=self.device), ordered)
+        rows, pack_s = int(unplaced.size), 0.0
+        pending = sum(len(job.task_status_index.get(TaskStatus.Pending, {}))
+                      for job in ssn.jobs.values())
+        rest = unordered_pending(ssn, ordered) if pending > len(ordered) else []
+        if rest:
+            tp = time.perf_counter()
+            jobs = list({t.job: ssn.jobs[t.job] for t in rest}.values())
+            extra = pack_session(rest, jobs, nodes,
+                                 enforce_pod_count="predicates" in ssn.predicate_fns)
+            pack_s = time.perf_counter() - tp
+            ctx.add(extra, run_explain(extra, device=self.device), rest)
+            rows += len(rest)
+        explain_s = time.perf_counter() - t0
+        self.last_phase_stats.update(
+            explain_ms=explain_s * 1e3, explain_pack_ms=pack_s * 1e3,
+            explain_reduce_ms=(explain_s - pack_s) * 1e3, explain_rows=rows)
+        return ctx
+
+    def _apply(self, ssn, ordered, proposals, snap, explain_ctx) -> str:
         # Fully-placed exact sessions commit in bulk (actions/fast_apply);
         # anything outside that envelope runs the loop below.
         if snap is not None:
@@ -209,6 +338,15 @@ class GpuAllocateAction(Action):
                         return node
                     except FitError:
                         pass  # capacity/relational race → host fallback
+            if explain_ctx is not None:
+                fe = explain_ctx.try_explain(task)
+                if fe is not None:
+                    # device-proven unschedulable: record the synthesized
+                    # FitErrors (the same writeback the host sweep feeds)
+                    # and skip the O(N) host predicate sweep
+                    job.nodes_fit_errors[task.uid] = fe
+                    return None
+            self.last_phase_stats["host_sweeps"] += 1
             return host_choose(task, job)
 
         drive_allocate_loop(

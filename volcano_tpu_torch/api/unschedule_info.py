@@ -8,7 +8,7 @@ Reference: pkg/scheduler/api/unschedule_info.go.
 from __future__ import annotations
 
 from collections import Counter
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 # Well-known predicate failure reasons.
 NODE_RESOURCE_FIT_FAILED = "node(s) resource fit failed"
@@ -37,7 +37,9 @@ class FitError(Exception):
 def format_fit_errors(total_nodes: int, histogram: Dict[str, int]) -> str:
     """The reference's aggregate message (unschedule_info.go Error()):
     ``0/N nodes are available: <count> <reason>, ...`` with the parts
-    lexicographically sorted."""
+    lexicographically sorted.  The single copy of the format string —
+    host-collected FitErrors and device-derived reason counts both
+    render through it, which is what makes the two byte-comparable."""
     parts = sorted(f"{count} {reason}" for reason, count in histogram.items())
     return f"0/{total_nodes} nodes are available: {', '.join(parts)}."
 
@@ -48,6 +50,11 @@ class FitErrors:
     def __init__(self):
         self.nodes: Dict[str, FitError] = {}
         self._message: str = ""
+        #: device-derived reason histogram (ops/explain synthesis) —
+        #: set instead of per-node FitError entries when the counts came
+        #: off the device
+        self._histogram: Optional[Dict[str, int]] = None
+        self._total_nodes: int = 0
 
     def set_node_error(self, node_name: str, err: FitError) -> None:
         self.nodes[node_name] = err
@@ -55,8 +62,16 @@ class FitErrors:
     def set_error(self, message: str) -> None:
         self._message = message
 
+    def set_histogram(self, total_nodes: int, histogram: Dict[str, int]) -> None:
+        """Install an already-reduced reason histogram (the device
+        explain path) in place of per-node errors."""
+        self._histogram = dict(histogram)
+        self._total_nodes = total_nodes
+
     def histogram(self) -> Dict[str, int]:
-        """reason → node count over the per-node errors."""
+        """reason → node count, whichever way this FitErrors was built."""
+        if self._histogram is not None:
+            return dict(self._histogram)
         histogram: Counter = Counter()
         for err in self.nodes.values():
             for reason in err.reasons:
@@ -66,4 +81,7 @@ class FitErrors:
     def error(self) -> str:
         if self._message:
             return self._message
-        return format_fit_errors(len(self.nodes), self.histogram())
+        total = (
+            self._total_nodes if self._histogram is not None else len(self.nodes)
+        )
+        return format_fit_errors(total, self.histogram())

@@ -6,15 +6,15 @@ Reference: pkg/scheduler/conf/scheduler_conf.go (schema),
 pkg/scheduler/plugins/defaults.go (per-plugin flag defaults),
 pkg/scheduler/util.go:31-42 (default configuration).
 
-The policy's objects (a tier of plugin options, per-action arguments)
-that ``open_session`` takes; the YAML loader and the default policy
-document are not part of the port yet.
+The policy's objects (a tier of plugin options, per-action arguments,
+the whole policy) that ``open_session`` and the actions take; the YAML
+loader and the default policy document are not part of the port yet.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 from volcano_tpu_torch.framework.arguments import Arguments
 
@@ -52,3 +52,20 @@ class Configuration:
 
     name: str = ""
     arguments: Arguments = field(default_factory=Arguments)
+
+
+@dataclass
+class SchedulerConf:
+    actions: List[str] = field(default_factory=list)
+    tiers: List[Tier] = field(default_factory=list)
+    configurations: List[Configuration] = field(default_factory=list)
+
+
+def get_action_arguments(
+    configurations: List[Configuration], action_name: str
+) -> Optional[Arguments]:
+    """Find an action's argument block (framework/arguments.go GetArgOfActionFromConf)."""
+    for c in configurations:
+        if c.name == action_name:
+            return c.arguments
+    return None

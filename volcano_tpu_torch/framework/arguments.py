@@ -26,6 +26,15 @@ class Arguments(Dict[str, str]):
         except ValueError:
             return default
 
+    def get_float(self, key: str, default: float) -> float:
+        v = self.get(key)
+        if v is None or v == "":
+            return default
+        try:
+            return float(str(v).strip())
+        except ValueError:
+            return default
+
     def get_bool(self, key: str, default: bool) -> bool:
         v = self.get(key)
         if v is None or v == "":

@@ -101,7 +101,7 @@ class Session:
         #: monotone count of node-state mutations (allocate / pipeline /
         #: dispatch / evict / bulk apply).  Unlike len(touched_nodes),
         #: it advances on REPEAT mutations of an already-touched node —
-        #: the explain synthesis gate (not in the port yet) compares
+        #: the explain synthesis gate (actions/gpu_allocate) compares
         #: epochs to know whether node state moved since a pack.
         self.node_state_epoch: int = 0
 
@@ -259,6 +259,14 @@ class Session:
                 if vr is not None and not vr.pass_:
                     return vr
         return None
+
+    def job_enqueueable(self, obj: object) -> bool:
+        for tier in self.tiers:
+            for plugin in tier.plugins:
+                fn = self.job_enqueueable_fns.get(plugin.name)
+                if fn is not None and not fn(obj):
+                    return False
+        return True
 
     # ---- comparator dispatch ----
 

@@ -3,12 +3,14 @@ write, under the names of ``volcano_tpu/metrics/metrics.py``.
 
 The scheduling cycle writes the series the JAX package's framework, cache,
 plugins and actions write (plugin and task latencies, schedule attempts,
-unschedulable reasons, kernel phase latencies), each under the same name
+unschedulable reasons, kernel phase latencies, the explain reduction's
+latency, preemption victims and attempts), each under the same name
 and labels; a histogram keeps its count and sum.
 
 ``volcano_executor_failures_total{executor,cause}`` counts every failed or
-refused kernel call, a device phase that overran the cycle deadline
-included (the reference counts a demotion to a lower rung or to the host,
+refused kernel call, a device phase that overran the cycle deadline and
+a preempt or reclaim result that diverged while it was applied included
+(the reference counts a demotion to a lower rung or to the host,
 ``volcano_executor_fallbacks_total``; the port falls to none),
 ``volcano_circuit_breaker_open{executor}``
 holds each breaker's state, and ``volcano_faults_injected_total{point}``
@@ -90,7 +92,7 @@ registry = Registry()
 
 def register_executor_failure(executor: str, cause: str) -> None:
     """One failed or refused call of ``executor``; cause ∈ {error,
-    circuit-open, corrupt-output, deadline}."""
+    circuit-open, corrupt-output, deadline, diverged}."""
     registry.inc(f"{_NAMESPACE}_executor_failures_total",
                  {"executor": executor, "cause": cause})
 
@@ -136,6 +138,20 @@ def register_schedule_attempt(result: str) -> None:
 def update_pod_schedule_status(status: str, count: int = 1) -> None:
     """Pods whose bind landed (``successes``) or failed (``errors``)."""
     registry.inc(f"{_NAMESPACE}_pod_schedule_{status}", {}, count)
+
+
+def update_preemption_victims_count(count: int) -> None:
+    registry.inc(f"{_NAMESPACE}_total_preemption_victims", {}, count)
+
+
+def register_preemption_attempts() -> None:
+    registry.inc(f"{_NAMESPACE}_total_preemption_attempts", {})
+
+
+def update_explain_duration(seconds: float) -> None:
+    """The reason-count reduction behind a cycle's explanations
+    (``ops/explain.run_explain``)."""
+    registry.observe(f"{_NAMESPACE}_explain_latency_milliseconds", {}, seconds * 1e3)
 
 
 def register_commit_failure(kind: str) -> None:

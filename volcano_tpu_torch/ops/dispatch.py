@@ -73,6 +73,17 @@ class ExecutorFailed(RuntimeError):
         self.cause = cause
 
 
+class ApplyDiverged(ExecutorFailed):
+    """A device result failed the host's validation while it was being
+    applied (a victim or preemptor vanished, a plugin predicate vetoed,
+    the fit diverged): the statement was discarded, nothing was evicted,
+    and nothing ran in the executor's place.  ``cause`` is
+    ``diverged``."""
+
+    def __init__(self, executor: str, detail: str):
+        super().__init__(executor, "diverged", detail)
+
+
 def _breaker(name: str) -> faults.CircuitBreaker:
     """Executor breaker: 3 consecutive failures open it, a half-open
     re-probe after 30 s closes it again on success."""

@@ -148,6 +148,62 @@ def predicate_mask(
     return fit & sel_ok & tol_ok & room & node_ok[None, :]
 
 
+# ---- explain: first-failure reason planes + the per-task histogram ----
+
+#: reason-plane order = the HOST first-failure precedence: the resource
+#: fit check prepended by actions/allocate.make_predicate_fn, then the
+#: predicates plugin's own order (pod count, unschedulable, selector,
+#: taints).  Within a session every node passed ready() at snapshot
+#: time, so the packed ¬node_ok is exactly "unschedulable".
+N_EXPLAIN_REASONS = 5
+R_FIT, R_ROOM, R_UNSCHED, R_SEL, R_TOL = range(N_EXPLAIN_REASONS)
+
+
+def explain_counts(
+    task_resreq: torch.Tensor,  # [T, R]
+    task_sel_bits: torch.Tensor,  # [T, W] int32 bits
+    task_tol_bits: torch.Tensor,  # [T, W]
+    node_future_idle: torch.Tensor,  # [N, R]
+    node_label_bits: torch.Tensor,  # [N, W]
+    node_taint_bits: torch.Tensor,  # [N, W]
+    node_ok: torch.Tensor,  # [N] bool
+    node_task_count: torch.Tensor,  # [N] i32
+    node_max_tasks: torch.Tensor,  # [N] i32
+    tolerance: torch.Tensor,  # [R]
+    n_nodes: int,  # valid node rows (the rest padding)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(reason[T, N] int8, counts[T, P] int32), P = N_EXPLAIN_REASONS.
+
+    ``reason[t, n]`` is the index of the FIRST predicate the pair fails
+    in host order, or ``N_EXPLAIN_REASONS`` when the node is feasible
+    (or padding).  ``counts[t, p]`` is the number of valid nodes whose
+    first failure for task ``t`` is reason ``p`` — the reference's
+    FitErrors histogram (unschedule_info.go) reduced on the device.
+    Torch ops on the tensors' device: the port of an XLA program of the
+    JAX package, not of a Pallas kernel."""
+    fit, sel_ok, tol_ok, room = _component_planes(
+        task_resreq, task_sel_bits, task_tol_bits, node_future_idle,
+        node_label_bits, node_taint_bits, node_task_count, node_max_tasks,
+        tolerance,
+    )
+    ok = node_ok[None, :]
+    reason = torch.full(fit.shape, N_EXPLAIN_REASONS, dtype=torch.int8, device=fit.device)
+    # written from the last predicate to the first, so the first failing
+    # one in host order is what stays
+    for code, passed in ((R_TOL, tol_ok), (R_SEL, sel_ok), (R_UNSCHED, ok),
+                         (R_ROOM, room), (R_FIT, fit)):
+        reason = torch.where(passed, reason, torch.tensor(code, dtype=torch.int8,
+                                                          device=fit.device))
+    valid = torch.arange(reason.shape[1], device=reason.device) < n_nodes
+    reason = torch.where(valid[None, :], reason,
+                         torch.tensor(N_EXPLAIN_REASONS, dtype=torch.int8, device=reason.device))
+    counts = torch.stack(
+        [(reason == p).sum(dim=1, dtype=torch.int32) for p in range(N_EXPLAIN_REASONS)],
+        dim=1,
+    )
+    return reason, counts
+
+
 # ---- scores (closed-form plugin math) ----
 
 def binpack_score(

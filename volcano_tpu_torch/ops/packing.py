@@ -23,8 +23,7 @@ of 32 bits each; the registry assigns a bit per distinct (key,value)
 label pair / taint referenced in the session.  ``pack_session`` packs a
 live session's ordered tasks, jobs and nodes, as the JAX package's does
 (``volcano_tpu/ops/packing.py``), without its warm packer's seams (the
-persistent bit registries, the per-row host flags, the lane-row
-helpers).
+persistent bit registries, the lane-row helpers).
 """
 
 from __future__ import annotations
@@ -121,9 +120,19 @@ class PackedSnapshot:
     #: False when a memory quantity was not MiB-aligned (lane rounds).
     memory_exact: bool = True
 
+    #: True when the label/taint bit registry overflowed — the sel/tol
+    #: planes of every row are then suspect, not just flagged tasks.
+    #: Host bookkeeping (the explain synthesis gate); not serialized.
+    registry_overflow: bool = False
+
     #: [T] bool — tasks carrying preferred (anti-)affinity terms the
     #: kernel cannot score.
     task_has_preferences: np.ndarray = None
+
+    #: [T] bool — the rows whose relational predicates could not be
+    #: bitset-encoded (the per-row share of ``needs_host_validation``).
+    #: Host bookkeeping (the explain synthesis gate); not serialized.
+    task_needs_host: np.ndarray = None
 
 
 # ---- npz persistence (the trace journal's snapshot format) ----
@@ -267,6 +276,20 @@ def alloc_planes(
     snap.job_min_available[J:] = np.iinfo(np.int32).max
     snap.job_ready_count = np.zeros(J_pad, dtype=np.int32)
     snap.task_has_preferences = np.zeros(T_pad, dtype=bool)
+    snap.task_needs_host = np.zeros(T_pad, dtype=bool)
+
+
+def _res_vec(res, names: List[str], snap: PackedSnapshot) -> np.ndarray:
+    """One Resource as a lane row; a memory quantity that is not
+    MiB-aligned clears ``snap.memory_exact``."""
+    out = np.zeros(len(names), dtype=np.float32)
+    out[0] = res.milli_cpu
+    if res.memory % MIB:
+        snap.memory_exact = False
+    out[1] = res.memory / MIB
+    for i, name in enumerate(names[2:], start=2):
+        out[i] = res.scalars.get(name, 0.0)
+    return out
 
 
 def pack_task_bits(
@@ -438,6 +461,7 @@ def pack_session(
     for i, t in enumerate(tasks):
         snap.task_uids.append(t.uid)
         if pack_task_bits(snap, i, t, label_reg, taint_reg):
+            snap.task_needs_host[i] = True
             snap.needs_host_validation = True
 
     # Nodes: same bulk lane extraction as tasks.
@@ -475,5 +499,6 @@ def pack_session(
 
     if label_reg.overflow or taint_reg.overflow:
         snap.needs_host_validation = True
+        snap.registry_overflow = True
 
     return snap

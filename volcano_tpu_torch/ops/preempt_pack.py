@@ -13,19 +13,23 @@ are static for the pass; gang's preemptable is a per-job boolean; the
 priority plugin admits strictly-lower job priority; the host's ordered
 node trial is a masked argmax with the lowest-index tie-break.
 
-Packing a live session (``pack_preempt_session``) needs the session and
-plugin layers and is not part of this package yet; sessions arrive
-through ``preempt_packed_from_arrays`` or the synthetic generator.
+``pack_preempt_session`` packs a live session (the host replays the
+action's order and sorts the victims, as the reference does); sessions
+also arrive through ``preempt_packed_from_arrays`` or the synthetic
+generator.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field, fields
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from volcano_tpu_torch.api import TaskStatus
+from volcano_tpu_torch.apis import scheduling
 from volcano_tpu_torch.ops.kernels import (
     as_tensor,
     DEFAULT_WEIGHTS,
@@ -33,7 +37,12 @@ from volcano_tpu_torch.ops.kernels import (
     resolve_device,
     ScoreWeights,
 )
-from volcano_tpu_torch.ops.packing import PackedSnapshot, snapshot_from_arrays
+from volcano_tpu_torch.ops.packing import (
+    _res_vec,
+    pack_session,
+    PackedSnapshot,
+    snapshot_from_arrays,
+)
 
 #: DRF's share tolerance (a copy of volcano_tpu/plugins/drf.py SHARE_DELTA)
 SHARE_DELTA = 0.000001
@@ -112,6 +121,274 @@ def preempt_packed_from_arrays(
         elif isinstance(value, list):
             value = list(value)
         setattr(pk, name, value)
+    return pk
+
+
+# ---- packing a live session ----
+
+
+def _cmp_from_less(less):
+    def cmp(a, b):
+        if less(a, b):
+            return -1
+        if less(b, a):
+            return 1
+        return 0
+
+    return cmp
+
+
+def _order_stable(items, less):
+    """PriorityQueue pop order: less-fn sort, stable by insertion."""
+    return sorted(items, key=functools.cmp_to_key(_cmp_from_less(less)))
+
+
+def collect_preempt_work(ssn):
+    """Replicates PreemptAction.execute's setup (preempt.go:45-84):
+    queue discovery order, starving jobs per queue in job-order,
+    per-job pending preemptors in task-order, the under-request list."""
+    queues: Dict[str, object] = {}
+    starving: Dict[str, List] = {}
+    tasks: Dict[str, List] = {}
+    under_request: List = []
+
+    for job in sorted(ssn.jobs.values(), key=lambda j: j.uid):
+        if (
+            job.pod_group is not None
+            and job.pod_group.status.phase == scheduling.POD_GROUP_PENDING
+        ):
+            continue
+        vr = ssn.job_valid(job)
+        if vr is not None and not vr.pass_:
+            continue
+        queue = ssn.queues.get(job.queue)
+        if queue is None:
+            continue
+        queues.setdefault(queue.uid, queue)
+        if job.task_status_index.get(TaskStatus.Pending) and not ssn.job_pipelined(job):
+            starving.setdefault(queue.uid, []).append(job)
+            under_request.append(job)
+            tasks[job.uid] = _order_stable(
+                sorted(
+                    job.task_status_index[TaskStatus.Pending].values(),
+                    key=lambda t: t.uid,
+                ),
+                lambda l, r: ssn.task_order_fn(l, r),
+            )
+
+    for quid in starving:
+        starving[quid] = _order_stable(
+            starving[quid], lambda l, r: ssn.job_order_fn(l, r)
+        )
+    return queues, starving, tasks, under_request
+
+
+#: Preemptable plugins the dense formulation can express as filters.
+#: DRF (non-namespace policy) is dense-only; the CUDA kernel models the
+#: classic {priority, gang, conformance} triple.  Anything else in the
+#: first enabled-preemptable tier would silently diverge — pack refuses
+#: it instead.
+_SUPPORTED_PREEMPTABLE = {"priority", "gang", "conformance", "drf"}
+
+
+def _check_preemptable_tiers(ssn) -> dict:
+    """Return the enabled-filter flags for the first tier with
+    preemptable plugins; raise ValueError when that tier contains
+    anything the dense formulation cannot express."""
+    for tier in ssn.tiers:
+        enabled = {
+            p.name
+            for p in tier.plugins
+            if getattr(p, "enabled_preemptable")
+            and p.name in ssn.preemptable_fns
+        }
+        if enabled:
+            if not enabled <= _SUPPORTED_PREEMPTABLE:
+                raise ValueError(
+                    "dense preempt formulation supports preemptable plugins "
+                    f"{sorted(_SUPPORTED_PREEMPTABLE)}, session has "
+                    f"{sorted(enabled)}"
+                )
+            if "drf" in enabled:
+                drf = ssn.plugins.get("drf")
+                if drf is None or not hasattr(drf, "job_attrs"):
+                    raise ValueError("drf preemptable without plugin state")
+                # the weighted-namespace policy (drf.go:127-175) only
+                # bites when preemptor and preemptee namespaces differ —
+                # single-namespace sessions reduce to the job-share
+                # policy the dense replay models
+                namespaces = {j.namespace for j in ssn.jobs.values()}
+                if drf.namespace_opts and len(namespaces) > 1:
+                    raise ValueError(
+                        "weighted-namespace DRF preemption across "
+                        "namespaces is host-only"
+                    )
+            return {
+                "use_prio": "priority" in enabled,
+                "use_gang": "gang" in enabled,
+                "use_conf": "conformance" in enabled,
+                "use_drf": "drf" in enabled,
+            }
+    raise ValueError("session has no enabled preemptable plugins")
+
+
+def pack_preempt_session(ssn) -> PreemptPacked:
+    """Session → PreemptPacked (the order replay happens here, on the
+    host).  Raises ValueError for a session the dense formulation cannot
+    replay faithfully (the caller runs the host action then)."""
+    from volcano_tpu_torch.plugins.conformance import _is_critical
+
+    flags = _check_preemptable_tiers(ssn)
+    queues, starving, ptasks_by_job, under_request = collect_preempt_work(ssn)
+
+    # job table over ALL session jobs (victims may belong to any)
+    jobs = sorted(ssn.jobs.values(), key=lambda j: j.uid)
+    job_row = {j.uid: i for i, j in enumerate(jobs)}
+    queue_row = {quid: i for i, quid in enumerate(queues)}
+
+    # preemptor stream: starving jobs' pending tasks, job-contiguous;
+    # order inside a job = task-order (the host pops them in this order
+    # in both phases)
+    ordered_ptasks: List = []
+    job_start = np.zeros(len(jobs), dtype=np.int32)
+    job_end = np.zeros(len(jobs), dtype=np.int32)
+    for quid in queues:
+        for job in starving.get(quid, []):
+            job_start[job_row[job.uid]] = len(ordered_ptasks)
+            ordered_ptasks.extend(ptasks_by_job[job.uid])
+            job_end[job_row[job.uid]] = len(ordered_ptasks)
+
+    nodes = [ssn.nodes[name] for name in sorted(ssn.nodes)]
+    base = pack_session(
+        ordered_ptasks,
+        jobs,
+        nodes,
+        enforce_pod_count="predicates" in ssn.predicate_fns,
+    )
+
+    pk = PreemptPacked(base=base)
+    pk.ptask_uids = list(base.task_uids)
+    pk.node_names = list(base.node_names)
+    R = base.task_resreq.shape[1]
+    names = base.resource_names
+
+    N_pad = base.node_idle.shape[0]
+    pk.node_fi0 = np.zeros((N_pad, R), dtype=np.float32)
+    node_row = {n.name: i for i, n in enumerate(nodes)}
+    for i, n in enumerate(nodes):
+        pk.node_fi0[i] = _res_vec(n.future_idle(), names, base)
+
+    # Frozen-order soundness guard: phase 1 pops starving jobs from a
+    # LIVE PriorityQueue, so evicting a victim whose job is ITSELF
+    # starving flips that job's DRF share / gang readiness and can
+    # reorder it against other still-unprocessed starving jobs in the
+    # same queue.  The pack-time frozen order cannot observe that —
+    # refuse such sessions (host action).  With a single starving job in
+    # the victim job's queue there is no order to disturb.
+    starving_uids = {
+        job.uid: quid for quid, jobs_ in starving.items() for job in jobs_
+    }
+
+    # victims: Running tasks per node, in the host's eviction order —
+    # inverse task order (priority asc, creation/uid desc), stable over
+    # the uid-sorted preemptee list (actions/preempt.py victims_queue)
+    vics = []
+    for n in nodes:
+        all_vics = [
+            t
+            for t in sorted(n.tasks.values(), key=lambda t: t.uid)
+            if t.status == TaskStatus.Running and t.job in ssn.jobs
+        ]
+        # rank within the node's uid-sorted candidate list — the order
+        # the per-node preemptable call processes (DRF's running
+        # subtraction depends on it, and counts CRITICAL tasks too)
+        uid_pos = {t.uid: i for i, t in enumerate(all_vics)}
+        # conformance veto applied at pack time: critical victims never
+        # enter the evictable set (conformance.go:45-60).  DRF sessions
+        # keep them as subtraction-only participants — the host's DRF
+        # plugin scans the full preemptees list.
+        node_vics = []
+        for t in all_vics:
+            critical = flags["use_conf"] and _is_critical(t)
+            if critical and not flags["use_drf"]:
+                continue
+            node_vics.append((t, not critical))
+        for t, _ in node_vics:
+            vquid = starving_uids.get(t.job)
+            if vquid is not None and len(starving.get(vquid, [])) >= 2:
+                raise ValueError(
+                    f"job {t.job} is both starving preemptor and victim "
+                    "source in a multi-job queue; frozen order replay "
+                    "would diverge"
+                )
+        node_vics = _order_stable(
+            node_vics, lambda l, r: ssn.task_order_fn(r[0], l[0])
+        )
+        for t, evictable in node_vics:
+            vics.append((node_row[n.name], t, uid_pos[t.uid], evictable))
+    V = len(vics)
+    pk.n_victims = V
+    pk.vic_resreq = np.zeros((max(V, 1), R), dtype=np.float32)
+    pk.vic_node = np.zeros(max(V, 1), dtype=np.int32)
+    pk.vic_job = np.zeros(max(V, 1), dtype=np.int32)
+    pk.vic_uid_pos = np.zeros(max(V, 1), dtype=np.int32)
+    pk.vic_evictable = np.ones(max(V, 1), dtype=bool)
+    for i, (nrow, t, upos, evictable) in enumerate(vics):
+        pk.vic_resreq[i] = _res_vec(t.resreq, names, base)
+        pk.vic_node[i] = nrow
+        pk.vic_job[i] = job_row[t.job]
+        pk.vic_uid_pos[i] = upos
+        pk.vic_evictable[i] = evictable
+        pk.vic_uids.append(t.uid)
+        pk.vic_names.append(f"{t.namespace}/{t.name}")
+
+    pk.use_prio = flags["use_prio"]
+    pk.use_gang = flags["use_gang"]
+    pk.use_conf = flags["use_conf"]
+    pk.use_drf = flags["use_drf"]
+    if flags["use_drf"]:
+        drf = ssn.plugins["drf"]
+        pk.job_alloc0 = np.zeros((len(jobs), R), dtype=np.float64)
+        for i, j in enumerate(jobs):
+            attr = drf.job_attrs.get(j.uid)
+            if attr is not None:
+                pk.job_alloc0[i] = _res_vec(attr.allocated, names, base)
+        pk.total_res = _res_vec(drf.total_resource, names, base).astype(
+            np.float64
+        )
+        pk.total_lanes = np.array(
+            [True, True]
+            + [name in drf.total_resource.scalars for name in names[2:]],
+            dtype=bool,
+        )
+
+    J = len(jobs)
+    pk.n_jobs = J
+    pk.job_prio = np.array([j.priority for j in jobs], dtype=np.int64)
+    pk.job_min_avail = np.array([j.min_available for j in jobs], dtype=np.int32)
+    pk.job_ready0 = np.array([j.ready_task_num() for j in jobs], dtype=np.int32)
+    pk.job_waiting0 = np.array([j.waiting_task_num() for j in jobs], dtype=np.int32)
+    pk.job_queue = np.array(
+        [queue_row.get(ssn.queues[j.queue].uid, -1) if j.queue in ssn.queues else -1
+         for j in jobs],
+        dtype=np.int32,
+    )
+    pk.job_uids = [j.uid for j in jobs]
+    pk.job_ptask_start = job_start
+    pk.job_ptask_end = job_end
+
+    # schedule: phase 1 per queue over starving jobs; phase 2 per queue
+    # over the full under-request list (preempt.go:96-112 iterates it
+    # inside the queue loop)
+    sched: List[Tuple[int, int]] = []
+    for quid in queues:
+        for job in starving.get(quid, []):
+            sched.append((1, job_row[job.uid]))
+        for job in under_request:
+            sched.append((2, job_row[job.uid]))
+    pk.schedule = (
+        np.array(sched, dtype=np.int32) if sched else np.zeros((0, 2), np.int32)
+    )
     return pk
 
 

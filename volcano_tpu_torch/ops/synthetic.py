@@ -4,8 +4,9 @@ Copies of ``generate_snapshot``, ``generate_cluster_objects`` and
 ``generate_preempt_packed`` from ``volcano_tpu/ops/synthetic.py``:
 generation is numpy ``RandomState(seed)`` in the same call order, so the
 same arguments give byte-identical arrays (and API objects whose dicts
-are equal) in both packages.  ``generate_lr_mode_split`` and
-``add_scalar_lanes`` are the port's own.
+are equal) in both packages.  ``generate_lr_mode_split``,
+``add_scalar_lanes`` and ``generate_preempt_cluster_objects`` (the
+preempt config as API objects) are the port's own.
 """
 
 from __future__ import annotations
@@ -446,3 +447,113 @@ def generate_preempt_packed(
             sched.append((2, j))
     pk.schedule = np.array(sched, dtype=np.int32)
     return pk
+
+
+def generate_preempt_cluster_objects(
+    n_victims: int,
+    n_nodes: int,
+    n_preemptors: int,
+    gang_size: int = 8,
+    victim_job_size: int = 8,
+    n_queues: int = 4,
+    blocked_job_fraction: float = 0.2,
+    seed: int = 0,
+    node_cpu_milli: int = 64_000,
+    node_mem_mib: int = 262_144,
+):
+    """The cluster of :func:`generate_preempt_packed` as API objects, for
+    driving a whole preempting cycle (cache feed → session → enqueue,
+    gpu-allocate, gpu-preempt, backfill).
+
+    Nodes of ``node_cpu_milli`` / ``node_mem_mib`` MiB (MiB-aligned, so
+    the packed sessions stay exact and the preempt kernel's f32 envelope
+    holds); victims placed round-robin over the nodes, ``Running`` at
+    7000m / 16 GiB with priority 0, in jobs of ``victim_job_size``, of
+    which ``blocked_job_fraction`` (seeded) sit at minAvailable = their
+    size and the rest at 1; preemptors ``Pending`` at 6000m / 8 GiB in
+    gangs of ``gang_size`` with minAvailable ``max(1, gang_size -
+    (n_queues - 1))``, under the priority class ``high`` (100).  Job row
+    j (victim jobs first, then preemptor jobs) sits in queue ``j %
+    n_queues`` (weight 1 each), so preemption stays in-queue; every
+    PodGroup is ``Inqueue``.
+
+    Returns (nodes, pods, pod_groups, queues, priority_classes)."""
+    from volcano_tpu_torch.apis import core, scheduling
+
+    rng = np.random.RandomState(seed)
+    P = n_preemptors
+    n_pjobs = max(1, P // gang_size)
+    n_vjobs = max(1, n_victims // victim_job_size)
+
+    alloc = {"cpu": f"{node_cpu_milli}m", "memory": f"{node_mem_mib}Mi", "pods": 110}
+    nodes = [
+        core.Node(
+            metadata=core.ObjectMeta(name=f"n{i:05d}", namespace="", uid=f"node-{i}",
+                                     creation_timestamp=float(i)),
+            spec=core.NodeSpec(taints=[], unschedulable=False),
+            status=core.NodeStatus(allocatable=dict(alloc), capacity=dict(alloc)),
+        )
+        for i in range(n_nodes)
+    ]
+    queues = [
+        scheduling.Queue(
+            metadata=core.ObjectMeta(name=f"q{k}", namespace="", uid=f"q-{k}",
+                                     creation_timestamp=float(k)),
+            spec=scheduling.QueueSpec(weight=1, capability={}),
+        )
+        for k in range(n_queues)
+    ]
+    priority_classes = [
+        core.PriorityClass(metadata=core.ObjectMeta(name="high", namespace="", uid="pc-high"),
+                           value=100)
+    ]
+
+    vic_job_of = np.minimum(np.arange(n_victims) // victim_job_size, n_vjobs - 1)
+    vj_sizes = np.bincount(vic_job_of, minlength=n_vjobs)
+    blocked = rng.rand(n_vjobs) < blocked_job_fraction
+    vj_min = np.where(blocked, vj_sizes, 1)
+    p_min = max(1, gang_size - (n_queues - 1))
+
+    def pod_group(name: str, j: int, min_member: int, priority_class: str):
+        return scheduling.PodGroup(
+            metadata=core.ObjectMeta(name=name, namespace="bench", uid=f"pg-{name}",
+                                     creation_timestamp=float(j)),
+            spec=scheduling.PodGroupSpec(
+                min_member=int(min_member), queue=f"q{j % n_queues}", min_resources={},
+                priority_class_name=priority_class,
+            ),
+            status=scheduling.PodGroupStatus(phase=scheduling.POD_GROUP_INQUEUE),
+        )
+
+    pod_groups = [pod_group(f"vj{j:05d}", j, vj_min[j], "") for j in range(n_vjobs)]
+    pod_groups += [pod_group(f"pj{k:05d}", n_vjobs + k, p_min, "high")
+                   for k in range(n_pjobs)]
+
+    def pod(name: str, ts: float, group: str, cpu_milli: int, mem_mib: int, node: str,
+            phase: str, priority: int, priority_class: str):
+        container = core.Container(
+            name="main",
+            resources={"requests": {"cpu": f"{cpu_milli}m", "memory": f"{mem_mib}Mi"}},
+        )
+        return core.Pod(
+            metadata=core.ObjectMeta(
+                name=name, namespace="bench", uid=f"pod-{name}", creation_timestamp=ts,
+                annotations={scheduling.GROUP_NAME_ANNOTATION_KEY: group},
+            ),
+            spec=core.PodSpec(containers=[container], node_name=node, node_selector={},
+                              tolerations=[], affinity={}, priority=priority,
+                              priority_class_name=priority_class),
+            status=core.PodStatus(phase=phase),
+        )
+
+    pods = [
+        pod(f"victim-{i:06d}", float(i), f"vj{int(vic_job_of[i]):05d}", 7000, 16_384,
+            f"n{i % n_nodes:05d}", "Running", 0, "")
+        for i in range(n_victims)
+    ]
+    pods += [
+        pod(f"pre-{i:06d}", float(n_victims + i), f"pj{min(i // gang_size, n_pjobs - 1):05d}",
+            6000, 8192, "", "Pending", 100, "high")
+        for i in range(P)
+    ]
+    return nodes, pods, pod_groups, queues, priority_classes
