@@ -69,6 +69,21 @@ Phases, each of which fails the run:
      with the JAX package's digest of (evictions, pipelined placements)
      (PREEMPT_CYCLE_DIGESTS) and a ``{"preempt_cycle": ...}`` line a
      cell.  No kernel failure may be counted on any main path;
+     then the scheduler loop (``phase_loop``): ``Scheduler.run_once``
+     cycle after cycle on one cache with snapshot reuse, from a policy
+     file, for each of LOOP_CELLS — 6 cycles at 50k x 10k with every
+     bound pod returned to Pending between cycles (``update_pod``, spec
+     unchanged; every cycle the JAX package's cycle digest, every cycle
+     after the first a warm pack reusing all 50,000 task rows), 5 at
+     10k x 1k with ``generate_loop_events``' churn between cycles (gangs
+     finish, gangs arrive, 10 nodes relabelled; each cycle's binds with
+     LOOP_DIGESTS' digest, task rows reused from the third cycle on),
+     and one preempting cycle at 10k x 1k (PREEMPT_CYCLE_DIGESTS, one
+     preempt launch).  Every cycle runs the session kernel with node
+     operands built on the card from the resident planes; each warm
+     pack is held against a seeded cold pack, the staged planes against
+     the numpy planes and the node operands against the host's, bit for
+     bit; a ``{"loop": ...}`` line a cell;
   7. failures — the fault plane drives the breakers on the card: an
      injected lowering failure or corrupt output raises ``ExecutorFailed``
      and is counted, three open the breaker, the fourth call is refused
@@ -86,6 +101,7 @@ Exits non-zero, printing no result, when no GPU is present.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -229,6 +245,36 @@ PREEMPT_CYCLE_RUNS = {PREEMPT_CYCLE_MAIN: 5, PREEMPT_CYCLE_SECOND: 3}
 PREEMPT_CYCLE_DIGESTS = {
     PREEMPT_CYCLE_MAIN: "6c98d6e0cbff4d587fd0b4a2eb10f03dc12138bc306754617907b701b04148a9",
     PREEMPT_CYCLE_SECOND: "8bad40bf659689c3508a934dc810f6213a868194a3f6f81e10d0eaeaa792317d",
+}
+
+#: the scheduler loop's cells: ``Scheduler.run_once`` cycle after cycle
+#: on one cache (``snapshot_reuse=True``), from a policy file.  A cell
+#: names its cluster (a cycle config, or the preempt cell), its tiers and
+#: actions, its cycles, and what happens in the store between cycles:
+#: ``revert`` (every bound pod back to Pending through ``update_pod``
+#: with its spec unchanged) or ``churn`` (``generate_loop_events``, seed 0)
+LOOP_A = "loop_50k_pods_10k_nodes_revert"
+LOOP_B = "loop_10k_pods_1k_nodes_churn"
+LOOP_C = "loop_10k_pods_1k_nodes_preempt"
+LOOP_CELLS = {
+    LOOP_A: dict(config=MAIN_CONFIG, tiers=CYCLE_TIERS, actions=("gpu-allocate",),
+                 cycles=6, between="revert"),
+    LOOP_B: dict(config=SECOND_CONFIG, tiers=CYCLE_TIERS, actions=("gpu-allocate",),
+                 cycles=5, between="churn"),
+    LOOP_C: dict(config=PREEMPT_CYCLE_SECOND, tiers=PREEMPT_CYCLE_TIERS,
+                 actions=PREEMPT_CYCLE_ACTIONS, cycles=1, between=None),
+}
+#: sha256 of each cycle's sorted binds that the JAX package's Scheduler
+#: with jax-allocate gives over the churn cell's events;
+#: tests/test_torch_digests.py recomputes them
+LOOP_DIGESTS = {
+    LOOP_B: [
+        "9853688e576b441a556020ec00bb36671927f220ec2514ed5e728276f2e4859a",
+        "9c7888c53346c71caae5289517965d899f89b636170c749bf5bb96c8703f25fc",
+        "317423345ce8ce3bf4085ccefb26e62d0d96f50bcb920b7a08210a3f99e5620a",
+        "f836ae89bcdbcf5a6821cd731654c471529f812ffa6159f154d6c1e61ee21f95",
+        "e1fee391f5372f8a30d170d2ff4a7087aba9e05ccbaf75772f77dbac681e1eb0",
+    ],
 }
 
 #: phase 2 sessions: the equivalence shapes of the JAX package's Pallas
@@ -1637,6 +1683,561 @@ def phase_preempt_cycle(name: str, card: str) -> dict:
     return out
 
 
+class RecordPipelined:
+    """An observer action for the loop's preempt cell: the session's
+    pipelined ``(ns/name, node)`` pairs, read before the session closes
+    (the cache never sees a pipelined task).  Registered by
+    :func:`loop_cycles` under ``record-pipelined`` and listed last in
+    that cell's policy; it changes nothing."""
+
+    def __init__(self):
+        self.pipelined = []
+
+    def name(self) -> str:
+        return "record-pipelined"
+
+    def execute(self, ssn) -> None:
+        from volcano_tpu_torch.api import TaskStatus
+
+        self.pipelined = [
+            (f"{t.namespace}/{t.name}", t.node_name) for job in ssn.jobs.values()
+            for t in job.task_status_index.get(TaskStatus.Pipelined, {}).values()]
+
+
+def loop_conf_text(tiers, actions) -> str:
+    """The scheduler's policy document for a loop cell (YAML)."""
+    lines = [f'actions: "{", ".join(actions)}"', "tiers:"]
+    for tier in tiers:
+        lines.append("- plugins:")
+        lines.extend(f"  - name: {name}" for name in tier)
+    return "\n".join(lines) + "\n"
+
+
+def revert_binds(cache, pods, binds) -> None:
+    """Every bound pod back to Pending through the cache's public
+    ``update_pod(old, new)``: old is the pod Running on its node, new
+    the pod as first submitted (its spec unchanged) — last cycle's pods
+    finished and an identical batch arrived."""
+    import copy
+
+    for name, host in binds:
+        pod = pods[name]
+        old = copy.copy(pod)
+        old.spec = copy.copy(pod.spec)
+        old.spec.node_name = host
+        old.status = copy.copy(pod.status)
+        old.status.phase = "Running"
+        cache.update_pod(old, pod)
+
+
+def loop_objects(config: str):
+    """A loop cell's cluster objects: a cycle config's
+    (``generate_cluster_objects``) or a preempt cell's
+    (``generate_preempt_cluster_objects``)."""
+    from volcano_tpu_torch.ops.synthetic import (
+        BASELINE_CONFIGS,
+        generate_cluster_objects,
+        generate_preempt_cluster_objects,
+    )
+
+    if config in PREEMPT_CYCLE_CELLS:
+        return generate_preempt_cluster_objects(**PREEMPT_CYCLE_CELLS[config])
+    return generate_cluster_objects(**BASELINE_CONFIGS[config])
+
+
+def loop_cycles(objects, tiers, actions, cycles: int, between=None, cache_hook=None,
+                cycle_window=contextlib.nullcontext):
+    """The port's scheduler loop on one cache: feed ``objects`` (nodes,
+    pods, pod groups, queues[, priority classes]) to a
+    ``SchedulerCache(snapshot_reuse=True)``, write the policy (``tiers``,
+    ``actions``) to a file in a temporary directory, and run
+    ``Scheduler(cache, scheduler_conf_path=...).run_once()`` ``cycles``
+    times, with ``between`` ("revert", "churn" or None) applied to the
+    store before every cycle but the first.  Yields one record a cycle:
+    its binds, evictions and pipelined pairs, the store events' and the
+    cycle's steps' seconds (``Scheduler.last_cycle``), gpu-allocate's
+    phases, and the clones the pool handed the session.
+    ``cache_hook(cache)`` runs once, after the feed, and each
+    ``run_once`` runs inside ``cycle_window()``.  The actions run as
+    registered (``framework.get_action``)."""
+    import os
+    import shutil
+    import tempfile
+
+    from volcano_tpu_torch.cache import feed_events, SchedulerCache
+    from volcano_tpu_torch.framework import get_action, register_action
+    from volcano_tpu_torch.ops.synthetic import (
+        generate_loop_events,
+        loop_world,
+        record_binds,
+    )
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+
+    nodes, pods, pod_groups, queues, *rest = objects
+    t0 = time.perf_counter()
+    cache = SchedulerCache(binder=ListBinder(), evictor=ListEvictor(), snapshot_reuse=True)
+    for pc in (rest[0] if rest else ()):
+        cache.add_priority_class(pc)
+    for add, objs in ((cache.add_node, nodes), (cache.add_pod, pods),
+                      (cache.add_pod_group, pod_groups), (cache.add_queue, queues)):
+        for obj in objs:
+            add(obj)
+    feed_s = time.perf_counter() - t0
+    if cache_hook is not None:
+        cache_hook(cache)
+    world = loop_world((nodes, pods, pod_groups, queues)) if between == "churn" else None
+    by_name = {f"{p.metadata.namespace}/{p.metadata.name}": p for p in pods}
+    recorder = RecordPipelined()
+    register_action(recorder)
+    tmp = tempfile.mkdtemp(prefix="vtpu-loop-")
+    try:
+        path = os.path.join(tmp, "scheduler.conf")
+        with open(path, "w") as f:
+            f.write(loop_conf_text(tiers, tuple(actions) + (recorder.name(),)))
+        scheduler = Scheduler(cache, scheduler_conf_path=path)
+        binds = []
+        for k in range(cycles):
+            if k and between == "revert":
+                t0 = time.perf_counter()
+                revert_binds(cache, by_name, binds)
+                feed_s = time.perf_counter() - t0
+            elif k and between == "churn":
+                record_binds(world, binds)
+                t0 = time.perf_counter()
+                feed_events(cache, generate_loop_events(world, k, seed=0))
+                feed_s = time.perf_counter() - t0
+            n_binds, n_evicts = len(cache.binder.binds), len(cache.evictor.evicts)
+            with cycle_window():
+                scheduler.run_once()
+            binds = cache.binder.binds[n_binds:]
+            allocate = get_action("gpu-allocate")
+            yield dict(cycle=k, binds=binds, evicted=cache.evictor.evicts[n_evicts:],
+                       pipelined=recorder.pipelined, feed_s=feed_s,
+                       pool_nodes=cache.last_pool_reuse[0], pool_jobs=cache.last_pool_reuse[1],
+                       phases=dict(allocate.last_phase_stats), **scheduler.last_cycle)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def packs_equal(warm, cold) -> list:
+    """The planes and fields where two PackedSnapshots differ (none: [])."""
+    from volcano_tpu_torch.ops.pack_cache import (
+        JOB_PLANES,
+        NODE_DYNAMIC_PLANES,
+        NODE_STATIC_PLANES,
+        TASK_PLANES,
+    )
+
+    planes = TASK_PLANES + NODE_DYNAMIC_PLANES + NODE_STATIC_PLANES + JOB_PLANES + ("tolerance",)
+    fields = ("n_tasks", "n_nodes", "n_jobs", "task_uids", "node_names", "job_uids",
+              "resource_names", "needs_host_validation", "memory_exact")
+    return ([n for n in planes if not np.array_equal(getattr(warm, n), getattr(cold, n))]
+            + [f for f in fields if getattr(warm, f) != getattr(cold, f)])
+
+
+def operands_equal(snap) -> list:
+    """Where the staged planes of ``snap`` differ from its numpy planes,
+    and the node operands the session kernel builds from them
+    (``device_node_operands``) from ``prepare_session_arrays``' host
+    arrays, bit for bit (none: [])."""
+    import torch
+
+    from volcano_tpu_torch.ops.device_stage import fetch_plane, STAGED_PLANES
+    from volcano_tpu_torch.ops.kernels import _feasibility_classes
+    from volcano_tpu_torch.ops.session_kernel import (
+        device_node_operands,
+        prepare_session_arrays,
+    )
+
+    planes = snap.device_planes
+    bad = [n for n in STAGED_PLANES
+           if not np.array_equal(fetch_plane(planes[n], getattr(snap, n)), getattr(snap, n))]
+    host, _, _ = prepare_session_arrays(snap)
+    _, class_sel, class_tol = _feasibility_classes(snap)
+    built = device_node_operands(planes, snap.n_nodes, class_sel, class_tol)
+    for name, arr in built.items():
+        got = arr.cpu()
+        want = torch.from_numpy(np.ascontiguousarray(host[name]))
+        if got.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        if got.shape != want.shape or not torch.equal(got, want):
+            bad.append(name)
+    return bad
+
+
+class LoopChecks:
+    """The host-only checks of every loop cycle on the card, hooked
+    where their inputs live and timed apart so the cycle's numbers can
+    leave them out: each warm pack against a cold ``pack_session``
+    seeded with copies of the PackCache's registries (a wrapper around
+    the cache's ``pack_cache.pack``), and, before each session-kernel
+    session, the staged planes against the numpy planes and the
+    device-built node operands against the host's (a wrapper around
+    ``session_kernel.run_packed_cuda``).  ``gc_clock``'s pauses inside
+    the hooks count apart from the cycle's."""
+
+    def __init__(self, gc_clock=None):
+        self.gc_clock = gc_clock
+        self.failures = []
+        self.pack_s = self.kernel_s = 0.0
+        self.packs = self.sessions = 0
+        self._orig_run = None
+        #: the last session's operands both ways, timed apart (ms): the
+        #: host reference, prepare_session_arrays (host_prepare_ms), with
+        #: the copy of its nine arrays (host_h2d_ms, host_h2d_bytes), and
+        #: the session's build from the staged planes (resident_build_ms)
+        self.split = {}
+
+    def _gc_check(self):
+        return self.gc_clock.check() if self.gc_clock else contextlib.nullcontext()
+
+    def time_split(self, snap) -> None:
+        """The operands of ``snap`` from the host reference and from the
+        staged planes, each timed on its own with the device
+        synchronized around it."""
+        import torch
+
+        from volcano_tpu_torch.ops.kernels import _feasibility_classes
+        from volcano_tpu_torch.ops.session_kernel import (
+            device_node_operands,
+            prepare_session_arrays,
+        )
+
+        dev = snap.device_planes["node_idle"].device
+        snap.__dict__.pop("_feas_classes_cache", None)  # time the classes too
+        t0 = time.perf_counter()
+        arrays, T_act, _ = prepare_session_arrays(snap)
+        host = list(arrays.values()) + [snap.task_job[:T_act].astype(np.int64),
+                                        snap.job_min_available.astype(np.int32),
+                                        snap.job_ready_count.astype(np.int32)]
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for arr in host:
+            torch.from_numpy(arr).to(dev)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        _, class_sel, class_tol = _feasibility_classes(snap)
+        device_node_operands(snap.device_planes, snap.n_nodes, class_sel, class_tol)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        self.split = dict(host_prepare_ms=(t1 - t0) * 1e3, host_h2d_ms=(t3 - t2) * 1e3,
+                          host_h2d_bytes=sum(a.nbytes for a in host),
+                          resident_build_ms=(t4 - t3) * 1e3)
+
+    def hook_cache(self, cache) -> None:
+        from volcano_tpu_torch.ops.packing import BitRegistry, pack_session
+
+        pc = cache.pack_cache
+        orig = pc.pack
+
+        def copy_reg(reg):
+            out = BitRegistry(reg.words)
+            out.index, out.overflow = dict(reg.index), reg.overflow
+            return out
+
+        def pack(tasks, jobs, nodes, epoch, enforce_pod_count=True):
+            snap = orig(tasks, jobs, nodes, epoch, enforce_pod_count=enforce_pod_count)
+            t0 = time.perf_counter()
+            with self._gc_check():
+                cold = pack_session(tasks, jobs, nodes, enforce_pod_count=enforce_pod_count,
+                                    label_registry=copy_reg(pc.label_reg),
+                                    taint_registry=copy_reg(pc.taint_reg))
+                bad = packs_equal(snap, cold)
+                del cold
+            if bad:
+                self.failures.append(f"pack {pc.last_stats.get('mode')} differs: {bad}")
+            self.packs += 1
+            self.pack_s += time.perf_counter() - t0
+            return snap
+
+        pc.pack = pack
+
+    def __enter__(self):
+        from volcano_tpu_torch.ops import session_kernel
+
+        self._orig_run = orig = session_kernel.run_packed_cuda
+
+        def run(snap, *args, **kwargs):
+            t0 = time.perf_counter()
+            if snap.device_planes is None:
+                self.failures.append("a session reached the kernel without staged planes")
+            else:
+                with self._gc_check():
+                    bad = operands_equal(snap)
+                    self.time_split(snap)
+                if bad:
+                    self.failures.append(f"device operands differ: {bad}")
+                # the checks computed the feasibility classes; the session
+                # computes its own, as it would unchecked
+                snap.__dict__.pop("_feas_classes_cache", None)
+            self.sessions += 1
+            self.kernel_s += time.perf_counter() - t0
+            return orig(snap, *args, **kwargs)
+
+        session_kernel.run_packed_cuda = run
+        return self
+
+    def __exit__(self, *exc):
+        from volcano_tpu_torch.ops import session_kernel
+
+        session_kernel.run_packed_cuda = self._orig_run
+        return False
+
+    def take(self) -> tuple:
+        """(pack check seconds, kernel check seconds) since the last take."""
+        out, self.pack_s, self.kernel_s = (self.pack_s, self.kernel_s), 0.0, 0.0
+        return out
+
+
+class GcClock:
+    """Time spent in the garbage collector, by generation, from
+    ``gc.callbacks``: only pauses inside a ``cycle()`` window count, and
+    of those, pauses inside a ``check()`` window (the LoopChecks hooks)
+    count apart."""
+
+    def __init__(self):
+        self.ms = [0.0, 0.0, 0.0]
+        self.counts = [0, 0, 0]
+        self.check_ms = 0.0
+        self._where = None
+        self._t0 = None
+
+    def _cb(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            ms = (time.perf_counter() - self._t0) * 1e3
+            if self._where == "cycle":
+                gen = info["generation"]
+                self.ms[gen] += ms
+                self.counts[gen] += 1
+            elif self._where == "check":
+                self.check_ms += ms
+            self._t0 = None
+
+    @contextlib.contextmanager
+    def cycle(self):
+        """One ``run_once``: the heap collected first (outside the
+        window), so the pauses counted are those the cycle's own
+        allocations bring on."""
+        import gc
+
+        gc.collect()
+        self._where = "cycle"
+        try:
+            yield
+        finally:
+            self._where = None
+
+    @contextlib.contextmanager
+    def check(self):
+        """A LoopChecks hook inside the cycle."""
+        where, self._where = self._where, "check" if self._where else None
+        try:
+            yield
+        finally:
+            self._where = where
+
+    def __enter__(self):
+        import gc
+
+        gc.callbacks.append(self._cb)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._cb)
+        return False
+
+    def take(self) -> dict:
+        """{gc_ms, gc_gen2_ms, gc_gen2, gc_check_ms} since the last take."""
+        out = dict(gc_ms=sum(self.ms), gc_gen2_ms=self.ms[2], gc_gen2=self.counts[2],
+                   gc_check_ms=self.check_ms)
+        self.ms, self.counts, self.check_ms = [0.0, 0.0, 0.0], [0, 0, 0], 0.0
+        return out
+
+
+def phase_loop(name: str, card: str) -> dict:
+    """A loop cell on the card: ``Scheduler.run_once`` cycle after cycle
+    on one cache with snapshot reuse (``loop_cycles``).  Every cycle: the
+    session kernel launched (counts set to 0 before run_once, read
+    after; executor ``cuda``), no kernel failure, the binds' digest the
+    JAX package's (the cycle config's for the revert cell, LOOP_DIGESTS'
+    for the churn cell, PREEMPT_CYCLE_DIGESTS' of (evictions, pipelined)
+    for the preempt cell, whose cycle launches the preempt kernel once),
+    and LoopChecks clean.  Revert cell: every cycle after the first packs
+    warm and reuses every task row.  Churn cell: from the second cycle
+    after the first on, some task rows reused and fewer than all nodes
+    repacked.  The collector's pauses are counted inside each
+    ``run_once`` only, after a ``gc.collect()``, and those inside the
+    checks' hooks apart (``GcClock``).  One ``{"loop": ...}`` line, a
+    record a cycle, and the phase's own wall time (``phase_ms``)."""
+    import torch
+
+    from volcano_tpu_torch.framework import get_action
+    from volcano_tpu_torch.ops import preempt_kernel, session_kernel
+    from volcano_tpu_torch.ops.executor import last_allocate_executor
+
+    spec = LOOP_CELLS[name]
+    t_phase = t0 = time.perf_counter()
+    objects = loop_objects(spec["config"])
+    build_s = time.perf_counter() - t0
+    n_pods, n_nodes = len(objects[1]), len(objects[0])
+    cycles = []
+    with GcClock() as gc_clock, LoopChecks(gc_clock) as checks:
+        loop = loop_cycles(objects, spec["tiers"], spec["actions"], spec["cycles"],
+                           spec["between"], cache_hook=checks.hook_cache,
+                           cycle_window=gc_clock.cycle)
+        while True:
+            failures = kernel_failures()
+            torch.cuda.synchronize()
+            session_kernel.LAUNCHES = session_kernel.WIDE_LAUNCHES = 0
+            preempt_kernel.LAUNCHES = 0
+            gc_clock.take()
+            rec = next(loop, None)
+            if rec is None:
+                break
+            launches = session_kernel.LAUNCHES + session_kernel.WIDE_LAUNCHES
+            preempt_launches = preempt_kernel.LAUNCHES
+            k, ph = rec["cycle"], rec["phases"]
+            what = f"{name} cycle {k}"
+            check_pack_s, check_kernel_s = checks.take()
+            check(not checks.failures, f"{what}: {checks.failures}")
+            check(last_allocate_executor() == "cuda",
+                  f"{what}: executor {last_allocate_executor()!r}, expected 'cuda'")
+            check(launches > 0, f"{what}: the session kernel was not launched")
+            check(kernel_failures() == failures, f"{what}: kernel failures counted")
+            if spec["between"] == "revert":
+                digest = cycle_digest(rec["binds"])
+                want = CYCLE_DIGESTS[spec["config"]]
+                check(len(rec["binds"]) == n_pods, f"{what}: {len(rec['binds'])} binds")
+                if k:
+                    check(ph.get("mode") == "warm" and ph.get("reused_tasks") == n_pods
+                          and "cold_cause" not in ph,
+                          f"{what}: pack {ph.get('mode')}, {ph.get('reused_tasks')} rows "
+                          f"reused, cold cause {ph.get('cold_cause')}")
+            elif spec["between"] == "churn":
+                digest = cycle_digest(rec["binds"])
+                want = LOOP_DIGESTS[name][k]
+                if k >= 2:
+                    check(ph.get("reused_tasks", 0) > 0 and ph.get("repacked_nodes", n_nodes)
+                          < n_nodes, f"{what}: {ph.get('reused_tasks')} rows reused, "
+                          f"{ph.get('repacked_nodes')} nodes repacked")
+            else:
+                digest = preempt_cycle_digest(rec["evicted"], rec["pipelined"])
+                want = PREEMPT_CYCLE_DIGESTS[spec["config"]]
+                preempt = get_action("gpu-preempt")
+                check(preempt.last_executor == "cuda" and preempt_launches == 1,
+                      f"{what}: preempt executor {preempt.last_executor!r}, "
+                      f"{preempt_launches} launches")
+            check(digest == want, f"{what}: digest {digest} != the JAX package's {want}")
+            actions_s = dict(rec["actions_s"])
+            actions_s["gpu-allocate"] -= check_pack_s + check_kernel_s
+            cycles.append(dict(
+                cycle=k, binds=len(rec["binds"]), evicted=len(rec["evicted"]),
+                pipelined=len(rec["pipelined"]), launches=launches,
+                preempt_launches=preempt_launches,
+                run_once_ms=(rec["e2e_s"] - check_pack_s - check_kernel_s) * 1e3,
+                open_ms=rec["open_s"] * 1e3, close_ms=rec["close_s"] * 1e3,
+                execute_ms={a: v * 1e3 for a, v in actions_s.items()},
+                events_ms=rec["feed_s"] * 1e3,
+                pool_nodes=rec["pool_nodes"], pool_jobs=rec["pool_jobs"],
+                check_pack_ms=check_pack_s * 1e3, check_kernel_ms=check_kernel_s * 1e3,
+                **checks.split, **gc_clock.take(),
+                **{key: ph.get(key) for key in (
+                    "order_ms", "node_prepack_ms", "relay_overlap_ms", "stage_ms",
+                    "stage_bytes", "prepare_ms", "h2d_bytes", "apply_ms", "mode",
+                    "cold_cause", "reused_tasks", "repacked_nodes")},
+                pack_ms=ph.get("pack_ms", 0.0) - check_pack_s * 1e3,
+                device_ms=ph.get("execute_ms", 0.0) - check_kernel_s * 1e3))
+    check(checks.packs == checks.sessions == len(cycles),
+          f"{name}: {checks.packs} packs and {checks.sessions} sessions checked "
+          f"over {len(cycles)} cycles")
+    out = dict(cell=name, config=spec["config"], pods=n_pods, nodes=n_nodes,
+               build_objects_ms=build_s * 1e3, phase_ms=(time.perf_counter() - t_phase) * 1e3,
+               card=card, cycles=cycles)
+    print(f"{name}: {len(cycles)} cycles of Scheduler.run_once on one cache, each with the "
+          f"JAX package's digest, executor cuda, node operands from the resident planes "
+          f"equal to the host's; run_once ms "
+          f"{[round(c['run_once_ms'], 3) for c in cycles]}, pack ms "
+          f"{[round(c['pack_ms'], 3) for c in cycles]} ({[c['mode'] for c in cycles]}), "
+          f"h2d bytes {[c['h2d_bytes'] for c in cycles]}; card {card}")
+    print(json.dumps({"loop": out}))
+    return out
+
+
+def pack_routes(card: str, name: str = MAIN_CONFIG, reps: int = 5) -> dict:
+    """The two cold packs of a fresh cache's first gpu-allocate session
+    of a cycle config, on one host: ``pack_session`` (a cache without
+    change tracking) and a first ``PackCache.pack`` (a SchedulerCache's,
+    whose every snapshot carries a PackEpoch).  In turns, ``reps`` times
+    each, on one session, each after a ``gc.collect()``, with the
+    collector's pauses inside it (``gc_ms``) and, for the PackCache's,
+    the ``pack_session`` call it makes (``inner_ms``); freeing a pack's
+    result is timed apart (``free_ms``).  Host work only; not part of
+    the smoke run.  One ``{"pack_routes": ...}`` line."""
+    import volcano_tpu_torch.actions  # noqa: F401 — registers the actions
+    import volcano_tpu_torch.plugins  # noqa: F401 — registers the plugins
+    from volcano_tpu_torch.actions.gpu_allocate import compute_task_order
+    from volcano_tpu_torch.cache import SchedulerCache
+    from volcano_tpu_torch.conf import PluginOption, Tier
+    from volcano_tpu_torch.framework import close_session, open_session
+    from volcano_tpu_torch.ops import pack_cache
+    from volcano_tpu_torch.ops.packing import pack_session
+    from volcano_tpu_torch.ops.synthetic import BASELINE_CONFIGS, generate_cluster_objects
+
+    nodes, pods, pod_groups, queues = generate_cluster_objects(**BASELINE_CONFIGS[name])
+    cache = SchedulerCache(binder=ListBinder())
+    for add, objs in ((cache.add_node, nodes), (cache.add_pod, pods),
+                      (cache.add_pod_group, pod_groups), (cache.add_queue, queues)):
+        for obj in objs:
+            add(obj)
+    ssn = open_session(cache, [Tier(plugins=[PluginOption(name=n) for n in tier])
+                               for tier in CYCLE_TIERS], [])
+    ordered = compute_task_order(ssn)
+    nodes = [ssn.nodes[k] for k in sorted(ssn.nodes)]
+    jobs = list({t.job: ssn.jobs[t.job] for t in ordered}.values())
+    inner = []
+
+    def timed_pack_session(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = pack_session(*args, **kwargs)
+        inner.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def cold():
+        pc = pack_cache.PackCache(cache)
+        return pc, pc.pack(ordered, jobs, nodes, ssn.pack_epoch, enforce_pod_count=True)
+
+    routes = {"pack_session": lambda: pack_session(ordered, jobs, nodes, enforce_pod_count=True),
+              "pack_cache_cold": cold}
+    ms, gc_ms, free_ms = ({r: [] for r in routes} for _ in range(3))
+    pack_cache.pack_session = timed_pack_session
+    try:
+        with GcClock() as clock:
+            for i in range(reps):
+                for route in (list(routes) if i % 2 == 0 else list(routes)[::-1]):
+                    with clock.cycle():
+                        t0 = time.perf_counter()
+                        result = routes[route]()
+                        t1 = time.perf_counter()
+                        del result
+                        t2 = time.perf_counter()
+                    ms[route].append((t1 - t0) * 1e3)
+                    free_ms[route].append((t2 - t1) * 1e3)
+                    gc_ms[route].append(clock.take()["gc_ms"])
+    finally:
+        pack_cache.pack_session = pack_session
+    close_session(ssn)
+    out = dict(config=name, tasks=len(ordered), nodes=len(nodes), reps=reps, card=card,
+               ms=ms, gc_ms=gc_ms, free_ms=free_ms, inner_ms=inner,
+               median_ms={r: statistics.median(v) for r, v in ms.items()})
+    print(json.dumps({"pack_routes": out}))
+    return out
+
+
 def kernel_failures() -> float:
     """Every failed or refused kernel call counted in this process."""
     from volcano_tpu_torch import metrics
@@ -1761,6 +2362,7 @@ def main() -> int:
     phase_cycle(SECOND_CONFIG, card)
     preempt_cycle_rec = phase_preempt_cycle(PREEMPT_CYCLE_MAIN, card)
     phase_preempt_cycle(PREEMPT_CYCLE_SECOND, card)
+    loop_recs = {cell: phase_loop(cell, card) for cell in LOOP_CELLS}
     from volcano_tpu_torch import faults
 
     check(kernel_failures() == 0 and not faults.degraded_reasons(),
@@ -1788,6 +2390,7 @@ def main() -> int:
             "int_bound_by": dgx_rec["int_bound_by"],
             "int_launches": dgx_rec["launches"],
             "cycle_launches": cycle_rec["launches_per_cycle"],
+            "loop_launches": loop_recs[LOOP_A]["cycles"][-1]["launches"],
             "library_ms": None,
         },
         {
@@ -1822,6 +2425,7 @@ def main() -> int:
             "fast_attempt_share": pre_rec["fast_attempt_share"],
             "plane_off_ms": pre_rec["plane_off_ms"],
             "cycle_launches": preempt_cycle_rec["preempt_launches_per_cycle"],
+            "loop_launches": loop_recs[LOOP_C]["cycles"][-1]["preempt_launches"],
             "library_ms": None,
         },
     ]

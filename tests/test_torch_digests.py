@@ -16,6 +16,14 @@ jax-allocate, jax-preempt, backfill`` on each preempt cell's objects
 1k nodes (``chip_smoke.run_preempt_cycle``, ``device="cpu"``) the same.
 The full-size cell takes about two minutes in the JAX package on a CPU,
 so it is marked ``slow``.
+
+And for the scheduler loop's churn cell: the JAX package's
+``Scheduler`` with ``jax-allocate`` over ``generate_loop_events``' churn
+(seed 0) at 10k pods x 1k nodes gives ``chip_smoke.LOOP_DIGESTS`` cycle by
+cycle, and the port's loop (``chip_smoke.loop_cycles``, its device
+actions registered with ``device="cpu"``) the same
+(``tests/test_torch_scheduler.py`` runs the port's loop on the other two
+cells).
 """
 
 from __future__ import annotations
@@ -39,11 +47,19 @@ from volcano_tpu.ops.synthetic import (
     BASELINE_CONFIGS as JAX_CONFIGS,
     generate_cluster_objects as jax_generate_cluster_objects,
 )
+from volcano_tpu.scheduler.scheduler import Scheduler as JaxScheduler
+from volcano_tpu_torch.actions import gpu_allocate, gpu_preempt
+from volcano_tpu_torch.framework import get_action, register_action
 from volcano_tpu_torch.ops.synthetic import (
     BASELINE_CONFIGS,
     generate_cluster_objects,
+    generate_loop_events,
     generate_preempt_cluster_objects,
+    loop_world,
+    record_binds,
 )
+
+from tests.test_torch_pack_cache import jax_feed_events
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -126,3 +142,59 @@ def test_port_preempt_cycle_digest_on_cpu():
     assert rec["allocate_phases"]["explained"] >= 1 and not rec["binds"]
     digest = chip_smoke.preempt_cycle_digest(rec["evicted"], rec["pipelined"])
     assert digest == chip_smoke.PREEMPT_CYCLE_DIGESTS[name]
+
+
+@pytest.fixture
+def cpu_actions():
+    """The port's device actions on the CPU for one test: registered
+    under their names, the registry's instances restored after."""
+    saved = [get_action(n) for n in ("gpu-allocate", "gpu-preempt")]
+    register_action(gpu_allocate.GpuAllocateAction(device="cpu"))
+    register_action(gpu_preempt.GpuPreemptAction(device="cpu"))
+    yield
+    for action in saved:
+        register_action(action)
+
+
+def test_jax_loop_digests_are_chip_smokes(tmp_path):
+    """The JAX package's Scheduler over the churn cell: one cache with
+    snapshot reuse, the cell's events between cycles; each cycle's
+    binds have LOOP_DIGESTS' digest."""
+    name = chip_smoke.LOOP_B
+    spec = chip_smoke.LOOP_CELLS[name]
+    config = spec["config"]
+    cache = JaxCache(binder=chip_smoke.ListBinder(), snapshot_reuse=True)
+    for add, objs in zip((cache.add_node, cache.add_pod, cache.add_pod_group, cache.add_queue),
+                         jax_generate_cluster_objects(**JAX_CONFIGS[config])):
+        for obj in objs:
+            add(obj)
+    world = loop_world(generate_cluster_objects(**BASELINE_CONFIGS[config]))
+    path = tmp_path / "scheduler.conf"
+    path.write_text(chip_smoke.loop_conf_text(spec["tiers"], ("jax-allocate",)))
+    scheduler = JaxScheduler(cache, scheduler_conf_path=str(path))
+    binds, digests = [], []
+    for k in range(spec["cycles"]):
+        if k:
+            record_binds(world, binds)
+            jax_feed_events(cache, generate_loop_events(world, k, seed=0))
+        n = len(cache.binder.binds)
+        scheduler.run_once()
+        binds = cache.binder.binds[n:]
+        digests.append(chip_smoke.cycle_digest(binds))
+    assert digests == chip_smoke.LOOP_DIGESTS[name]
+
+
+def test_port_loop_digests_on_cpu(cpu_actions):
+    """The port's loop over the churn cell on the CPU: LOOP_DIGESTS
+    cycle by cycle, task rows reused and fewer than all nodes repacked
+    from the third cycle on, and the clone pool handing nodes back."""
+    name = chip_smoke.LOOP_B
+    spec = chip_smoke.LOOP_CELLS[name]
+    recs = list(chip_smoke.loop_cycles(chip_smoke.loop_objects(spec["config"]), spec["tiers"],
+                                       spec["actions"], spec["cycles"], spec["between"]))
+    assert [chip_smoke.cycle_digest(r["binds"]) for r in recs] == chip_smoke.LOOP_DIGESTS[name]
+    assert [r["phases"]["mode"] for r in recs] == ["cold", "micro", "warm", "warm", "warm"]
+    for rec in recs[2:]:
+        assert rec["phases"]["reused_tasks"] > 0
+        assert rec["phases"]["repacked_nodes"] < 1_000
+        assert rec["pool_nodes"] > 0

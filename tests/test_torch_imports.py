@@ -121,3 +121,64 @@ def test_port_sources_import_neither_jax_nor_reference():
                 continue
             for name in names:
                 assert name.split(".")[0] not in ("jax", "volcano_tpu"), (path, name)
+
+
+CHILD_LOOP = r"""
+import importlib, importlib.abc, sys
+
+sys.modules["jax"] = None
+
+
+class RefuseReference(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "volcano_tpu" or name.startswith("volcano_tpu."):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+
+sys.meta_path.insert(0, RefuseReference())
+import pkgutil
+import volcano_tpu_torch
+
+modules = [m.name for m in pkgutil.walk_packages(volcano_tpu_torch.__path__, "volcano_tpu_torch.")]
+for mod in ("scheduler.scheduler", "ops.pack_cache", "ops.device_stage", "utils.gcutil",
+            "cache.feed"):
+    assert "volcano_tpu_torch." + mod in modules, mod
+    importlib.import_module("volcano_tpu_torch." + mod)
+
+import chip_smoke
+from volcano_tpu_torch.actions.gpu_allocate import GpuAllocateAction
+from volcano_tpu_torch.framework import register_action
+from volcano_tpu_torch.ops.synthetic import generate_cluster_objects
+
+register_action(GpuAllocateAction(device="cpu"))
+objects = generate_cluster_objects(n_tasks=64, n_nodes=16, gang_size=4, seed=1)
+modes = [rec["phases"]["mode"] for rec in chip_smoke.loop_cycles(
+    objects, chip_smoke.CYCLE_TIERS, ("gpu-allocate",), 3, "revert")]
+assert "jax" not in {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
+print("loop", " ".join(modes))
+"""
+
+
+def test_port_loop_runs_without_jax_or_reference():
+    """The scheduler loop's modules stand alone: a fresh interpreter with
+    ``jax`` blocked and ``volcano_tpu`` refused imports them and runs
+    three cycles of the loop (a cold pack, then warm ones)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD_LOOP], cwd=ROOT, capture_output=True, text=True,
+        timeout=120, env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1"),
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines() == ["loop cold warm warm"]
+
+
+@pytest.mark.parametrize("module", ["volcano_tpu_torch.conf", "volcano_tpu_torch.framework",
+                                    "volcano_tpu_torch.scheduler.scheduler"])
+def test_each_entry_module_imports_first(module):
+    """Each of these imports on its own in a fresh interpreter (the
+    policy module used to reach itself through the framework package)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import {module}"], cwd=ROOT, capture_output=True, text=True,
+        timeout=120, env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1"),
+    )
+    assert proc.returncode == 0, proc.stderr

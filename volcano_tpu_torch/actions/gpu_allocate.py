@@ -18,9 +18,16 @@ actions/allocate.py (drive_allocate_loop):
    updates from task resreqs only, never from which node a task landed
    on.  The replay mutates session accounting through the real event
    handlers and then unwinds itself, Statement-style.
-2. KERNEL — pack the session (ops/packing.py) and run it through
-   ``execute_allocate``: the CUDA session kernel on a GPU, the PyTorch
-   specification where the caller names ``device="cpu"``.
+2. KERNEL — pack the session and run it through ``execute_allocate``:
+   the CUDA session kernel on a GPU, the PyTorch specification where the
+   caller names ``device="cpu"``.  A session whose cache tracks changes
+   (``ssn.pack_epoch``) packs warm through the cache's cycle-persistent
+   ``pack_cache`` (ops/pack_cache.py) and stages the planes on the
+   kernel's device (ops/device_stage.py), where the session kernel
+   builds its node operands from them; the dynamic node planes are
+   packed and staged before ORDER, so their copy overlaps it.  Any other
+   session packs cold (ops/packing.py), and the kernel puts its planes
+   on the device whole.
 3. APPLY — the bulk commit of actions/fast_apply.py for a fully-placed
    exact session; otherwise the real control flow, placing each task on
    its kernel-proposed node after an O(1) host validation (plugin
@@ -35,11 +42,12 @@ Failures: a kernel that fails raises ``ExecutorFailed`` out of
 ``execute`` before anything is applied, and an armed cycle deadline that
 runs out raises ``CycleDeadlineExceeded`` the same way (counted by
 ``execute_allocate`` as a failure of the executor, cause ``deadline``).
-Either way nothing is bound and nothing runs in the kernel's place.
+Either way nothing is bound and nothing runs in the kernel's place.  A
+staging failure raises too (the reference logs it and runs on the numpy
+planes).
 
 Not present in the port yet: the reference's host-chooser route under an
-expired deadline, the warm packer and node-plane prestage, and the trace
-journal's capture of the packed session.
+expired deadline, and the trace journal's capture of the packed session.
 """
 
 from __future__ import annotations
@@ -64,13 +72,16 @@ from volcano_tpu_torch.actions.fast_order import try_compute_task_order
 from volcano_tpu_torch.api import FitError, TaskInfo, TaskStatus
 from volcano_tpu_torch.framework.interface import Action
 from volcano_tpu_torch.framework.session import Session
-from volcano_tpu_torch.ops.executor import execute_allocate
+from volcano_tpu_torch.ops import session_kernel
+from volcano_tpu_torch.ops.device_stage import get_stager
+from volcano_tpu_torch.ops.executor import execute_allocate, last_allocate_executor
 from volcano_tpu_torch.ops.explain import (
     ExplainResult,
     run_explain,
     session_explain_compatible,
     task_exactly_encoded,
 )
+from volcano_tpu_torch.ops.kernels import resolve_device
 from volcano_tpu_torch.ops.packing import pack_session
 
 
@@ -202,7 +213,16 @@ class GpuAllocateAction(Action):
         #: commit (the bulk bind inside apply); explain_rows, the rows
         #: reduced; host_sweeps, the tasks that took the host chooser's
         #: O(N) predicate sweep, and explained, the tasks whose FitErrors
-        #: came from the device's reason counts
+        #: came from the device's reason counts.  A warm-packed session
+        #: adds the packer's ``last_stats`` (mode, cold_cause,
+        #: repacked_tasks, reused_tasks, repacked_nodes),
+        #: node_prepack_ms (the node planes packed and staged before
+        #: ORDER), relay_overlap_ms (the ORDER window that copy
+        #: overlapped), stage_ms and stage_bytes (the planes brought to
+        #: the pack's revision on the device).  A session on the CUDA
+        #: kernel adds prepare_ms (its operands ready on the device) and
+        #: h2d_bytes (every byte the session copied to the device,
+        #: staging included).
         self.last_phase_stats: Dict[str, float] = {}
 
     def name(self) -> str:
@@ -211,7 +231,7 @@ class GpuAllocateAction(Action):
     # ---- phase 2 ----
 
     def _kernel_proposals(
-        self, ssn: Session, ordered_tasks: List[TaskInfo], nodes: List,
+        self, ssn: Session, ordered_tasks: List[TaskInfo], nodes: List, pack_cache=None,
     ) -> Tuple[Dict[str, str], Optional[object], Optional[np.ndarray]]:
         """Pack + run the session kernel; ({task uid → node name}, snap,
         assignment).
@@ -229,16 +249,33 @@ class GpuAllocateAction(Action):
         if not nodes or not ordered_tasks:
             return {}, None, None
 
+        enforce = "predicates" in ssn.predicate_fns
         t0 = time.perf_counter()
-        snap = pack_session(
-            ordered_tasks,
-            list(jobs.values()),
-            nodes,
-            enforce_pod_count="predicates" in ssn.predicate_fns,
-        )
+        if pack_cache is not None and ssn.pack_epoch is not None:
+            # warm path: delta-assemble from the cycle-persistent cache
+            snap = pack_cache.pack(
+                ordered_tasks, list(jobs.values()), nodes, ssn.pack_epoch,
+                enforce_pod_count=enforce,
+            )
+            self.last_phase_stats.update(pack_cache.last_stats)
+        else:
+            snap = pack_session(
+                ordered_tasks, list(jobs.values()), nodes, enforce_pod_count=enforce,
+            )
         pack_s = time.perf_counter() - t0
         self.last_phase_stats["pack_ms"] = pack_s * 1e3
         metrics.update_kernel_duration("pack", pack_s)
+
+        stage_bytes = 0
+        if snap.cache_key is not None:
+            # the device-resident mirror: only dirty rows travel; a
+            # failure raises (nothing runs on the numpy planes instead)
+            t0 = time.perf_counter()
+            stager = get_stager(snap.cache_key, resolve_device(self.device))
+            snap.device_planes = stager.stage(snap)
+            stage_bytes = stager.take_bytes()
+            self.last_phase_stats.update(stage_ms=(time.perf_counter() - t0) * 1e3,
+                                         stage_bytes=stage_bytes)
 
         t0 = time.perf_counter()
         # ExecutorFailed and CycleDeadlineExceeded leave execute() here,
@@ -247,6 +284,10 @@ class GpuAllocateAction(Action):
         execute_s = time.perf_counter() - t0
         self.last_phase_stats["execute_ms"] = execute_s * 1e3
         metrics.update_kernel_duration("execute", execute_s)
+        if last_allocate_executor() == "cuda":
+            sk = session_kernel.last_session_stats
+            self.last_phase_stats.update(
+                prepare_ms=sk["prepare_ms"], h2d_bytes=stage_bytes + sk["h2d_bytes"])
 
         proposals = {}
         for i, task in enumerate(ordered_tasks):
@@ -259,15 +300,36 @@ class GpuAllocateAction(Action):
     def execute(self, ssn: Session) -> None:
         self.last_phase_stats = {"host_sweeps": 0, "explained": 0}
         self.last_apply_route = ""
+        epoch = ssn.pack_epoch
+        pc = getattr(ssn.cache, "pack_cache", None) if epoch is not None else None
         nodes = [ssn.nodes[name] for name in sorted(ssn.nodes)]
+
+        # Warm cycles stage the dynamic node planes BEFORE the ORDER
+        # phase: node rows don't depend on task order, so the host→device
+        # copy runs while ORDER runs on the host and the rest of the
+        # relay is only the (delta-sized) remaining planes.
+        prestaged = False
+        if pc is not None and nodes:
+            t0 = time.perf_counter()
+            stager = get_stager(pc.key, resolve_device(self.device))
+            stager.take_bytes()  # this session's copies start here
+            pending = pc.begin_nodes(nodes, epoch, "predicates" in ssn.predicate_fns)
+            if pending is not None:
+                stager.prestage(pending["planes"], pending["dirty_pos"], pc.rev + 1)
+                prestaged = True
+            self.last_phase_stats["node_prepack_ms"] = (time.perf_counter() - t0) * 1e3
 
         t0 = time.perf_counter()
         with ssn._trace.span("gpu-allocate:order", "action"):
             ordered = compute_task_order(ssn)
-        self.last_phase_stats["order_ms"] = (time.perf_counter() - t0) * 1e3
+        order_ms = (time.perf_counter() - t0) * 1e3
+        self.last_phase_stats["order_ms"] = order_ms
+        if prestaged:
+            # the window the staged copy had to overlap host work
+            self.last_phase_stats["relay_overlap_ms"] = order_ms
         if not ordered:
             return
-        proposals, snap, assignment = self._kernel_proposals(ssn, ordered, nodes)
+        proposals, snap, assignment = self._kernel_proposals(ssn, ordered, nodes, pc)
 
         explain_ctx = None
         if snap is not None:

@@ -23,6 +23,13 @@ class ClusterInfo:
         #: PVCs keyed "ns/name" — consumed by the volume-binding
         #: predicate (the vendored VolumeBindingChecker analogue).
         self.pvcs: Dict[str, object] = {}
+        #: PackEpoch describing what changed since the warm packer's last
+        #: consumed revision (cache/cache.py); None for caches that do
+        #: not track dirtiness (tests' fakes, custom Cache impls).
+        self.pack_epoch = None
+        #: clone-pool generation for opt-in snapshot reuse (cache.snapshot
+        #: ↔ cache.release_session_clones handshake)
+        self.clone_gen: int = 0
 
     def __repr__(self) -> str:
         return (

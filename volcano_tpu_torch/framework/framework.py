@@ -1,9 +1,10 @@
 """OpenSession/CloseSession — session lifecycle.
 
 A copy of ``volcano_tpu/framework/framework.py`` for full sessions: the
-port has no restricted (incremental) sessions and no snapshot clone
-pool, so ``open_session`` always takes a full snapshot and
-``close_session`` hands nothing back.
+port has no restricted (incremental) sessions, so ``open_session``
+always takes a full snapshot.  It stamps the snapshot's change-tracking
+epoch and clone-pool generation on the session, and ``close_session``
+hands the session's untouched clones back to the cache's pool.
 
 Reference: pkg/scheduler/framework/framework.go:30-66.
 """
@@ -11,17 +12,19 @@ Reference: pkg/scheduler/framework/framework.go:30-66.
 from __future__ import annotations
 
 import time
-from typing import List
+from typing import TYPE_CHECKING, List
 
 from volcano_tpu_torch import metrics
 from volcano_tpu_torch.apis import scheduling
 from volcano_tpu_torch.cache.interface import Cache
-from volcano_tpu_torch.conf import Configuration, Tier
 from volcano_tpu_torch.framework.arguments import Arguments
 from volcano_tpu_torch.framework.interface import get_plugin_builder
 from volcano_tpu_torch.framework.job_updater import JobUpdater
 from volcano_tpu_torch.framework.session import Session
 from volcano_tpu_torch.utils.logging import get_logger
+
+if TYPE_CHECKING:  # the policy types import the framework package
+    from volcano_tpu_torch.conf import Configuration, Tier
 
 log = get_logger(__name__)
 
@@ -40,6 +43,8 @@ def open_session(
     ssn.queues = snapshot.queues
     ssn.namespace_info = snapshot.namespace_info
     ssn.pvcs = snapshot.pvcs
+    ssn.pack_epoch = getattr(snapshot, "pack_epoch", None)
+    ssn.clone_gen = getattr(snapshot, "clone_gen", 0)
 
     # Instantiate plugins listed in tiers (framework.go:37-45).
     for tier in tiers:
@@ -114,6 +119,13 @@ def close_session(ssn: Session) -> None:
         metrics.update_plugin_duration(plugin.name(), time.perf_counter() - start)
 
     JobUpdater(ssn).update_all()
+
+    # hand untouched clones back for reuse by the next snapshot (no-op
+    # unless the cache opted into snapshot_reuse) — after plugin closes
+    # and the job updater, which are the last clone-mutating steps
+    release = getattr(ssn.cache, "release_session_clones", None)
+    if release is not None:
+        release(ssn.clone_gen, ssn.touched_jobs, ssn.touched_nodes)
 
     ssn.jobs = {}
     ssn.nodes = {}

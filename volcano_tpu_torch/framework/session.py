@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import uuid
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Tuple
 
 from volcano_tpu_torch.api import (
     JobInfo,
@@ -32,12 +32,15 @@ from volcano_tpu_torch.api import (
 from volcano_tpu_torch.api.queue_info import NamespaceInfo
 from volcano_tpu_torch.apis import scheduling
 from volcano_tpu_torch.cache.interface import Cache
-from volcano_tpu_torch.conf import Configuration, Tier
 from volcano_tpu_torch.framework.events import Event, EventHandler
 from volcano_tpu_torch.framework.interface import Plugin
 from volcano_tpu_torch.utils.logging import get_logger
 
+if TYPE_CHECKING:  # the policy types import the framework package
+    from volcano_tpu_torch.conf import Configuration, Tier
+
 log = get_logger(__name__)
+
 
 class NullRecorder:
     """The trace recorder of a session that records nothing: every
@@ -93,9 +96,15 @@ class Session:
         self.namespace_info: Dict[str, NamespaceInfo] = {}
         self.pvcs: Dict[str, object] = {}
 
+        #: change-tracking epoch of the snapshot this session computes on
+        #: (ClusterInfo.pack_epoch) — consumed by the warm packer
+        self.pack_epoch = None
+        #: clone-pool generation (cache.snapshot ↔ release_session_clones)
+        self.clone_gen: int = 0
         #: job uids / node names whose CLONES this session mutated; every
         #: mutating path (session ops, Statement ops, the bulk apply, the
-        #: drive loops, gang's close) records here
+        #: drive loops, gang's close) records here so close_session can
+        #: hand untouched clones back for reuse
         self.touched_jobs: set = set()
         self.touched_nodes: set = set()
         #: monotone count of node-state mutations (allocate / pipeline /

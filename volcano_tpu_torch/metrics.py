@@ -1,8 +1,9 @@
 """The port's metrics sink: what its dispatcher, breakers and fault plane
 write, under the names of ``volcano_tpu/metrics/metrics.py``.
 
-The scheduling cycle writes the series the JAX package's framework, cache,
-plugins and actions write (plugin and task latencies, schedule attempts,
+The scheduling cycle writes the series the JAX package's scheduler loop,
+framework, cache, plugins and actions write (cycle, action, plugin and
+task latencies, sessions opened, schedule attempts,
 unschedulable reasons, kernel phase latencies, the explain reduction's
 latency, preemption victims and attempts), each under the same name
 and labels; a histogram keeps its count and sum.
@@ -111,6 +112,23 @@ def update_kernel_duration(phase: str, seconds: float) -> None:
     """phase ∈ {pack, execute} of gpu-allocate's KERNEL phase."""
     registry.observe(f"{_NAMESPACE}_tpu_kernel_latency_milliseconds",
                      {"phase": phase}, seconds * 1e3)
+
+
+def update_action_duration(action_name: str, seconds: float) -> None:
+    registry.observe(f"{_NAMESPACE}_action_scheduling_latency_microseconds",
+                     {"action": action_name}, seconds * 1e6)
+
+
+def update_e2e_duration(seconds: float) -> None:
+    """One scheduling cycle, open to close (``Scheduler.run_once``)."""
+    registry.observe(f"{_NAMESPACE}_e2e_scheduling_latency_milliseconds", {},
+                     seconds * 1e3)
+
+
+def register_session_scope(mode: str) -> None:
+    """One session opened; mode is "full" (the port opens no restricted
+    sessions)."""
+    registry.inc(f"{_NAMESPACE}_session_scope_total", {"mode": mode})
 
 
 def update_plugin_duration(plugin_name: str, seconds: float) -> None:

@@ -22,8 +22,10 @@ Label/taint relational predicates become pointwise bitset ops: W words
 of 32 bits each; the registry assigns a bit per distinct (key,value)
 label pair / taint referenced in the session.  ``pack_session`` packs a
 live session's ordered tasks, jobs and nodes, as the JAX package's does
-(``volcano_tpu/ops/packing.py``), without its warm packer's seams (the
-persistent bit registries, the lane-row helpers).
+(``volcano_tpu/ops/packing.py``), with its warm packer's seams: seeded
+bit registries and the per-row helpers ``task_lane_row``,
+``node_lane_rows`` and ``task_exists_tolerations`` that
+``ops/pack_cache.py`` shares with it.
 """
 
 from __future__ import annotations
@@ -133,6 +135,22 @@ class PackedSnapshot:
     #: bitset-encoded (the per-row share of ``needs_host_validation``).
     #: Host bookkeeping (the explain synthesis gate); not serialized.
     task_needs_host: np.ndarray = None
+
+    # ---- warm-cycle metadata (ops/pack_cache.py) ----
+    #: identity of the producing PackCache (None for cold one-shot
+    #: packs); the device stager keys its resident planes on it.  Not
+    #: serialized.
+    cache_key: Optional[str] = None
+    #: monotonically increasing pack revision within the cache_key
+    rev: int = 0
+    #: PackDelta describing which rows changed since ``rev - 1``; None on
+    #: cold packs and whenever the cache invalidated wholesale
+    delta: Optional[object] = None
+    #: {plane name → torch tensor} mirror staged on the kernel's device
+    #: ahead of the kernel call (ops/device_stage.py); the session
+    #: kernel builds its node operands from it, and puts the numpy
+    #: planes on the device whole where it is absent
+    device_planes: Optional[Dict[str, object]] = None
 
 
 # ---- npz persistence (the trace journal's snapshot format) ----
@@ -292,6 +310,21 @@ def _res_vec(res, names: List[str], snap: PackedSnapshot) -> np.ndarray:
     return out
 
 
+def task_exists_tolerations(t: TaskInfo) -> Tuple[Tuple[str, str], ...]:
+    """(key, effect) pairs of the task's keyed Exists tolerations — what
+    resolve_exists_tolerations matches against the taint registry.  The
+    warm packer caches this per row so it can re-resolve only affected
+    tasks when a dirty node registers a new taint."""
+    pod = t.pod
+    if pod is None:
+        return ()
+    out = []
+    for tol_ in pod.spec.tolerations or []:
+        if tol_.operator == "Exists" and tol_.key:
+            out.append((tol_.key, tol_.effect or ""))
+    return tuple(out)
+
+
 def pack_task_bits(
     snap: "PackedSnapshot",
     i: int,
@@ -403,6 +436,42 @@ def pack_node_row(
             )
 
 
+def task_lane_row(t: TaskInfo, names: List[str], row: np.ndarray) -> bool:
+    """Fill one task's resreq lane row (same float op order as the cold
+    bulk extraction: f64 memory divide, then f32 downcast on store).
+    Returns False when the memory quantity was not MiB-aligned."""
+    rr = t.init_resreq
+    row[0] = rr.milli_cpu
+    row[1] = rr.memory / MIB
+    sc = rr.scalars
+    if sc and len(names) > 2:
+        for r, name in enumerate(names[2:], start=2):
+            row[r] = sc.get(name, 0.0)
+    return not rr.memory % MIB
+
+
+def node_lane_rows(
+    n: NodeInfo,
+    names: List[str],
+    idle_row: np.ndarray,
+    used_row: np.ndarray,
+    alloc_row: np.ndarray,
+) -> bool:
+    """Fill one node's idle/used/alloc lane rows; returns False when any
+    memory quantity was not MiB-aligned."""
+    mem_ok = True
+    for res, row in ((n.idle, idle_row), (n.used, used_row), (n.allocatable, alloc_row)):
+        row[0] = res.milli_cpu
+        row[1] = res.memory / MIB
+        if res.memory % MIB:
+            mem_ok = False
+        sc = res.scalars
+        if sc and len(names) > 2:
+            for r, name in enumerate(names[2:], start=2):
+                row[r] = sc.get(name, 0.0)
+    return mem_ok
+
+
 def pack_session(
     tasks: Sequence[TaskInfo],
     jobs: Sequence[JobInfo],
@@ -410,6 +479,8 @@ def pack_session(
     bit_words: int = DEFAULT_BIT_WORDS,
     pad: bool = True,
     enforce_pod_count: bool = True,
+    label_registry: Optional[BitRegistry] = None,
+    taint_registry: Optional[BitRegistry] = None,
 ) -> PackedSnapshot:
     """Pack pending tasks (in processing order), their jobs and all nodes.
 
@@ -420,6 +491,17 @@ def pack_session(
     ``enforce_pod_count`` mirrors whether the predicates plugin is in the
     session's tiers: the pod-number limit lives there (predicates.go:164),
     so without it the host never counts pods and neither should the kernel.
+
+    ``label_registry``/``taint_registry`` seed the bit assignment with a
+    persistent registry (ops/pack_cache.py).  Bit indices are append-only,
+    so a pack seeded with a registry that already covers the session's
+    label/taint pairs produces arrays bit-identical to the pack that
+    built the registry — the equivalence contract the warm delta path is
+    tested against.  The contract is dictionary-level: a warm pack may
+    first-register new pairs in a different order than a cold pack would
+    (it packs nodes before tasks), so equivalence is defined against a
+    cold pack seeded with the resulting registry; bindings are invariant
+    under bit permutation either way.
     """
     snap = PackedSnapshot()
     names, tol = _resource_axis(tasks, nodes)
@@ -434,9 +516,9 @@ def pack_session(
 
     job_index = {j.uid: i for i, j in enumerate(jobs)}
 
-    label_reg = BitRegistry(bit_words)
-    taint_reg = BitRegistry(bit_words)
-    W = bit_words
+    label_reg = label_registry if label_registry is not None else BitRegistry(bit_words)
+    taint_reg = taint_registry if taint_registry is not None else BitRegistry(bit_words)
+    W = label_reg.words
 
     alloc_planes(snap, R, W, T, N, J, T_pad, N_pad, J_pad)
 

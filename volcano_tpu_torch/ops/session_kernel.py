@@ -22,6 +22,15 @@ them, the class-compacted node lists the kernel sweeps: ``cls_off``
 [C+1] i32 and ``cls_nodes`` [sum L_c] i32, class c's nodes being
 ``cls_nodes[cls_off[c]:cls_off[c+1]] == np.flatnonzero(cf_u8[c])``.
 
+Node operands from the resident planes (``device_node_operands``):
+``nd``, ``cf_u8`` and the class lists are built on the device with torch
+ops from the snapshot's planes staged there, equal bit for bit to
+``prepare_session_arrays``' host arrays, which stay as their reference.
+The warm packer's stager keeps the planes resident across cycles
+(``snap.device_planes``, ops/device_stage.py); a snapshot it did not
+stage gets one full put of its planes for the session.  Only the
+task-side arrays are built on the host.
+
 Shared memory (``plan_shared_memory``): where the node state, (R+1)*NK*4
 bytes, fits one block and R <= ``MAX_LANES`` (``shared_layout``), it
 stays there; the plane of masked scores over the longest list, max L_c
@@ -35,11 +44,13 @@ beside the task rows and in global memory where it does not
 from __future__ import annotations
 
 import ctypes
+import time
 from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from volcano_tpu_torch.ops.device_stage import DeviceStager
 from volcano_tpu_torch.ops.kernels import (
     _feasibility_classes,
     DEFAULT_WEIGHTS,
@@ -74,6 +85,13 @@ WIDE_LAUNCHES = 0
 
 #: the counts a pass writes into ``stats``
 STATS = ("full_steps", "fast_steps")
+
+#: how the last ``run_packed_cuda`` session prepared its operands:
+#: ``prepare_ms`` (host clock from the call to the first launch: the
+#: task-side arrays, the copies and the device-side build),
+#: ``h2d_bytes`` (the bytes the session itself copied to the device,
+#: a full put of planes no stager held included)
+last_session_stats: dict = {}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -154,6 +172,20 @@ def _node_planes(arr: np.ndarray, NK: int) -> np.ndarray:
     return np.ascontiguousarray(wide.T)
 
 
+def task_rows(snap: PackedSnapshot) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The task side of the kernel's layout → (taskrow [T_act, R+2],
+    class_sel [C, W], class_tol [C, W]): each valid task's requests and
+    its feasibility class; the active column is left 0 for the caller
+    to fill per gang round."""
+    T_act = min(snap.n_tasks, snap.task_resreq.shape[0])
+    R = snap.task_resreq.shape[1]
+    task_cls, class_sel, class_tol = _feasibility_classes(snap)
+    taskrow = np.zeros((T_act, R + 2), dtype=np.float32)
+    taskrow[:, :R] = snap.task_resreq[:T_act]
+    taskrow[:, R] = task_cls[:T_act].astype(np.float32)
+    return taskrow, class_sel, class_tol
+
+
 def prepare_session_arrays(snap: PackedSnapshot) -> Tuple[dict, int, int]:
     """Host-side packing into the kernel's layout → (arrays, T_act, NK).
 
@@ -162,10 +194,10 @@ def prepare_session_arrays(snap: PackedSnapshot) -> Tuple[dict, int, int]:
     caller to fill per gang round."""
     NK = node_width(snap.n_nodes)
     NV = min(NK, snap.node_idle.shape[0])  # snapshot-backed node rows
-    T_act = min(snap.n_tasks, snap.task_resreq.shape[0])
     R = snap.task_resreq.shape[1]
 
-    task_cls, class_sel, class_tol = _feasibility_classes(snap)
+    taskrow, class_sel, class_tol = task_rows(snap)
+    T_act = taskrow.shape[0]
     # class feasibility: selector bits ⊆ node labels, node taints ⊆
     # tolerations, node_ok — schedule_pass's [C, N] matrix
     node_labels = snap.node_label_bits[:NV]
@@ -174,10 +206,6 @@ def prepare_session_arrays(snap: PackedSnapshot) -> Tuple[dict, int, int]:
     tol_ok = ((node_taints[None, :, :] & ~class_tol[:, None, :]) == 0).all(-1)
     cf = np.zeros((class_sel.shape[0], NK), dtype=np.uint8)
     cf[:, :NV] = sel_ok & tol_ok & snap.node_ok[None, :NV]
-
-    taskrow = np.zeros((T_act, R + 2), dtype=np.float32)
-    taskrow[:, :R] = snap.task_resreq[:T_act]
-    taskrow[:, R] = task_cls[:T_act].astype(np.float32)
 
     # base | alloc | used0 | count0, maxt
     nd = np.concatenate(
@@ -207,6 +235,49 @@ def prepare_session_arrays(snap: PackedSnapshot) -> Tuple[dict, int, int]:
         cls_nodes=cls_nodes,
     )
     return arrays, T_act, NK
+
+
+def device_node_operands(
+    planes: dict, n_nodes: int, class_sel: np.ndarray, class_tol: np.ndarray,
+) -> dict:
+    """``prepare_session_arrays``' node operands built with torch ops on
+    the device of the staged ``planes`` (``ops/device_stage``; bit planes
+    as int32 with the same bits) → {nd, cf_u8, cls_off, cls_nodes}, equal
+    bit for bit to the host arrays.  ``class_sel``/``class_tol`` are the
+    host's feasibility classes (task side, [C, W] uint32)."""
+    idle = planes["node_idle"]
+    dev = idle.device
+    NK = node_width(n_nodes)
+    NV = min(NK, idle.shape[0])
+
+    def lane_planes(x: torch.Tensor) -> torch.Tensor:
+        """[N_pad, k] → [k, NK] f32, zero past the snapshot's rows."""
+        wide = torch.zeros((NK, x.shape[1]), dtype=torch.float32, device=dev)
+        wide[:NV] = x[:NV]
+        return wide.t().contiguous()
+
+    cs = torch.from_numpy(np.ascontiguousarray(class_sel).view(np.int32)).to(dev)
+    ct = torch.from_numpy(np.ascontiguousarray(class_tol).view(np.int32)).to(dev)
+    labels = planes["node_label_bits"][:NV]
+    taints = planes["node_taint_bits"][:NV]
+    sel_ok = ((cs[:, None, :] & ~labels[None, :, :]) == 0).all(-1)
+    tol_ok = ((taints[None, :, :] & ~ct[:, None, :]) == 0).all(-1)
+    cf = torch.zeros((cs.shape[0], NK), dtype=torch.uint8, device=dev)
+    cf[:, :NV] = (sel_ok & tol_ok & planes["node_ok"][None, :NV]).to(torch.uint8)
+
+    used = planes["node_used"]
+    # base | alloc | used0 | count0, maxt
+    nd = torch.cat([
+        lane_planes(idle + used),
+        lane_planes(planes["node_alloc"]),
+        lane_planes(used),
+        lane_planes(torch.stack([planes["node_task_count"].to(torch.float32),
+                                 planes["node_max_tasks"].to(torch.float32)], dim=1)),
+    ])
+    cls, nodes = torch.nonzero(cf, as_tuple=True)  # by class, then ascending node
+    cls_off = torch.zeros(cf.shape[0] + 1, dtype=torch.int32, device=dev)
+    cls_off[1:] = torch.cumsum(torch.bincount(cls, minlength=cf.shape[0]), 0)
+    return dict(nd=nd, cf_u8=cf, cls_off=cls_off, cls_nodes=nodes.to(torch.int32))
 
 
 # ---- the plain version ----
@@ -677,34 +748,55 @@ def run_packed_cuda(
     device: Optional[Union[str, torch.device]] = None,
     discard_unstable: bool = False,
 ) -> np.ndarray:
-    """PackedSnapshot → assignment[n_tasks] (np.int32): pack, ship the
-    arrays once, run the session on the device, fetch once.
-    ``discard_unstable`` runs the gang fixpoint to its end
-    (``schedule_session_cuda``).
+    """PackedSnapshot → assignment[n_tasks] (np.int32): build the node
+    operands on the device from the staged planes (``snap.device_planes``,
+    or one full put of the snapshot's planes where no stager staged
+    them), copy the task-side arrays, run the session on the device,
+    fetch once.  ``discard_unstable`` runs the gang fixpoint to its end
+    (``schedule_session_cuda``).  How the operands were prepared lands
+    in ``last_session_stats``.
 
     Least-requested runs in int32 where ``weights.lr_int_exact`` asks for
     it or a node's capacity leaves the f32 floor-division envelope — the
     rule of ``kernels.run_packed``."""
+    global last_session_stats
+    t0 = time.perf_counter()
     if not f32_lr_exact(snap):
         weights = weights._replace(lr_int_exact=True)
     dev = resolve_device(device)
-    arrays, T_act, NK = prepare_session_arrays(snap)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    taskrow, class_sel, class_tol = task_rows(snap)
+    T_act = taskrow.shape[0]
     if T_act == 0:
+        last_session_stats = {}
         return np.zeros(0, dtype=np.int32)
-    task_job = snap.task_job[:T_act].astype(np.int64)
     J = snap.job_min_available.shape[0]
+    task_job = snap.task_job[:T_act]
     if int(task_job.min(initial=0)) < 0 or int(task_job.max(initial=0)) >= J:
         raise ValueError("task_job indexes past the job planes")
+    planes = snap.device_planes
+    h2d = taskrow.nbytes + class_sel.nbytes + class_tol.nbytes
+    if planes is None:
+        stager = DeviceStager("session", dev)
+        planes = stager.stage(snap)
+        h2d += stager.take_bytes()
+    elif planes["node_idle"].device != dev:
+        raise ValueError(f"the staged planes are on {planes['node_idle'].device}, "
+                         f"the session runs on {dev}")
+    ops = device_node_operands(planes, snap.n_nodes, class_sel, class_tol)
+    R = taskrow.shape[1] - 2
+    operands = (
+        torch.from_numpy(taskrow).to(dev), ops["cf_u8"], ops["nd"],
+        planes["tolerance"].to(torch.float32).reshape(R), ops["cls_off"], ops["cls_nodes"],
+        planes["task_job"][:T_act].long(), planes["job_min_available"].to(torch.int32),
+        planes["job_ready_count"].to(torch.int32),
+    )
+    # a copy from pageable memory returns once its source is read, and
+    # the class lists' nonzero waits for the build before it returns
+    last_session_stats = dict(h2d_bytes=h2d, prepare_ms=(time.perf_counter() - t0) * 1e3)
     out = schedule_session_cuda(
-        torch.from_numpy(arrays["taskrow"]).to(dev),
-        torch.from_numpy(arrays["cf_u8"]).to(dev),
-        torch.from_numpy(arrays["nd"]).to(dev),
-        torch.from_numpy(arrays["tol"]).to(dev),
-        torch.from_numpy(arrays["cls_off"]).to(dev),
-        torch.from_numpy(arrays["cls_nodes"]).to(dev),
-        torch.from_numpy(task_job).to(dev),
-        torch.from_numpy(snap.job_min_available.astype(np.int32)).to(dev),
-        torch.from_numpy(snap.job_ready_count.astype(np.int32)).to(dev),
+        *operands,
         torch.ones(T_act, dtype=torch.bool, device=dev),
         weights=weights,
         gang_rounds=gang_rounds,

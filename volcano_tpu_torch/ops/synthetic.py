@@ -5,11 +5,15 @@ Copies of ``generate_snapshot``, ``generate_cluster_objects`` and
 generation is numpy ``RandomState(seed)`` in the same call order, so the
 same arguments give byte-identical arrays (and API objects whose dicts
 are equal) in both packages.  ``generate_lr_mode_split``,
-``add_scalar_lanes`` and ``generate_preempt_cluster_objects`` (the
-preempt config as API objects) are the port's own.
+``add_scalar_lanes``, ``generate_preempt_cluster_objects`` (the
+preempt config as API objects) and the scheduler loop's churn
+(``loop_world``, ``record_binds``, ``generate_loop_events``) are the
+port's own.
 """
 
 from __future__ import annotations
+
+import json
 
 import numpy as np
 
@@ -557,3 +561,150 @@ def generate_preempt_cluster_objects(
         for i in range(P)
     ]
     return nodes, pods, pod_groups, queues, priority_classes
+
+
+# ---- the scheduler loop's churn (chip_smoke.py's loop cells) ----
+
+#: request shapes of generate_cluster_objects' jobs (cpu milli, memory MiB)
+LOOP_CPU = (250, 500, 1000, 2000, 4000)
+LOOP_MEM = (256, 512, 1024, 2048, 4096, 8192)
+#: the share of fully bound gangs that finish before each loop cycle
+LOOP_FINISH_FRACTION = 0.1
+#: nodes relabelled before each loop cycle (1% of the churn cell's)
+LOOP_RELABELLED = 10
+#: cpu the gangs that select the relabelled nodes ask for, as a multiple
+#: of those nodes' free cpu
+LOOP_BACKLOG = 1.25
+
+
+def loop_world(objects) -> dict:
+    """The store a loop cell starts from: ``generate_cluster_objects``'
+    (nodes, pods, pod_groups, queues) as dicts (``apis.serde.to_dict``),
+    keyed by name (nodes, queues) and ``ns/name`` (pods, pod groups),
+    with the config's gang size.  :func:`record_binds` and
+    :func:`generate_loop_events` keep it equal to what the store would
+    hold."""
+    from volcano_tpu_torch.apis import serde
+
+    nodes, pods, pod_groups, queues = objects
+
+    def key(d):
+        m = d["metadata"]
+        return f"{m['namespace']}/{m['name']}" if m.get("namespace") else m["name"]
+
+    world = {kind: {key(d): d for d in map(serde.to_dict, objs)}
+             for kind, objs in (("nodes", nodes), ("pods", pods),
+                                ("pod_groups", pod_groups), ("queues", queues))}
+    world["gang_size"] = max(d["spec"]["minMember"] for d in world["pod_groups"].values())
+    return world
+
+
+def record_binds(world: dict, binds) -> None:
+    """Bound pods (``(ns/name, hostname)`` pairs, a binder's record) are
+    Running on their nodes in the store."""
+    for name, host in binds:
+        pod = world["pods"][name]
+        pod["spec"]["nodeName"] = host
+        pod["status"]["phase"] = "Running"
+
+
+def generate_loop_events(world: dict, cycle: int, seed: int = 0) -> list:
+    """The store's events between cycle ``cycle - 1`` and ``cycle`` of a
+    loop cell, applied to ``world``; each is a dict ``{"op": "add" |
+    "update" | "delete", "kind": "node" | "pod" | "pod_group", "object":
+    dict}`` (an update also carries ``"old"``), for ``cache.feed_events``
+    (or the same handlers of the JAX package's cache).  Seeded by
+    ``(seed, cycle)``:
+
+      * ``LOOP_FINISH_FRACTION`` of the gangs whose pods are all bound
+        finish: their pods are deleted, then their PodGroups;
+      * ``LOOP_RELABELLED`` nodes get a new label pair ``loop-rack:
+        c<cycle>`` (``update_node``);
+      * new gangs of the config's gang size and request shapes arrive:
+        one gang more than the finished ones, and gangs selecting the new
+        label pair, as many as ask for ``LOOP_BACKLOG`` times the free
+        cpu of the relabelled nodes, so some of them stay pending across
+        cycles (the whole cluster has room to spare: at 10k pods x 1k
+        nodes the config's pods fill about a quarter of its cpu).
+    """
+    from volcano_tpu_torch.apis.quantity import milli_value
+    from volcano_tpu_torch.apis.scheduling import GROUP_NAME_ANNOTATION_KEY as GROUP
+
+    rng = np.random.RandomState([seed, cycle])
+    gang = world["gang_size"]
+    pods, groups, nodes = world["pods"], world["pod_groups"], world["nodes"]
+    members = {}
+    for name, pod in pods.items():
+        group = pod["metadata"]["annotations"][GROUP]
+        members.setdefault(f"{pod['metadata']['namespace']}/{group}", []).append(name)
+    events = []
+
+    bound = sorted(g for g in groups
+                   if members.get(g) and all(pods[p]["spec"].get("nodeName")
+                                             for p in members[g]))
+    n_finish = int(round(LOOP_FINISH_FRACTION * len(bound)))
+    finished = [bound[i] for i in sorted(rng.choice(len(bound), n_finish, replace=False))]
+    for g in finished:
+        for p in members[g]:
+            events.append({"op": "delete", "kind": "pod", "object": pods.pop(p)})
+    for g in finished:
+        events.append({"op": "delete", "kind": "pod_group", "object": groups.pop(g)})
+
+    pair = ("loop-rack", f"c{cycle}")
+    names = sorted(nodes)
+    relabelled = [names[i] for i in sorted(rng.choice(len(names), LOOP_RELABELLED,
+                                                      replace=False))]
+    for name in relabelled:
+        old = nodes[name]
+        new = json.loads(json.dumps(old))
+        new["metadata"].setdefault("labels", {})[pair[0]] = pair[1]
+        nodes[name] = new
+        events.append({"op": "update", "kind": "node", "old": old, "object": new})
+
+    used = dict.fromkeys(relabelled, 0.0)
+    for pod in pods.values():
+        host = pod["spec"].get("nodeName")
+        if host in used:
+            used[host] += milli_value(pod["spec"]["containers"][0]["resources"]
+                                      ["requests"]["cpu"])
+    free = sum(milli_value(nodes[n]["status"]["allocatable"]["cpu"]) - used[n]
+               for n in relabelled)
+
+    def arrive(j: int, selector) -> float:
+        """One arriving gang; returns its cpu request."""
+        cpu, mem = int(rng.choice(LOOP_CPU)), int(rng.choice(LOOP_MEM))
+        name = f"loop{cycle:02d}-{j:05d}"
+        stamp = float(1_000_000 * cycle + j)
+        groups[f"bench/{name}"] = pg = {
+            "metadata": {"name": name, "namespace": "bench", "uid": f"pg-{name}",
+                         "creationTimestamp": stamp},
+            "spec": {"minMember": gang, "queue": "default"},
+            "status": {"phase": "Inqueue"},
+        }
+        events.append({"op": "add", "kind": "pod_group", "object": pg})
+        for i in range(gang):
+            pod_name = f"{name}-{i}"
+            spec = {"containers": [{"name": "main", "resources": {
+                "requests": {"cpu": f"{cpu}m", "memory": f"{mem}Mi"}}}],
+                "nodeName": ""}
+            if selector:
+                spec["nodeSelector"] = dict([selector])
+            pods[f"bench/{pod_name}"] = pod = {
+                "metadata": {"name": pod_name, "namespace": "bench",
+                             "uid": f"pod-{pod_name}",
+                             "annotations": {GROUP: name},
+                             "creationTimestamp": stamp},
+                "spec": spec,
+                "status": {"phase": "Pending"},
+            }
+            events.append({"op": "add", "kind": "pod", "object": pod})
+        return cpu * gang
+
+    j = 0
+    for j in range(len(finished) + 1):
+        arrive(j, None)
+    asked = 0.0
+    while asked < LOOP_BACKLOG * free:
+        j += 1
+        asked += arrive(j, pair)
+    return events
