@@ -84,7 +84,21 @@ Phases, each of which fails the run:
      pack is held against a seeded cold pack, the staged planes against
      the numpy planes and the node operands against the host's, bit for
      bit; a ``{"loop": ...}`` line a cell;
-  7. failures — the fault plane drives the breakers on the card: an
+  7. the sidecar (``phase_sidecar``) — the compute-plane sidecar as a
+     child process (``python -m volcano_tpu_torch.cmd.compute_plane
+     --socket PATH --warmup``, serving on the card; its pid holds memory
+     in ``nvidia-smi``), this process its scheduler through
+     ``executor.configure``: LOOP_A's 6 cycles through it (a full frame,
+     then delta frames; each cycle LOOP_A's digest, executor ``auto``,
+     no fallback, no kernel launched here and the session kernel
+     launched in the child, read through its SIGUSR1 status line), one
+     preempting cycle at 100k pods x 10k nodes (its digest, one preempt
+     launch in the child), a ``ServingServer`` (/healthz, /metrics,
+     /explain = the cache's unschedulable digest), then the child
+     SIGKILLed and a 10k x 1k cycle on the in-process kernel with its
+     digest, exactly one fallback counted and /healthz degraded; a
+     ``{"sidecar": ...}`` line with the frames' bytes and round trips;
+  8. failures — the fault plane drives the breakers on the card: an
      injected lowering failure or corrupt output raises ``ExecutorFailed``
      and is counted, three open the breaker, the fourth call is refused
      without a launch, the same for preempt-cuda; nothing runs in the
@@ -107,6 +121,7 @@ import statistics
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -1471,13 +1486,30 @@ def preempt_cycle_digest(evicted, pipelined) -> str:
     return hashlib.sha256(repr((sorted(evicted), sorted(pipelined))).encode()).hexdigest()
 
 
-def run_preempt_cycle(objects, device=None) -> dict:
+class ListStatusUpdater:
+    """Counts the close-time writeback: pod conditions and PodGroup
+    statuses."""
+
+    def __init__(self):
+        self.conditions = 0
+        self.pod_groups = 0
+
+    def update_pod_condition(self, task, reason, message):
+        self.conditions += 1
+
+    def update_pod_group(self, pg):
+        self.pod_groups += 1
+        return pg
+
+
+def run_preempt_cycle(objects, device=None, status_updater=None) -> dict:
     """One preempting scheduling cycle of the port on a fresh cache:
     feed the cluster objects, open_session, enqueue, gpu-allocate,
     gpu-preempt, backfill, close_session.  The evictions (in order), the
     pipelined (name, node) pairs read from the session before close, the
-    binds, each step's and each action's seconds, and the device
-    actions' phases and routes."""
+    binds, each step's and each action's seconds, the device actions'
+    phases and routes, and the cache (whose ``status_updater`` is the
+    one given)."""
     import volcano_tpu_torch.actions  # noqa: F401 — registers the actions
     import volcano_tpu_torch.plugins  # noqa: F401 — registers the plugins
     from volcano_tpu_torch.actions import backfill, enqueue, gpu_allocate, gpu_preempt
@@ -1488,7 +1520,8 @@ def run_preempt_cycle(objects, device=None) -> dict:
 
     nodes, pods, pod_groups, queues, priority_classes = objects
     t0 = time.perf_counter()
-    cache = SchedulerCache(binder=ListBinder(), evictor=ListEvictor())
+    cache = SchedulerCache(binder=ListBinder(), evictor=ListEvictor(),
+                           status_updater=status_updater)
     for pc in priority_classes:
         cache.add_priority_class(pc)
     for node in nodes:
@@ -1521,7 +1554,7 @@ def run_preempt_cycle(objects, device=None) -> dict:
                 feed_s=t1 - t0, open_s=t2 - t1, close_s=t4 - t3, action_s=action_s,
                 allocate_phases=allocate.last_phase_stats,
                 preempt_phases=preempt.last_phase_stats, preempt_route=preempt.last_route,
-                preempt_executor=preempt.last_executor)
+                preempt_executor=preempt.last_executor, cache=cache)
 
 
 def phase_cycle(name: str, card: str) -> dict:
@@ -1620,6 +1653,7 @@ def phase_preempt_cycle(name: str, card: str) -> dict:
         preempt_kernel.LAUNCHES = 0
         session_kernel.LAUNCHES = session_kernel.WIDE_LAUNCHES = 0
         rec = run_preempt_cycle(objects)
+        del rec["cache"]  # five caches of this size are not kept alive
         launches = preempt_kernel.LAUNCHES
         alloc_launches = session_kernel.LAUNCHES + session_kernel.WIDE_LAUNCHES
         what = f"{name} preempt cycle {i + 1}"
@@ -1662,7 +1696,8 @@ def phase_preempt_cycle(name: str, card: str) -> dict:
             [r["action_s"][action] * 1e3 for r in runs])
     for prefix, phases, keys in (
             ("allocate", "allocate_phases", ("order", "pack", "execute", "explain",
-                                             "explain_pack", "explain_reduce", "apply")),
+                                             "explain_pack", "explain_reduce",
+                                             "explain_kernel_rows", "apply")),
             ("preempt", "preempt_phases", ("pack", "execute", "apply"))):
         for key in keys:
             out[f"{prefix}_{key}_ms_median"], out[f"{prefix}_{key}_ms_max"] = med_max(
@@ -1674,7 +1709,8 @@ def phase_preempt_cycle(name: str, card: str) -> dict:
           f"{out['host_sweeps']} host sweeps; gpu-allocate median "
           f"{out['gpu-allocate_ms_median']:.3f} ms (explain {out['allocate_explain_ms_median']:.3f}"
           f" over {out['explain_rows']} rows: pack {out['allocate_explain_pack_ms_median']:.3f},"
-          f" reduce {out['allocate_explain_reduce_ms_median']:.3f}),"
+          f" reduce {out['allocate_explain_reduce_ms_median']:.3f}; the kernel rows' reduction"
+          f" {out['allocate_explain_kernel_rows_ms_median']:.3f} inside execute),"
           f" gpu-preempt median {out['gpu-preempt_ms_median']:.3f} ms (pack "
           f"{out['preempt_pack_ms_median']:.3f}, device {out['preempt_execute_ms_median']:.3f}, "
           f"apply {out['preempt_apply_ms_median']:.3f}); open_session {out['open_ms_median']:.3f}, "
@@ -2238,6 +2274,474 @@ def pack_routes(card: str, name: str = MAIN_CONFIG, reps: int = 5) -> dict:
     return out
 
 
+#: the sidecar phase (``phase_sidecar``): the loop cell and the preempting
+#: cell it drives through a compute-plane sidecar process, the cycle it
+#: runs in-process after the sidecar is killed, and the seconds the
+#: child has to answer its first health probe (its warmup included)
+SIDECAR_LOOP = LOOP_A
+SIDECAR_PREEMPT = PREEMPT_CYCLE_MAIN
+SIDECAR_AFTER_KILL = SECOND_CONFIG
+SIDECAR_START_S = 300.0
+
+
+class Sidecar:
+    """The compute-plane sidecar as a child process,
+    ``python -m volcano_tpu_torch.cmd.compute_plane --socket PATH
+    --warmup`` with no ``--device`` (it serves on the card), its socket
+    and log in a fresh temporary directory."""
+
+    def __init__(self):
+        import os
+        import tempfile
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.dir = tempfile.mkdtemp(prefix="vsc")
+        if len(self.dir) > 80:  # an AF_UNIX path holds at most 107 bytes
+            os.rmdir(self.dir)
+            self.dir = tempfile.mkdtemp(prefix="vsc", dir="/tmp")
+        self.path = os.path.join(self.dir, "cp.sock")
+        self.log_path = os.path.join(self.dir, "sidecar.log")
+        self._log = open(self.log_path, "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "volcano_tpu_torch.cmd.compute_plane", "--socket",
+             self.path, "--warmup"],
+            cwd=root, env=dict(os.environ, PYTHONPATH=root), stdout=self._log,
+            stderr=subprocess.STDOUT)
+
+    def tail(self, n: int = 20) -> str:
+        with open(self.log_path) as f:
+            return "".join(f.readlines()[-n:])
+
+    def alive(self) -> bool:
+        return self.proc.poll() is None
+
+    def wait_ready(self, client) -> float:
+        """Seconds until the child answers a health probe; a child that
+        exits, or does not answer within SIDECAR_START_S, fails the run."""
+        t0 = time.monotonic()
+        while not client.health():
+            check(self.alive(), f"sidecar: the child exited with {self.proc.returncode}:\n"
+                                f"{self.tail()}")
+            check(time.monotonic() - t0 < SIDECAR_START_S,
+                  f"sidecar: no answer in {SIDECAR_START_S} s:\n{self.tail()}")
+            time.sleep(0.25)
+        return time.monotonic() - t0
+
+    def status(self) -> dict:
+        """The child's kernel launches and device memory: SIGUSR1, then its
+        ``compute plane status:`` line."""
+        import signal
+
+        marker = "compute plane status: "
+
+        def lines():
+            with open(self.log_path) as f:
+                return [ln for ln in f if marker in ln]
+
+        n = len(lines())
+        self.proc.send_signal(signal.SIGUSR1)
+        deadline = time.monotonic() + 30.0
+        while True:
+            found = lines()
+            if len(found) > n:
+                return json.loads(found[-1].split(marker, 1)[1])
+            check(self.alive() and time.monotonic() < deadline,
+                  f"sidecar: no status line:\n{self.tail()}")
+            time.sleep(0.02)
+
+    def kill(self) -> None:
+        import signal
+
+        if self.alive():
+            self.proc.send_signal(signal.SIGKILL)
+        self.proc.wait(timeout=60)
+
+    def close(self) -> None:
+        import shutil
+
+        self.kill()
+        self._log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def gpu_apps() -> dict:
+    """pid → used memory (MiB) of every compute process ``nvidia-smi``
+    lists on the card."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    apps = {}
+    for line in out.splitlines():
+        if "," in line:
+            pid, mem = (x.strip() for x in line.split(",", 1))
+            apps[int(pid)] = float(mem.split()[0]) if mem.split()[0].isdigit() else 0.0
+    return apps
+
+
+def executor_fallbacks() -> float:
+    """Remote sessions that ran on the in-process kernel instead."""
+    from volcano_tpu_torch import metrics
+
+    return sum(metrics.registry.counters("volcano_executor_fallbacks_total").values())
+
+
+class WireTally:
+    """Frames and bytes of the compute-plane client in this process, by
+    wrapping ``serialize_snapshot``/``serialize_delta``/
+    ``serialize_preempt``, ``_recv_frame`` and the client's ``allocate``/
+    ``preempt`` for the duration of a ``with``; :meth:`take` returns and
+    resets the counts.  Of the round trips' time, ``serialize_ms`` went
+    into building the request frames and ``gc_ms`` into this process's
+    collector pauses (``gc.callbacks``)."""
+
+    def __init__(self):
+        from volcano_tpu_torch.serving import compute_plane as cp
+
+        self.cp = cp
+        self._in_preempt = False
+        self._in_roundtrip = False
+        self._gc_t0 = None
+        self.take()
+
+    def take(self) -> dict:
+        out = getattr(self, "counts", None)
+        self.counts = dict(full=0, delta=0, preempt=0, request_bytes=0, response_bytes=0,
+                           roundtrip_ms=0.0, serialize_ms=0.0, gc_ms=0.0)
+        return out
+
+    def _gc(self, phase, info):
+        if phase == "start":
+            self._gc_t0 = time.perf_counter() if self._in_roundtrip else None
+        elif self._gc_t0 is not None:
+            self.counts["gc_ms"] += (time.perf_counter() - self._gc_t0) * 1e3
+            self._gc_t0 = None
+
+    def __enter__(self):
+        cp = self.cp
+        self._real = dict(serialize_snapshot=cp.serialize_snapshot,
+                          serialize_delta=cp.serialize_delta,
+                          serialize_preempt=cp.serialize_preempt, _recv_frame=cp._recv_frame,
+                          allocate=cp.ComputePlaneClient.allocate,
+                          preempt=cp.ComputePlaneClient.preempt)
+        real = self._real
+
+        def frame(kind, fn):
+            def wrapped(*a, **k):
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                if not self._in_preempt:
+                    self.counts[kind] += 1
+                    self.counts["request_bytes"] += len(out) + cp._HEADER.size
+                    self.counts["serialize_ms"] += (time.perf_counter() - t0) * 1e3
+                return out
+            return wrapped
+
+        def preempt_frame(*a, **k):
+            t0 = time.perf_counter()
+            self._in_preempt = True
+            try:
+                out = real["serialize_preempt"](*a, **k)
+            finally:
+                self._in_preempt = False
+            self.counts["preempt"] += 1
+            self.counts["request_bytes"] += len(out) + cp._HEADER.size
+            self.counts["serialize_ms"] += (time.perf_counter() - t0) * 1e3
+            return out
+
+        def recv(sock):
+            mtype, payload = real["_recv_frame"](sock)
+            self.counts["response_bytes"] += len(payload) + cp._HEADER.size
+            return mtype, payload
+
+        def timed(fn):
+            def wrapped(*a, **k):
+                t0 = time.perf_counter()
+                self._in_roundtrip = True
+                try:
+                    return fn(*a, **k)
+                finally:
+                    self._in_roundtrip = False
+                    self.counts["roundtrip_ms"] += (time.perf_counter() - t0) * 1e3
+            return wrapped
+
+        cp.serialize_snapshot = frame("full", real["serialize_snapshot"])
+        cp.serialize_delta = frame("delta", real["serialize_delta"])
+        cp.serialize_preempt = preempt_frame
+        cp._recv_frame = recv
+        cp.ComputePlaneClient.allocate = timed(real["allocate"])
+        cp.ComputePlaneClient.preempt = timed(real["preempt"])
+        import gc
+
+        gc.callbacks.append(self._gc)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._gc)
+        cp = self.cp
+        for name in ("serialize_snapshot", "serialize_delta", "serialize_preempt",
+                     "_recv_frame"):
+            setattr(cp, name, self._real[name])
+        cp.ComputePlaneClient.allocate = self._real["allocate"]
+        cp.ComputePlaneClient.preempt = self._real["preempt"]
+
+
+def http_get(port: int, path: str):
+    """(status, body) of GET ``path`` on the local serving port."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        try:
+            return e.code, e.read()
+        finally:
+            e.close()
+
+
+def phase_sidecar(card: str, loop_recs: Optional[dict] = None) -> dict:
+    """The compute-plane sidecar on the card, as a deployment runs it: a
+    child process (``Sidecar``) owns the kernels; this process is the
+    scheduler, its executors pointed at the child with
+    ``executor.configure``.  Checks, each failing the run:
+      * the child answers a health probe, and ``nvidia-smi`` lists its
+        pid with memory in use;
+      * SIDECAR_LOOP's cycles through ``Scheduler.run_once``: each the
+        cell's digest, ``last_allocate_executor() == "auto"``, no
+        fallback, no kernel launched in this process and the session
+        kernel launched in the child (its counts read before and after
+        each cycle, ``Sidecar.status``); cycle 0 ships a full frame,
+        every later cycle one delta frame;
+      * one preempting cycle of SIDECAR_PREEMPT: its digest, the preempt
+        kernel launched once in the child, none here, no fallback;
+      * a ``ServingServer`` over this process: /healthz "ok", /metrics,
+        and /explain listing the jobs the preempting cycle left
+        unschedulable with the messages of ``cache.unschedulable_digest``;
+      * the child SIGKILLed: one SIDECAR_AFTER_KILL cycle gives its digest
+        on the in-process kernel (executor ``cuda``, launches here), with
+        exactly one fallback counted; /healthz reads "degraded: …
+        compute-plane …" and /metrics holds the fallback.
+    The executors, the breakers and the child are reset in a ``finally``.
+    One ``{"sidecar": ...}`` line."""
+    import os
+
+    import torch
+
+    from volcano_tpu_torch import faults
+    from volcano_tpu_torch.ops import executor, preempt_kernel, session_kernel
+    from volcano_tpu_torch.ops.synthetic import (
+        BASELINE_CONFIGS,
+        generate_cluster_objects,
+        generate_preempt_cluster_objects,
+    )
+    from volcano_tpu_torch.serving import ServingServer
+    from volcano_tpu_torch.serving.compute_plane import ComputePlaneClient
+    from volcano_tpu_torch.serving.explain import explain_jobs
+
+    t_phase = time.perf_counter()
+    failures0 = kernel_failures()
+    apps0 = gpu_apps()
+    sidecar = Sidecar()
+    probe = ComputePlaneClient(sidecar.path, timeout=10.0)
+    serving = None
+    out = dict(card=card, loop=LOOP_CELLS[SIDECAR_LOOP]["config"], preempt=SIDECAR_PREEMPT,
+               after_kill=SIDECAR_AFTER_KILL)
+    try:
+        out["child_ready_s"] = sidecar.wait_ready(probe)
+        probe.close()
+        apps = gpu_apps()
+        status0 = sidecar.status()
+        rise = sum(apps.values()) - sum(apps0.values())
+        out.update(child_pid=sidecar.proc.pid, smi_apps=apps, smi_rise_mib=rise,
+                   child_memory_reserved=status0["memory_reserved"])
+        if sidecar.proc.pid in apps:
+            check(apps[sidecar.proc.pid] > 0,
+                  f"sidecar: pid {sidecar.proc.pid} holds no memory on the card ({apps})")
+        else:
+            # a sandbox's processes may all show under one pid that is not
+            # theirs: then the child is the rise of the listed memory when
+            # it started (a CUDA context is hundreds of MiB), with device
+            # memory held and kernels launched by its own account
+            check(not any(pid in apps for pid in (os.getpid(), sidecar.proc.pid))
+                  and rise >= 100 and status0["memory_reserved"] > 0
+                  and status0["session"] > 0,
+                  f"sidecar: the child is not on the card: nvidia-smi lists {apps0} before "
+                  f"it started and {apps} after; the child reports {status0}")
+        executor.configure(sidecar.path)
+
+        def child_launches(before: dict, after: dict) -> dict:
+            return {k: after[k] - before[k] for k in ("session", "session_wide", "preempt")}
+
+        def child_requests(before: dict, after: dict) -> list:
+            """The child's own timings of the requests it served between
+            two status lines."""
+            seen = max((r["n"] for r in before["requests"]), default=0)
+            return [r for r in after["requests"] if r["n"] > seen]
+
+        def zero_local():
+            torch.cuda.synchronize()
+            session_kernel.LAUNCHES = session_kernel.WIDE_LAUNCHES = 0
+            preempt_kernel.LAUNCHES = 0
+
+        def local_launches() -> int:
+            return session_kernel.LAUNCHES + session_kernel.WIDE_LAUNCHES + preempt_kernel.LAUNCHES
+
+        spec = LOOP_CELLS[SIDECAR_LOOP]
+        objects = loop_objects(spec["config"])
+        n_pods = len(objects[1])
+        want = CYCLE_DIGESTS[spec["config"]]
+        in_process = (loop_recs or {}).get(SIDECAR_LOOP, {}).get("cycles", [])
+        cycles = []
+        with WireTally() as wire:
+            loop = loop_cycles(objects, spec["tiers"], spec["actions"], spec["cycles"],
+                               spec["between"])
+            while True:
+                fallbacks = executor_fallbacks()
+                before = sidecar.status()
+                zero_local()
+                wire.take()
+                rec = next(loop, None)
+                if rec is None:
+                    break
+                after = sidecar.status()
+                frames, launched = wire.take(), child_launches(before, after)
+                k, ph = rec["cycle"], rec["phases"]
+                what = f"sidecar {SIDECAR_LOOP} cycle {k}"
+                digest = cycle_digest(rec["binds"])
+                check(digest == want and len(rec["binds"]) == n_pods,
+                      f"{what}: digest {digest} != the JAX package's {want}")
+                check(executor.last_allocate_executor() == "auto",
+                      f"{what}: executor {executor.last_allocate_executor()!r}, expected 'auto'")
+                check(executor_fallbacks() == fallbacks, f"{what}: a fallback was counted")
+                check(local_launches() == 0, f"{what}: this process launched a kernel")
+                check(launched["session"] + launched["session_wide"] > 0,
+                      f"{what}: the child launched no session kernel ({launched})")
+                check((frames["full"], frames["delta"]) == ((1, 0) if k == 0 else (0, 1)),
+                      f"{what}: {frames['full']} full and {frames['delta']} delta frames")
+                cycles.append(dict(
+                    cycle=k, frame="full" if k == 0 else "delta", mode=ph.get("mode"),
+                    request_bytes=frames["request_bytes"],
+                    response_bytes=frames["response_bytes"],
+                    roundtrip_ms=frames["roundtrip_ms"], serialize_ms=frames["serialize_ms"],
+                    roundtrip_gc_ms=frames["gc_ms"], execute_ms=ph.get("execute_ms"),
+                    run_once_ms=rec["e2e_s"] * 1e3, stage_bytes=ph.get("stage_bytes"),
+                    child_launches=launched["session"] + launched["session_wide"],
+                    child_requests=child_requests(before, after),
+                    in_process_device_ms=(in_process[k]["device_ms"]
+                                          if k < len(in_process) else None)))
+            del loop, objects
+
+            fallbacks = executor_fallbacks()
+            before = sidecar.status()
+            zero_local()
+            wire.take()
+            rec = run_preempt_cycle(
+                generate_preempt_cluster_objects(**PREEMPT_CYCLE_CELLS[SIDECAR_PREEMPT]),
+                status_updater=ListStatusUpdater())
+            after = sidecar.status()
+            frames, launched = wire.take(), child_launches(before, after)
+        what = f"sidecar {SIDECAR_PREEMPT}"
+        digest = preempt_cycle_digest(rec["evicted"], rec["pipelined"])
+        alloc = rec["allocate_phases"]
+        check(digest == PREEMPT_CYCLE_DIGESTS[SIDECAR_PREEMPT],
+              f"{what}: digest {digest} != the JAX package's "
+              f"{PREEMPT_CYCLE_DIGESTS[SIDECAR_PREEMPT]}")
+        check(rec["preempt_executor"] == "auto" and rec["preempt_route"] == "device",
+              f"{what}: preempt executor {rec['preempt_executor']!r}, route "
+              f"{rec['preempt_route']!r}")
+        check(executor_fallbacks() == fallbacks, f"{what}: a fallback was counted")
+        check(local_launches() == 0, f"{what}: this process launched a kernel")
+        check(launched["preempt"] == 1 and launched["session"] + launched["session_wide"] > 0,
+              f"{what}: the child launched {launched}")
+        check(alloc.get("explained", 0) >= 1 and alloc.get("host_sweeps", -1) == 0,
+              f"{what}: gpu-allocate explained {alloc.get('explained')}, swept the host "
+              f"{alloc.get('host_sweeps')} times")
+        out["preempt_cycle"] = dict(
+            evicted=len(rec["evicted"]), pipelined=len(rec["pipelined"]),
+            explained=alloc["explained"], child_launches=launched, frames=frames,
+            child_requests=child_requests(before, after),
+            gpu_allocate_ms=rec["action_s"]["gpu-allocate"] * 1e3,
+            gpu_preempt_ms=rec["action_s"]["gpu-preempt"] * 1e3,
+            allocate_execute_ms=alloc.get("execute_ms"),
+            preempt_execute_ms=rec["preempt_phases"].get("execute_ms"))
+
+        cache = rec["cache"]
+        del rec
+        serving = ServingServer(
+            explain_source=lambda ns, job: explain_jobs(cache, ns, job)).start()
+        check(http_get(serving.port, "/healthz") == (200, b"ok"),
+              f"sidecar: /healthz {http_get(serving.port, '/healthz')}")
+        status, body = http_get(serving.port, "/metrics")
+        check(status == 200 and b"volcano_tpu_kernel_latency_milliseconds_count" in body,
+              f"sidecar: /metrics answered {status}")
+        status, body = http_get(serving.port, "/explain")
+        check(status == 200, f"sidecar: /explain answered {status}")
+        data = json.loads(body)
+        digest_jobs = {d["name"]: d for d in cache.unschedulable_digest.values()}
+        served = {j["name"]: j for j in data["jobs"]}
+        check(served and set(served) == set(digest_jobs),
+              f"sidecar: /explain lists {len(served)} jobs, the digest {len(digest_jobs)}")
+        for name, job in served.items():
+            want_msgs = {uid: t["message"] for uid, t in digest_jobs[name]["tasks"].items()}
+            check({t["uid"]: t["message"] for t in job["unschedulable"]} == want_msgs,
+                  f"sidecar: /explain's messages for {name} differ from the digest's")
+        out["explain"] = dict(jobs=len(served), tasks=sum(len(j["unschedulable"])
+                                                          for j in served.values()),
+                              bytes=len(body), reasons=data.get("last_cycle", {}).get("reasons"))
+        del cache, data, served, digest_jobs
+
+        sidecar.kill()
+        fallbacks = executor_fallbacks()
+        zero_local()
+        rec = run_cycle(generate_cluster_objects(**BASELINE_CONFIGS[SIDECAR_AFTER_KILL]))
+        what = f"sidecar killed, {SIDECAR_AFTER_KILL}"
+        launches = session_kernel.LAUNCHES + session_kernel.WIDE_LAUNCHES
+        digest = cycle_digest(rec["binds"])
+        check(digest == CYCLE_DIGESTS[SIDECAR_AFTER_KILL],
+              f"{what}: digest {digest} != the JAX package's {CYCLE_DIGESTS[SIDECAR_AFTER_KILL]}")
+        check(executor.last_allocate_executor() == "cuda" and launches > 0,
+              f"{what}: executor {executor.last_allocate_executor()!r}, {launches} launches")
+        check(executor_fallbacks() == fallbacks + 1,
+              f"{what}: {executor_fallbacks() - fallbacks:.0f} fallbacks counted, expected 1")
+        status, body = http_get(serving.port, "/healthz")
+        check(status == 200 and body.startswith(b"degraded: ") and b"compute-plane" in body,
+              f"{what}: /healthz {status} {body[:200]!r}")
+        status, metrics_body = http_get(serving.port, "/metrics")
+        check(b'volcano_executor_fallbacks_total{cause="error",from="remote",to="local"}'
+              in metrics_body, f"{what}: /metrics holds no remote fallback")
+        out["after_kill"] = dict(binds=len(rec["binds"]), launches=launches,
+                                 execute_ms=rec["execute_s"] * 1e3, healthz=body.decode())
+        check(kernel_failures() == failures0, "sidecar: kernel failures counted")
+    finally:
+        probe.close()
+        executor.configure(None)
+        faults.reset_breakers()
+        if serving is not None:
+            serving.stop()
+        sidecar.close()
+    out.update(cycles=cycles, phase_ms=(time.perf_counter() - t_phase) * 1e3)
+    print(f"sidecar: child up in {out['child_ready_s']:.1f} s (pid {out['child_pid']}; "
+          f"nvidia-smi {out['smi_apps']}, +{out['smi_rise_mib']} MiB when it started); "
+          f"{len(cycles)} {SIDECAR_LOOP} cycles through it, "
+          f"each the JAX digest, executor auto, no fallback: frames "
+          f"{[c['frame'] for c in cycles]}, request bytes {[c['request_bytes'] for c in cycles]}, "
+          f"response bytes {[c['response_bytes'] for c in cycles]}, round trip ms "
+          f"{[round(c['roundtrip_ms'], 3) for c in cycles]} (of which serialize "
+          f"{[round(c['serialize_ms'], 3) for c in cycles]}, this process's gc "
+          f"{[round(c['roundtrip_gc_ms'], 3) for c in cycles]}; in-process device ms "
+          f"{[None if c['in_process_device_ms'] is None else round(c['in_process_device_ms'], 3) for c in cycles]}; "
+          f"the child's decode/put/kernel/reply ms "
+          f"{[[tuple(None if r[k] is None else round(r[k], 3) for k in ('decode_ms', 'put_ms', 'kernel_ms', 'reply_ms')) for r in c['child_requests']] for c in cycles]}); "
+          f"{SIDECAR_PREEMPT} through it with its digest; /explain {out['explain']['jobs']} jobs; "
+          f"killed: {SIDECAR_AFTER_KILL} in-process with one fallback, /healthz degraded; "
+          f"card {card}")
+    print(json.dumps({"sidecar": out}))
+    return out
+
+
 def kernel_failures() -> float:
     """Every failed or refused kernel call counted in this process."""
     from volcano_tpu_torch import metrics
@@ -2363,6 +2867,7 @@ def main() -> int:
     preempt_cycle_rec = phase_preempt_cycle(PREEMPT_CYCLE_MAIN, card)
     phase_preempt_cycle(PREEMPT_CYCLE_SECOND, card)
     loop_recs = {cell: phase_loop(cell, card) for cell in LOOP_CELLS}
+    sidecar_rec = phase_sidecar(card, loop_recs)
     from volcano_tpu_torch import faults
 
     check(kernel_failures() == 0 and not faults.degraded_reasons(),
@@ -2391,6 +2896,7 @@ def main() -> int:
             "int_launches": dgx_rec["launches"],
             "cycle_launches": cycle_rec["launches_per_cycle"],
             "loop_launches": loop_recs[LOOP_A]["cycles"][-1]["launches"],
+            "sidecar_launches": sidecar_rec["cycles"][-1]["child_launches"],
             "library_ms": None,
         },
         {
@@ -2426,6 +2932,7 @@ def main() -> int:
             "plane_off_ms": pre_rec["plane_off_ms"],
             "cycle_launches": preempt_cycle_rec["preempt_launches_per_cycle"],
             "loop_launches": loop_recs[LOOP_C]["cycles"][-1]["preempt_launches"],
+            "sidecar_launches": sidecar_rec["preempt_cycle"]["child_launches"]["preempt"],
             "library_ms": None,
         },
     ]

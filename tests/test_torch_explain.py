@@ -226,8 +226,10 @@ def test_explained_tasks_skip_the_host_sweep():
     stats = action.last_phase_stats
     assert stats["explained"] == 1 and stats["host_sweeps"] == 0
     assert stats["explain_rows"] >= stats["explained"]
-    assert stats["explain_ms"] >= stats["explain_pack_ms"] >= 0
-    assert stats["explain_reduce_ms"] >= 0
+    assert stats["explain_ms"] == stats["explain_pack_ms"] + stats["explain_reduce_ms"]
+    assert stats["explain_pack_ms"] >= 0 and stats["explain_reduce_ms"] >= 0
+    # the kernel rows' reduction ran inside execute_allocate, timed there
+    assert 0 <= stats["explain_kernel_rows_ms"] <= stats["execute_ms"]
 
 
 def test_fully_placed_cycle_reduces_nothing():

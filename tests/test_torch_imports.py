@@ -182,3 +182,38 @@ def test_each_entry_module_imports_first(module):
         timeout=120, env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1"),
     )
     assert proc.returncode == 0, proc.stderr
+
+
+CHILD_FIRST = r"""
+import importlib, importlib.abc, sys
+
+sys.modules["jax"] = None
+
+
+class RefuseReference(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "volcano_tpu" or name.startswith("volcano_tpu."):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+
+sys.meta_path.insert(0, RefuseReference())
+importlib.import_module(sys.argv[1])
+assert "jax" not in {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
+print("imported", sys.argv[1])
+"""
+
+
+@pytest.mark.parametrize("module", ["volcano_tpu_torch.serving.compute_plane",
+                                    "volcano_tpu_torch.serving.http",
+                                    "volcano_tpu_torch.cmd.compute_plane"])
+def test_serving_module_imports_first_without_jax(module):
+    """The sidecar's and the serving port's modules each import first in
+    a fresh interpreter with ``jax`` blocked and ``volcano_tpu``
+    refused."""
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD_FIRST, module], cwd=ROOT, capture_output=True, text=True,
+        timeout=120, env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1"),
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == f"imported {module}"

@@ -16,6 +16,9 @@ and ``metrics``).  The package imports no JAX and nothing of
 
 Entry points: ``actions.gpu_allocate.GpuAllocateAction`` for a cycle,
 ``ops.executor.execute_allocate`` and ``execute_preempt`` for a packed
-session.  They run on ``cuda`` unless the caller passes
-``device="cpu"``.
+session, and ``python -m volcano_tpu_torch.cmd.compute_plane`` for the
+compute-plane sidecar that serves both kernels to a scheduler process
+over the reference's wire (``serving/compute_plane.py``); a scheduler's
+HTTP port is ``serving.ServingServer``.  They run on ``cuda`` unless the
+caller passes ``device="cpu"``.
 """

@@ -38,6 +38,13 @@ actions/allocate.py (drive_allocate_loop):
    no node (explain, ops/explain.py): then its FitErrors are synthesized
    from the counts and the O(N) host predicate sweep is skipped.
 
+Explanations: ``execute_allocate(explain=True)`` returns the reason
+counts of the kernel's unplaced rows with the assignment (reduced on the
+sidecar when the session ran there, else on the kernel's device), and
+each cycle's summary is published for ``GET /explain``
+(``ops/explain.set_last_explain``, ``_publish_explain``), cleared when a
+cycle explains nothing.
+
 Failures: a kernel that fails raises ``ExecutorFailed`` out of
 ``execute`` before anything is applied, and an armed cycle deadline that
 runs out raises ``CycleDeadlineExceeded`` the same way (counted by
@@ -48,17 +55,22 @@ planes).
 
 Not present in the port yet: the reference's host-chooser route under an
 expired deadline, and the trace journal's capture of the packed session.
+With a compute-plane sidecar configured (ops/executor.py) the planes are
+still staged and prestaged on this process's device, as in the
+reference, so a session that falls back to the in-process kernel finds
+them resident.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from volcano_tpu_torch import metrics
+from volcano_tpu_torch import metrics, trace
 from volcano_tpu_torch.actions.allocate import (
     drive_allocate_loop,
     eligible_jobs,
@@ -74,11 +86,18 @@ from volcano_tpu_torch.framework.interface import Action
 from volcano_tpu_torch.framework.session import Session
 from volcano_tpu_torch.ops import session_kernel
 from volcano_tpu_torch.ops.device_stage import get_stager
-from volcano_tpu_torch.ops.executor import execute_allocate, last_allocate_executor
+from volcano_tpu_torch.ops.executor import (
+    execute_allocate,
+    last_allocate_executor,
+    last_explain_counts,
+    last_explain_ms,
+)
 from volcano_tpu_torch.ops.explain import (
+    explain_enabled,
     ExplainResult,
     run_explain,
     session_explain_compatible,
+    set_last_explain,
     task_exactly_encoded,
 )
 from volcano_tpu_torch.ops.kernels import resolve_device
@@ -107,14 +126,18 @@ class _ExplainContext:
         tasks take the host sweep instead.
     """
 
-    def __init__(self, ssn: Session):
+    def __init__(self, ssn: Session, nodes):
         self.ssn = ssn
+        self.node_names = [n.name for n in nodes]
         #: node-state epoch at pack time — any later mutation advances it
         self._epoch0 = ssn.node_state_epoch
         #: task uid → (its snapshot, that snapshot's result, its row)
         self._rows: Dict[str, Tuple[object, ExplainResult, int]] = {}
-        #: tasks whose FitErrors came from the counts
-        self.explained = 0
+        #: n_nodes of the reductions (one node set per session)
+        self.n_nodes = len(nodes)
+        #: task uid → reason histogram of the tasks whose FitErrors came
+        #: from the counts, for the cycle summary
+        self.explained: Dict[str, Dict[str, int]] = {}
 
     def add(self, snap, result: ExplainResult, tasks) -> None:
         """The reason counts of ``snap``, whose row i is ``tasks[i]``."""
@@ -131,12 +154,31 @@ class _ExplainContext:
         if row is None:
             return None
         snap, result, i = row
-        if not task_exactly_encoded(snap, i) or not result.all_infeasible(i):
+        if (i >= len(result.counts) or not task_exactly_encoded(snap, i)
+                or not result.all_infeasible(i)):
             return None
-        self.explained += 1
-        for reason in result.histogram(i):
+        hist = result.histogram(i)
+        self.explained[task.uid] = hist
+        for reason in hist:
             metrics.register_unschedulable_reason(reason)
         return result.fit_errors(i)
+
+    def node_reasons(self, uid: str) -> Optional[Dict[str, str]]:
+        """node name → failing reason for an explained task, where its
+        reduction retained the per-pair plane; else None."""
+        _, result, i = self._rows[uid]
+        if result.reasons is None:
+            return None
+        return result.node_reasons(i, self.node_names)
+
+    def summary(self) -> Dict[str, int]:
+        """Aggregate reason → node-count histogram over the explained
+        tasks."""
+        agg: Dict[str, int] = {}
+        for hist in self.explained.values():
+            for reason, count in hist.items():
+                agg[reason] = agg.get(reason, 0) + count
+        return agg
 
 
 def unordered_pending(ssn: Session, ordered: List[TaskInfo]) -> List[TaskInfo]:
@@ -197,20 +239,40 @@ def compute_task_order_replay(ssn: Session) -> List[TaskInfo]:
 
 
 class GpuAllocateAction(Action):
-    def __init__(self, device: Optional[Union[str, torch.device]] = None):
+    def __init__(
+        self,
+        device: Optional[Union[str, torch.device]] = None,
+        explain: Optional[bool] = None,
+        explain_planes: Optional[bool] = None,
+    ):
         """``device`` is where the KERNEL phase and the explain reduction
         run: ``cuda`` when None (raising where there is no GPU),
-        ``"cpu"`` for the PyTorch specification.  Explain is always on:
-        its reduction runs only when a task went unplaced, so
-        fully-placed cycles pay nothing."""
+        ``"cpu"`` for the PyTorch specification; a configured
+        compute-plane sidecar runs the kernel on its own device instead.
+        ``explain``: device-derived unschedulability explanations, on by
+        default (the reduction runs only when a task went unplaced, so
+        fully-placed cycles pay nothing); ``VTPU_NO_EXPLAIN=1`` or
+        ``explain=False`` turns them off.  ``explain_planes`` (or
+        ``VTPU_EXPLAIN_PLANES``) additionally retains the per-pair
+        [T, N] reason plane for ``/explain``'s node-level attribution."""
         self.device = device
+        self.explain = explain_enabled() if explain is None else explain
+        self.explain_planes = (
+            bool(os.environ.get("VTPU_EXPLAIN_PLANES"))
+            if explain_planes is None
+            else explain_planes
+        )
         #: how the last execute() applied: "fast" (every task through the
         #: bulk commit), "loop" (the per-task loop), "" (nothing to apply)
         self.last_apply_route = ""
-        #: phase timings (ms) of the last execute(): order, pack, execute,
-        #: explain (split into explain_pack, the pack of the rows ORDER
-        #: left out, and explain_reduce, the reductions), apply, and
-        #: commit (the bulk bind inside apply); explain_rows, the rows
+        #: phase timings (ms) of the last execute(), none inside another
+        #: but commit and explain_kernel_rows: order, pack, execute,
+        #: explain (= explain_pack, the pack of the rows ORDER left out,
+        #: + explain_reduce, the reductions made after execute), apply,
+        #: and commit (the bulk bind inside apply); explain_kernel_rows,
+        #: the reduction of the kernel's unplaced rows inside execute
+        #: (in-process only: over the sidecar it is inside the round
+        #: trip and not timed here); explain_rows, the rows
         #: reduced; host_sweeps, the tasks that took the host chooser's
         #: O(N) predicate sweep, and explained, the tasks whose FitErrors
         #: came from the device's reason counts.  A warm-packed session
@@ -279,8 +341,9 @@ class GpuAllocateAction(Action):
 
         t0 = time.perf_counter()
         # ExecutorFailed and CycleDeadlineExceeded leave execute() here,
-        # before anything session-side has mutated
-        assignment = execute_allocate(snap, device=self.device)
+        # before anything session-side has mutated; explain=True brings
+        # the reason counts of the unplaced rows back with the assignment
+        assignment = execute_allocate(snap, device=self.device, explain=self.explain)
         execute_s = time.perf_counter() - t0
         self.last_phase_stats["execute_ms"] = execute_s * 1e3
         metrics.update_kernel_duration("execute", execute_s)
@@ -327,38 +390,58 @@ class GpuAllocateAction(Action):
         if prestaged:
             # the window the staged copy had to overlap host work
             self.last_phase_stats["relay_overlap_ms"] = order_ms
-        if not ordered:
-            return
-        proposals, snap, assignment = self._kernel_proposals(ssn, ordered, nodes, pc)
-
         explain_ctx = None
-        if snap is not None:
-            explain_ctx = self._explain_context(ssn, ordered, nodes, snap, assignment)
-
-        t0 = time.perf_counter()
         try:
+            if not ordered:
+                # nothing pending → nothing to explain; the finally
+                # clears the surface so /explain never serves a previous
+                # cycle
+                return
+            proposals, snap, assignment = self._kernel_proposals(ssn, ordered, nodes, pc)
+            if snap is not None and self.explain:
+                explain_ctx = self._explain_context(ssn, ordered, nodes, snap, assignment)
+
+            t0 = time.perf_counter()
             self.last_apply_route = self._apply(ssn, ordered, proposals, snap, explain_ctx)
+            self.last_phase_stats["apply_ms"] = (time.perf_counter() - t0) * 1e3
         finally:
             if explain_ctx is not None:
-                self.last_phase_stats["explained"] = explain_ctx.explained
-        self.last_phase_stats["apply_ms"] = (time.perf_counter() - t0) * 1e3
+                self.last_phase_stats["explained"] = len(explain_ctx.explained)
+            if self.explain:
+                # also clears: a cycle that explained nothing (all
+                # placed, gate closed, a kernel failure) must not leave
+                # /explain serving a previous cycle's explanation
+                self._publish_explain(explain_ctx)
 
     def _explain_context(self, ssn, ordered, nodes, snap, assignment
                          ) -> Optional[_ExplainContext]:
         """The reason counts of this cycle, or None when every ordered
         task placed or the session's predicates are not the ones the
-        counts encode: a reduction over the kernel's unplaced rows, and —
-        the port's addition to the reference, which sends these to the
-        host sweep — one over an explain-only pack of the pending tasks
-        ORDER left out, both on the kernel's device, so a saturated cycle
-        explains every task it tries."""
-        unplaced = np.nonzero(np.asarray(assignment)[: snap.n_tasks] < 0)[0]
-        if not unplaced.size or not session_explain_compatible(ssn):
+        counts encode: the counts of the kernel's unplaced rows that
+        ``execute_allocate`` brought back (reduced on the sidecar, or on
+        the kernel's device), and — the port's addition to the
+        reference, which sends these to the host sweep — a reduction over
+        an explain-only pack of the pending tasks ORDER left out, on this
+        action's device, so a saturated cycle explains every task it
+        tries.  With ``explain_planes`` the per-pair reason planes of the
+        rows that recorded any infeasibility are reduced here too (the
+        wire ships counts only)."""
+        counts = last_explain_counts()
+        if counts is None or not session_explain_compatible(ssn):
             return None
         t0 = time.perf_counter()
-        ctx = _ExplainContext(ssn)
-        ctx.add(snap, run_explain(snap, task_rows=unplaced, device=self.device), ordered)
+        ctx = _ExplainContext(ssn, nodes)
+        planes = None
+        if self.explain_planes:
+            planes = run_explain(snap, retain_planes=True,
+                                 task_rows=np.nonzero(counts.sum(axis=1) > 0)[0],
+                                 device=self.device).reasons
+        ctx.add(snap, ExplainResult(counts, snap.n_nodes, planes), ordered)
+        unplaced = np.nonzero(np.asarray(assignment)[: snap.n_tasks] < 0)[0]
         rows, pack_s = int(unplaced.size), 0.0
+        kernel_rows_ms = last_explain_ms()
+        if kernel_rows_ms is not None:
+            self.last_phase_stats["explain_kernel_rows_ms"] = kernel_rows_ms
         pending = sum(len(job.task_status_index.get(TaskStatus.Pending, {}))
                       for job in ssn.jobs.values())
         rest = unordered_pending(ssn, ordered) if pending > len(ordered) else []
@@ -368,13 +451,33 @@ class GpuAllocateAction(Action):
             extra = pack_session(rest, jobs, nodes,
                                  enforce_pod_count="predicates" in ssn.predicate_fns)
             pack_s = time.perf_counter() - tp
-            ctx.add(extra, run_explain(extra, device=self.device), rest)
+            ctx.add(extra, run_explain(extra, retain_planes=self.explain_planes,
+                                       device=self.device), rest)
             rows += len(rest)
-        explain_s = time.perf_counter() - t0
+        reduce_ms = (time.perf_counter() - t0 - pack_s) * 1e3
         self.last_phase_stats.update(
-            explain_ms=explain_s * 1e3, explain_pack_ms=pack_s * 1e3,
-            explain_reduce_ms=(explain_s - pack_s) * 1e3, explain_rows=rows)
+            explain_ms=pack_s * 1e3 + reduce_ms, explain_pack_ms=pack_s * 1e3,
+            explain_reduce_ms=reduce_ms, explain_rows=rows)
         return ctx
+
+    def _publish_explain(self, ctx: Optional[_ExplainContext]) -> None:
+        """Per-cycle reason summary → the ``/explain`` surface
+        (``ops/explain.set_last_explain``).  A ``None`` context or an
+        empty explained set CLEARS the surface — it reflects the most
+        recent cycle, never a stale one."""
+        if ctx is None or not ctx.explained:
+            set_last_explain(None)
+            return
+        tasks = {}
+        for uid, hist in ctx.explained.items():
+            nodes = ctx.node_reasons(uid)
+            tasks[uid] = {"reasons": hist, **({"nodes": nodes} if nodes is not None else {})}
+        set_last_explain({
+            "cycle": trace.current_cycle(),
+            "n_nodes": ctx.n_nodes,
+            "tasks": tasks,
+            "summary": ctx.summary(),
+        })
 
     def _apply(self, ssn, ordered, proposals, snap, explain_ctx) -> str:
         # Fully-placed exact sessions commit in bulk (actions/fast_apply);

@@ -7,8 +7,9 @@ Reference: pkg/scheduler/api/unschedule_info.go.
 
 from __future__ import annotations
 
+import re
 from collections import Counter
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 # Well-known predicate failure reasons.
 NODE_RESOURCE_FIT_FAILED = "node(s) resource fit failed"
@@ -42,6 +43,26 @@ def format_fit_errors(total_nodes: int, histogram: Dict[str, int]) -> str:
     render through it, which is what makes the two byte-comparable."""
     parts = sorted(f"{count} {reason}" for reason, count in histogram.items())
     return f"0/{total_nodes} nodes are available: {', '.join(parts)}."
+
+
+_FIT_ERROR_RE = re.compile(r"^0/(\d+) nodes are available: (.*)\.$")
+
+
+def parse_fit_errors(message: str) -> Optional[Tuple[int, Dict[str, int]]]:
+    """Inverse of :func:`format_fit_errors` → (total_nodes, histogram),
+    or None when the message is not an aggregate fit-error message
+    (e.g. a gang job_fit_errors summary).  Read by ``GET /explain``
+    (serving/explain.py)."""
+    m = _FIT_ERROR_RE.match(message.strip())
+    if m is None:
+        return None
+    histogram: Dict[str, int] = {}
+    for part in m.group(2).split(", "):
+        count, _, reason = part.partition(" ")
+        if not count.isdigit() or not reason:
+            return None
+        histogram[reason] = histogram.get(reason, 0) + int(count)
+    return int(m.group(1)), histogram
 
 
 class FitErrors:

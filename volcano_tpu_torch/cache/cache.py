@@ -150,6 +150,12 @@ class SchedulerCache(Cache):
         #: tasks whose side effects failed, deduped by uid (cache.go:687-709
         #: errTasks); nothing drains it in the port yet
         self.err_tasks: List[TaskInfo] = []  # guarded-by: self._mutex
+        #: job uid → the unschedulable tasks its last status writeback
+        #: recorded (record_job_status_event); the durable source of
+        #: ``GET /explain`` (serving/explain.py), since fit errors live on
+        #: session clones and go with the session.  Cleared when a
+        #: writeback records none, and when the job leaves the cache.
+        self.unschedulable_digest: Dict[str, dict] = {}  # guarded-by: self._mutex
 
         # ---- warm-cycle change tracking (ops/pack_cache.py) ----
         #: bumped on every pack-relevant mutation; the dirty dicts map
@@ -396,6 +402,7 @@ class SchedulerCache(Cache):
                 if not job.tasks:
                     del self.jobs[pg.key()]
                     self._job_mut_rev.pop(pg.key(), None)
+                    self.unschedulable_digest.pop(pg.key(), None)
 
     # ---- event handlers: queues (event_handlers.go:696-863) ----
 
@@ -688,15 +695,32 @@ class SchedulerCache(Cache):
         if self.status_updater is None:
             return
         base_message = job.job_fit_errors
+        tasks_digest: Dict[str, dict] = {}
         for task in job.tasks.values():
             if task.status != TaskStatus.Pending:
                 continue
             fit_errors = job.nodes_fit_errors.get(task.uid)
             message = fit_errors.error() if fit_errors is not None else base_message
+            if message:
+                tasks_digest[task.uid] = {
+                    "name": task.name,
+                    "message": message,
+                }
             try:
                 self.status_updater.update_pod_condition(task, "Unschedulable", message)
             except Exception as e:  # noqa: BLE001
                 log.error("update pod condition failed: %s", e)
+        with self._mutex:
+            if tasks_digest:
+                self.unschedulable_digest[job.uid] = {
+                    "namespace": job.namespace,
+                    "name": job.name,
+                    "queue": job.queue,
+                    "job_fit_errors": job.job_fit_errors,
+                    "tasks": tasks_digest,
+                }
+            else:
+                self.unschedulable_digest.pop(job.uid, None)
 
     def update_job_status(self, job: JobInfo) -> Optional[scheduling.PodGroup]:
         """cache.go:871-894."""

@@ -6,41 +6,64 @@ framework, cache, plugins and actions write (cycle, action, plugin and
 task latencies, sessions opened, schedule attempts,
 unschedulable reasons, kernel phase latencies, the explain reduction's
 latency, preemption victims and attempts), each under the same name
-and labels; a histogram keeps its count and sum.
+and labels; a histogram keeps the reference's buckets, its count and its sum.
 
 ``volcano_executor_failures_total{executor,cause}`` counts every failed or
 refused kernel call, a device phase that overran the cycle deadline and
 a preempt or reclaim result that diverged while it was applied included
-(the reference counts a demotion to a lower rung or to the host,
-``volcano_executor_fallbacks_total``; the port falls to none),
+(the reference counts a demotion to a lower rung or to the host; the
+port's kernel executors fall to none),
+``volcano_executor_fallbacks_total{from,to,cause}`` counts the one
+demotion the port has, a compute-plane session that failed and ran on
+the in-process kernel instead (``from="remote", to="local"``),
 ``volcano_circuit_breaker_open{executor}``
 holds each breaker's state, and ``volcano_faults_injected_total{point}``
 counts the fault plane's firings.  Values live in process memory in
 ``registry``, keyed as the JAX package's registry keys them, so a test or
 an operator reads them with :meth:`Registry.counter` and
-:meth:`Registry.gauge`.
+:meth:`Registry.gauge`, and ``GET /metrics`` (serving/http.py) prints
+them with :meth:`Registry.render`, the Prometheus text exposition,
+histograms in the reference's buckets.
 """
 
 from __future__ import annotations
 
+import bisect
 import threading
 from collections import defaultdict
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 _NAMESPACE = "volcano"
+
+# 5ms × 2^k buckets, like prometheus.ExponentialBuckets(5, 2, 10) in ms.
+_LATENCY_BUCKETS_MS = [5.0 * (2**k) for k in range(10)]
+# 5µs × 2^k up to ~160ms, for the microsecond histograms.
+_LATENCY_BUCKETS_US = [5.0 * (2**k) for k in range(16)]
+# Job-level latency, creation → first scheduled cycle: 100ms × 2^k.
+_JOB_LATENCY_BUCKETS_MS = [100.0 * (2**k) for k in range(14)]
 
 _Key = Tuple[str, Tuple[Tuple[str, str], ...]]
 
 
+class _Histogram:
+    __slots__ = ("buckets", "counts", "sum", "total")
+
+    def __init__(self, buckets: List[float]):
+        self.buckets = buckets
+        self.counts = [0] * (len(buckets) + 1)
+        self.sum = 0.0
+        self.total = 0
+
+
 class Registry:
-    """In-process counters and gauges, keyed by (name, sorted labels)."""
+    """In-process counters, gauges and histograms, keyed by (name,
+    sorted labels)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._counters: Dict[_Key, float] = defaultdict(float)  # guarded-by: self._lock
         self._gauges: Dict[_Key, float] = {}  # guarded-by: self._lock
-        #: (name, labels) → [count, sum]
-        self._hists: Dict[_Key, list] = {}  # guarded-by: self._lock
+        self._hists: Dict[_Key, _Histogram] = {}  # guarded-by: self._lock
 
     @staticmethod
     def _key(name: str, labels: Dict[str, str]) -> _Key:
@@ -54,11 +77,19 @@ class Registry:
         with self._lock:
             self._gauges[self._key(name, labels)] = value
 
-    def observe(self, name: str, labels: Dict[str, str], value: float) -> None:
+    def observe(self, name: str, labels: Dict[str, str], value: float,
+                buckets: Optional[List[float]] = None) -> None:
+        """One sample into the histogram; ``buckets`` (upper bounds)
+        fix its buckets at its first sample, ``_LATENCY_BUCKETS_MS``
+        where None."""
         with self._lock:
-            h = self._hists.setdefault(self._key(name, labels), [0, 0.0])
-            h[0] += 1
-            h[1] += value
+            key = self._key(name, labels)
+            h = self._hists.get(key)
+            if h is None:
+                h = self._hists[key] = _Histogram(buckets or _LATENCY_BUCKETS_MS)
+            h.counts[bisect.bisect_left(h.buckets, value)] += 1
+            h.sum += value
+            h.total += 1
 
     def counter(self, name: str, **labels: str) -> float:
         """A counter's value; 0 before its first count."""
@@ -78,8 +109,37 @@ class Registry:
     def histogram(self, name: str, **labels: str) -> Tuple[int, float]:
         """A histogram's (count, sum); (0, 0.0) before its first sample."""
         with self._lock:
-            count, total = self._hists.get(self._key(name, labels), (0, 0.0))
-            return count, total
+            h = self._hists.get(self._key(name, labels))
+            return (0, 0.0) if h is None else (h.total, h.sum)
+
+    def render(self) -> str:
+        """Prometheus text exposition format, line for line the JAX
+        package's ``_Registry.render`` (without identity labels):
+        histograms, then counters, then gauges, each sorted by name and
+        labels."""
+
+        def fmt_labels(labels: Tuple[Tuple[str, str], ...]) -> str:
+            if not labels:
+                return ""
+            return "{" + ",".join(f'{k}="{v}"' for k, v in labels) + "}"
+
+        lines: List[str] = []
+        with self._lock:
+            for (name, labels), h in sorted(self._hists.items()):
+                cumulative = 0
+                for bound, c in zip(h.buckets, h.counts):
+                    cumulative += c
+                    le = labels + (("le", str(bound)),)
+                    lines.append(f"{name}_bucket{fmt_labels(le)} {cumulative}")
+                le = labels + (("le", "+Inf"),)
+                lines.append(f"{name}_bucket{fmt_labels(le)} {h.total}")
+                lines.append(f"{name}_sum{fmt_labels(labels)} {h.sum}")
+                lines.append(f"{name}_count{fmt_labels(labels)} {h.total}")
+            for (name, labels), v in sorted(self._counters.items()):
+                lines.append(f"{name}{fmt_labels(labels)} {v}")
+            for (name, labels), v in sorted(self._gauges.items()):
+                lines.append(f"{name}{fmt_labels(labels)} {v}")
+        return "\n".join(lines) + "\n"
 
     def reset(self) -> None:
         with self._lock:
@@ -96,6 +156,14 @@ def register_executor_failure(executor: str, cause: str) -> None:
     circuit-open, corrupt-output, deadline, diverged}."""
     registry.inc(f"{_NAMESPACE}_executor_failures_total",
                  {"executor": executor, "cause": cause})
+
+
+def register_executor_fallback(from_: str, to: str, cause: str) -> None:
+    """One session demoted from ``from_`` to ``to``: in the port only
+    ``remote`` → ``local`` (a compute-plane session that failed ran on
+    the in-process kernel); cause ∈ {error}."""
+    registry.inc(f"{_NAMESPACE}_executor_fallbacks_total",
+                 {"from": from_, "to": to, "cause": cause})
 
 
 def update_circuit_breaker_state(executor: str, value: float) -> None:
@@ -116,7 +184,7 @@ def update_kernel_duration(phase: str, seconds: float) -> None:
 
 def update_action_duration(action_name: str, seconds: float) -> None:
     registry.observe(f"{_NAMESPACE}_action_scheduling_latency_microseconds",
-                     {"action": action_name}, seconds * 1e6)
+                     {"action": action_name}, seconds * 1e6, _LATENCY_BUCKETS_US)
 
 
 def update_e2e_duration(seconds: float) -> None:
@@ -133,18 +201,18 @@ def register_session_scope(mode: str) -> None:
 
 def update_plugin_duration(plugin_name: str, seconds: float) -> None:
     registry.observe(f"{_NAMESPACE}_plugin_scheduling_latency_microseconds",
-                     {"plugin": plugin_name}, seconds * 1e6)
+                     {"plugin": plugin_name}, seconds * 1e6, _LATENCY_BUCKETS_US)
 
 
 def update_task_schedule_duration(seconds: float) -> None:
     registry.observe(f"{_NAMESPACE}_task_scheduling_latency_microseconds", {},
-                     seconds * 1e6)
+                     seconds * 1e6, _LATENCY_BUCKETS_US)
 
 
 def update_job_schedule_duration(seconds: float) -> None:
     """Per-job latency, creation → first scheduled cycle."""
     registry.observe(f"{_NAMESPACE}_e2e_job_scheduling_latency_milliseconds", {},
-                     seconds * 1e3)
+                     seconds * 1e3, _JOB_LATENCY_BUCKETS_MS)
 
 
 def register_schedule_attempt(result: str) -> None:

@@ -17,16 +17,20 @@ back to the host, P = 5.
 
 Unlike the reference, the reduction gathers the requested rows directly
 (no power-of-two row buckets: PyTorch compiles nothing per shape) and
-has no staged device planes.  The reference's explain switches, its
-per-pair plane retention and its last-cycle explanation surface have no
-reader in this package (their reader is the reference's serving
-endpoint) and are left out: explain is always on.
+has no staged device planes.  The most recent cycle's explanation is
+parked in :func:`set_last_explain` for the scheduler's ``GET /explain``
+endpoint (serving/explain.py); full per-pair reason planes (node-level
+attribution, [T, N]) come back only when asked (``retain_planes``).
+``VTPU_NO_EXPLAIN`` turns explanations off by default
+(:func:`explain_enabled`; an action may override it).
 """
 
 from __future__ import annotations
 
+import os
+import threading
 import time
-from typing import Dict, Optional, Union
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -65,13 +69,17 @@ class ExplainResult:
     """Reason counts for one packed session.
 
     ``counts[t, p]`` — valid nodes whose FIRST failing predicate for
-    ordered task ``t`` is ``EXPLAIN_REASONS[p]``."""
+    ordered task ``t`` is ``EXPLAIN_REASONS[p]``; ``reasons`` is the
+    per-pair [T, N] plane (int8 reason index, ``N_EXPLAIN_REASONS`` =
+    feasible) when retention was requested, else None."""
 
-    __slots__ = ("counts", "n_nodes")
+    __slots__ = ("counts", "n_nodes", "reasons")
 
-    def __init__(self, counts: np.ndarray, n_nodes: int):
+    def __init__(self, counts: np.ndarray, n_nodes: int,
+                 reasons: Optional[np.ndarray] = None):
         self.counts = counts
         self.n_nodes = n_nodes
+        self.reasons = reasons
 
     def all_infeasible(self, i: int) -> bool:
         """Does the device prove task ``i`` fits NO node at all?"""
@@ -92,9 +100,26 @@ class ExplainResult:
         fe.set_histogram(int(self.counts[i].sum()), self.histogram(i))
         return fe
 
+    def node_reasons(self, i: int, node_names: List[str]) -> Dict[str, str]:
+        """node name → failing reason for task ``i`` (plane-retention
+        runs only)."""
+        if self.reasons is None:
+            return {}
+        out: Dict[str, str] = {}
+        for n, code in enumerate(self.reasons[i][: len(node_names)]):
+            if code < N_EXPLAIN_REASONS:
+                out[node_names[n]] = EXPLAIN_REASONS[code]
+        return out
+
+
+#: wall-clock ms of the most recent run_explain in this process — read
+#: right after the call (ops/executor.last_explain_ms), same thread
+last_run_ms: float = 0.0
+
 
 def run_explain(
     snap: PackedSnapshot,
+    retain_planes: bool = False,
     task_rows: Optional[np.ndarray] = None,
     device: Optional[Union[str, torch.device]] = None,
 ) -> ExplainResult:
@@ -106,8 +131,12 @@ def run_explain(
     session must not pay a [50k, N] reduction); rows outside the subset
     come back all-zero (reads as "not proven infeasible", which sends
     consumers to the host sweep — conservative, never wrong).  Only the
-    [rows, P] counts come back from the device.  Observes its duration
-    into the explain latency histogram."""
+    [rows, P] counts come back from the device, and the [rows, N] reason
+    plane with ``retain_planes`` (other rows all feasible).  Runs
+    wherever the kernels run (scheduler process or compute-plane
+    sidecar) and observes its duration into the explain latency
+    histogram there."""
+    global last_run_ms
     dev = resolve_device(device)
     T, N = snap.n_tasks, snap.n_nodes
     rows = (
@@ -115,11 +144,13 @@ def run_explain(
         else np.asarray(task_rows, dtype=np.int64)
     )
     counts_np = np.zeros((T, N_EXPLAIN_REASONS), dtype=np.int32)
+    planes_np = (np.full((T, N), N_EXPLAIN_REASONS, dtype=np.int8)
+                 if retain_planes else None)
     if rows.size == 0:
-        return ExplainResult(counts_np, N)
+        return ExplainResult(counts_np, N, planes_np)
 
     t0 = time.perf_counter()
-    _, counts = explain_counts(
+    reasons, counts = explain_counts(
         as_tensor(snap.task_resreq[rows], dev),
         as_tensor(snap.task_sel_bits[rows], dev),
         as_tensor(snap.task_tol_bits[rows], dev),
@@ -133,8 +164,12 @@ def run_explain(
         N,
     )
     counts_np[rows] = counts.cpu().numpy()
-    metrics.update_explain_duration(time.perf_counter() - t0)
-    return ExplainResult(counts_np, N)
+    if retain_planes:
+        planes_np[rows] = reasons.cpu().numpy()
+    elapsed = time.perf_counter() - t0
+    last_run_ms = elapsed * 1e3
+    metrics.update_explain_duration(elapsed)
+    return ExplainResult(counts_np, N, planes_np)
 
 
 def task_exactly_encoded(snap: PackedSnapshot, i: int) -> bool:
@@ -150,6 +185,13 @@ def task_exactly_encoded(snap: PackedSnapshot, i: int) -> bool:
         # back to the session-level flag
         return not snap.needs_host_validation
     return not bool(needs_host[i])
+
+
+def explain_enabled() -> bool:
+    """Process-wide default for device-derived explanations (the
+    ``VTPU_NO_EXPLAIN`` escape hatch; actions may override it per
+    instance)."""
+    return not os.environ.get("VTPU_NO_EXPLAIN")
 
 
 def session_explain_compatible(ssn) -> bool:
@@ -187,7 +229,7 @@ def synthesize_no_victim_explanations(
     The pack is fresh (the action packs, dispatches, and lands here
     before any Statement mutation), so the counts reflect the live
     session state."""
-    if not session_explain_compatible(ssn):
+    if not explain_enabled() or not session_explain_compatible(ssn):
         return 0
     base = pk.base
     if base.n_nodes == 0 or base.n_tasks == 0:
@@ -215,3 +257,23 @@ def synthesize_no_victim_explanations(
             "explain-no-victim", "action", tasks=explained,
         )
     return explained
+
+
+# ---- last-cycle explanation (the /explain debug surface) ----
+
+_last_lock = threading.Lock()
+_last: Optional[Dict[str, Any]] = None  # guarded-by: _last_lock
+
+
+def set_last_explain(info: Optional[Dict[str, Any]]) -> None:
+    """Park the most recent cycle's explanation summary: read by the
+    scheduler's ``GET /explain`` endpoint.  Written by the cycle loop,
+    read from serving threads — hence the lock."""
+    global _last
+    with _last_lock:
+        _last = info
+
+
+def last_explain() -> Optional[Dict[str, Any]]:
+    with _last_lock:
+        return _last

@@ -41,6 +41,7 @@ from typing import Callable, List, Optional
 from volcano_tpu_torch import actions as _actions  # noqa: F401 — registers actions
 from volcano_tpu_torch import metrics
 from volcano_tpu_torch import plugins as _plugins  # noqa: F401 — registers plugin builders
+from volcano_tpu_torch import trace
 from volcano_tpu_torch.cache.interface import Cache
 from volcano_tpu_torch.conf import (
     default_scheduler_conf,
@@ -98,6 +99,8 @@ class Scheduler:
         #: cycles run, and the cumulative wall time spent opening sessions
         #: (snapshot + plugin on_session_open) with its count
         self.full_cycles_run = 0
+        #: the cycle correlation id's sequence (trace.current_cycle)
+        self._cycle_seq = 0
         self.session_open_seconds = 0.0
         self.sessions_opened = 0
         #: host-clock seconds of the last cycle's steps: open_s, each
@@ -154,6 +157,8 @@ class Scheduler:
         actions, close the session (also when an action raises, whose
         exception then propagates)."""
         watchdog.begin_cycle()  # stamp the cycle-deadline budget
+        self._cycle_seq += 1
+        trace.set_current_cycle(self._cycle_seq)
         start = time.perf_counter()
         ssn = None
         self.last_cycle = record = {"actions_s": {}}
