@@ -98,7 +98,20 @@ Phases, each of which fails the run:
      SIGKILLed and a 10k x 1k cycle on the in-process kernel with its
      digest, exactly one fallback counted and /healthz degraded; a
      ``{"sidecar": ...}`` line with the frames' bytes and round trips;
-  8. failures — the fault plane drives the breakers on the card: an
+  8. replay (``phase_replay``) — the trace recorder on: LOOP_A's 6
+     cycles, LOOP_C's preempting cycle and LOOP_B's 5 churn cycles with
+     ``trace.enable(dir, snapshot_every=1)``, each cycle with its digest
+     and a journal record holding a bind decision per bind and the
+     loop's, the framework's, gpu-allocate's and the dispatcher's spans
+     and events; every captured cycle replayed through the session
+     kernel (``trace.verify(..., executor="cuda")``) with zero diff and
+     kernel launches, the churn cycles and one 50k x 10k cycle through
+     the native host baseline with zero diff; ``/trace/last`` serving
+     the last recorded cycle; ``python -m volcano_tpu_torch.cmd.trace
+     replay`` exiting 0 in a child; the recorder's cost on interleaved
+     warm 50k x 10k cycles (off, events only, capture every cycle),
+     printed; a ``{"replay": ...}`` line;
+  9. failures — the fault plane drives the breakers on the card: an
      injected lowering failure or corrupt output raises ``ExecutorFailed``
      and is counted, three open the breaker, the fourth call is refused
      without a launch, the same for preempt-cuda; nothing runs in the
@@ -2742,6 +2755,306 @@ def phase_sidecar(card: str, loop_recs: Optional[dict] = None) -> dict:
     return out
 
 
+class Stopwatch:
+    """Wall time of an object's method, each call, by wrapping it on the
+    instance: ``Stopwatch(journal, "write_cycle").ms`` lists one entry a
+    call."""
+
+    def __init__(self, obj, method: str):
+        self.ms = []
+        orig = getattr(obj, method)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                self.ms.append((time.perf_counter() - t0) * 1e3)
+
+        setattr(obj, method, timed)
+
+    def take(self) -> list:
+        out, self.ms = self.ms, []
+        return out
+
+
+#: the loop cells phase_replay records with the recorder on, the cycles
+#: it replays through ``native`` (the churn cell's every cycle, one
+#: cycle of the 50k x 10k cell), and the warm cycles a recorder mode
+#: gets in the interleaved cost run of LOOP_A
+REPLAY_CELLS = (LOOP_A, LOOP_C, LOOP_B)
+REPLAY_NATIVE = {LOOP_A: (5,), LOOP_B: (0, 1, 2, 3, 4)}
+RECORDER_COST_ORDER = ("off", "events", "capture", "events", "capture", "off",
+                       "capture", "off", "events", "off", "events", "capture")
+
+
+def recorded_loop(name: str, journal_dir: str) -> dict:
+    """A loop cell's cycles with the recorder on, capturing every cycle
+    (``trace.enable(journal_dir, snapshot_every=1)``).  Every cycle:
+    the digest phase_loop holds it to, the session kernel launched with
+    executor ``cuda`` (3 launches a 50k x 10k revert cycle), no kernel
+    failure; its journal record holds one ``bind`` decision a bind (the
+    bound nodes the binds' nodes), no ``n_dropped``, and the spans and
+    events the loop, the framework, gpu-allocate and the dispatcher
+    emit (``dispatch:allocate`` naming ``cuda``; ``dispatch:preempt``
+    naming ``cuda`` once in the preempting cycle).  The journal's write
+    (inside ``end_cycle``, after ``run_once``'s time is stamped) and the
+    npz capture (inside gpu-allocate) are timed apart."""
+    import torch
+
+    from volcano_tpu_torch import trace
+    from volcano_tpu_torch.framework import get_action
+    from volcano_tpu_torch.ops import preempt_kernel, session_kernel
+    from volcano_tpu_torch.ops.executor import last_allocate_executor
+
+    spec = LOOP_CELLS[name]
+    objects = loop_objects(spec["config"])
+    rec = trace.enable(journal_dir, snapshot_every=1)
+    writes = Stopwatch(rec.journal, "write_cycle")
+    captures = Stopwatch(rec.journal, "write_snapshot")
+    cycles = []
+    try:
+        loop = loop_cycles(objects, spec["tiers"], spec["actions"], spec["cycles"],
+                           spec["between"])
+        while True:
+            failures = kernel_failures()
+            torch.cuda.synchronize()
+            session_kernel.LAUNCHES = session_kernel.WIDE_LAUNCHES = 0
+            preempt_kernel.LAUNCHES = 0
+            out = next(loop, None)
+            if out is None:
+                break
+            launches = session_kernel.LAUNCHES + session_kernel.WIDE_LAUNCHES
+            k = out["cycle"]
+            what = f"{name} recorded cycle {k}"
+            record = rec.last_cycle()
+            check(last_allocate_executor() == "cuda",
+                  f"{what}: executor {last_allocate_executor()!r}, expected 'cuda'")
+            check(launches == 3 if name == LOOP_A else launches > 0,
+                  f"{what}: {launches} session-kernel launches")
+            check(kernel_failures() == failures, f"{what}: kernel failures counted")
+            if spec["between"] is None:
+                digest = preempt_cycle_digest(out["evicted"], out["pipelined"])
+                want = PREEMPT_CYCLE_DIGESTS[spec["config"]]
+                preempts = [e for e in record["events"] if e["name"] == "dispatch:preempt"]
+                check(len(preempts) == 1 and preempts[0]["args"]["executor"] == "cuda"
+                      and preempt_kernel.LAUNCHES == 1 and
+                      get_action("gpu-preempt").last_executor == "cuda",
+                      f"{what}: dispatch:preempt {preempts}, "
+                      f"{preempt_kernel.LAUNCHES} preempt launches")
+            else:
+                digest = cycle_digest(out["binds"])
+                want = (CYCLE_DIGESTS[spec["config"]] if spec["between"] == "revert"
+                        else LOOP_DIGESTS[name][k])
+            check(digest == want, f"{what}: digest {digest} != the JAX package's {want}")
+            check(record is not None and record["cycle"] == k and "n_dropped" not in record,
+                  f"{what}: record {None if record is None else record.get('cycle')}, "
+                  f"{(record or {}).get('n_dropped')} dropped")
+            binds = [d for d in record["decisions"] if d["kind"] == "bind"]
+            check(len(binds) == len(out["binds"]) and sorted(d["node"] for d in binds)
+                  == sorted(host for _, host in out["binds"]),
+                  f"{what}: {len(binds)} bind decisions for {len(out['binds'])} binds")
+            names = {e["name"] for e in record["events"]}
+            missing = {"dispatch:allocate", "kernel:execute", "kernel:pack", "open_session",
+                       "close_session", "action:gpu-allocate", "snapshot-capture"} - names
+            check(not missing, f"{what}: the record lacks {sorted(missing)}")
+            dispatched = {e["args"]["executor"] for e in record["events"]
+                          if e["name"] == "dispatch:allocate"}
+            check(dispatched == {"cuda"}, f"{what}: dispatch:allocate named {dispatched}")
+            write_ms, capture_ms = writes.take(), captures.take()
+            check(len(write_ms) == 1 and len(capture_ms) == 1,
+                  f"{what}: {len(write_ms)} journal writes, {len(capture_ms)} captures")
+            cycles.append(dict(cycle=k, binds=len(out["binds"]), launches=launches,
+                               run_once_ms=out["e2e_s"] * 1e3, events=len(record["events"]),
+                               decisions=len(record["decisions"]),
+                               journal_write_ms=write_ms[0], capture_ms=capture_ms[0]))
+    finally:
+        trace.disable()
+    # the recorder goes back for /trace/last: its last cycle stays readable
+    return dict(cell=name, pods=len(objects[1]), nodes=len(objects[0]), cycles=cycles,
+                recorder=rec)
+
+
+def replay_cycles(journal_dir: str, cycles, executor: str) -> list:
+    """``trace.verify`` of each captured cycle through ``executor``: a
+    match, and for ``cuda`` the session kernel launched inside the
+    replay.  The npz load (``Journal.read_snapshot``) is timed apart
+    from the run."""
+    import torch
+
+    from volcano_tpu_torch import trace
+    from volcano_tpu_torch.ops import session_kernel
+
+    journal = trace.Journal(journal_dir)
+    loads = Stopwatch(journal, "read_snapshot")
+    out = []
+    for c in cycles:
+        torch.cuda.synchronize()
+        session_kernel.LAUNCHES = session_kernel.WIDE_LAUNCHES = 0
+        t0 = time.perf_counter()
+        result = trace.verify(journal, cycle=c, executor=executor)
+        total_ms = (time.perf_counter() - t0) * 1e3
+        launches = session_kernel.LAUNCHES + session_kernel.WIDE_LAUNCHES
+        (load_ms,) = loads.take()
+        what = f"{journal_dir} cycle {c} through {executor}"
+        check(result.match, f"{what}: {result.summary()} {result.diffs[:5]}")
+        check(result.recorded_executor == "cuda",
+              f"{what}: recorded executor {result.recorded_executor!r}")
+        check((launches > 0) == (executor == "cuda"), f"{what}: {launches} kernel launches")
+        out.append(dict(cycle=c, executor=executor, tasks=result.n_tasks,
+                        placed=result.n_placed_replayed, launches=launches, load_ms=load_ms,
+                        run_ms=total_ms - load_ms))
+    return out
+
+
+def recorder_cost(card: str) -> dict:
+    """The recorder's cost on LOOP_A's warm cycles, interleaved in one
+    run: after a cold cycle with the recorder off, the warm cycles take
+    RECORDER_COST_ORDER's modes in turn — off (the null recorder),
+    events (a journal, ``snapshot_every=0``) and capture (every cycle
+    captured).  Per mode the median ``run_once_ms`` and collector ms
+    inside ``run_once`` (``GcClock``), and the journal write and npz
+    capture ms.  Printed, not gated; every cycle's digest still
+    checked."""
+    import shutil
+    import tempfile
+
+    from volcano_tpu_torch import trace
+
+    spec = LOOP_CELLS[LOOP_A]
+    objects = loop_objects(spec["config"])
+    root = tempfile.mkdtemp(prefix="vtpu-cost-")
+    modes = ("off",) + RECORDER_COST_ORDER
+    by_mode = {m: dict(run_once_ms=[], gc_ms=[], journal_write_ms=[], capture_ms=[])
+               for m in ("off", "events", "capture")}
+    try:
+        with GcClock() as gc_clock:
+            loop = loop_cycles(objects, spec["tiers"], spec["actions"], len(modes),
+                               spec["between"], cycle_window=gc_clock.cycle)
+            for k, mode in enumerate(modes):
+                watches = ()
+                if mode == "off":
+                    trace.disable()
+                else:
+                    rec = trace.enable(f"{root}/{mode}",
+                                       snapshot_every=1 if mode == "capture" else 0)
+                    watches = (Stopwatch(rec.journal, "write_cycle"),
+                               Stopwatch(rec.journal, "write_snapshot"))
+                gc_clock.take()
+                out = next(loop)
+                gc_ms = gc_clock.take()["gc_ms"]
+                digest = cycle_digest(out["binds"])
+                check(digest == CYCLE_DIGESTS[spec["config"]],
+                      f"recorder cost cycle {k} ({mode}): digest {digest}")
+                if k == 0:
+                    continue  # the cold cycle
+                m = by_mode[mode]
+                m["run_once_ms"].append(out["e2e_s"] * 1e3)
+                m["gc_ms"].append(gc_ms)
+                if watches:
+                    m["journal_write_ms"] += watches[0].ms
+                    m["capture_ms"] += watches[1].ms
+    finally:
+        trace.disable()
+        shutil.rmtree(root, ignore_errors=True)
+    med = {m: {key + "_median": (statistics.median(v) if v else None)
+               for key, v in vals.items()} for m, vals in by_mode.items()}
+    off = med["off"]["run_once_ms_median"]
+    return dict(cell=LOOP_A, order=list(modes), card=card, samples=by_mode, medians=med,
+                events_overhead=med["events"]["run_once_ms_median"] / off - 1,
+                capture_overhead=med["capture"]["run_once_ms_median"] / off - 1)
+
+
+def phase_replay(card: str) -> dict:
+    """The trace recorder, the cycle journal and replay on the card.
+      * LOOP_A's 6 cycles, LOOP_C's preempting cycle and LOOP_B's 5
+        churn cycles run with ``trace.enable(dir, snapshot_every=1)``
+        (``recorded_loop``: each cycle's JAX digest, executor ``cuda``,
+        its journal record complete);
+      * every captured cycle replays through
+        ``trace.verify(dir, cycle=c, executor="cuda")``: a match, with
+        the session kernel launched inside each replay (the snapshot's
+        full put, as a sidecar child takes it);
+      * REPLAY_NATIVE's cycles replay through ``native``, the C++ host
+        baseline on this machine's CPU: a match;
+      * a ``ServingServer`` with the debug gate open serves the last
+        recorded cycle of the process-global recorder at
+        ``/trace/last``: its Chrome JSON, ``X`` spans and the decisions
+        track;
+      * ``python -m volcano_tpu_torch.cmd.trace replay --dir D
+        --executor cuda`` exits 0 in a child process;
+      * the recorder's cost (``recorder_cost``), printed, not gated.
+    One ``{"replay": ...}`` line."""
+    import os
+    import shutil
+    import tempfile
+
+    from volcano_tpu_torch import trace
+    from volcano_tpu_torch.serving.http import ServingServer
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="vtpu-journal-")
+    recorded, replays, native = {}, {}, {}
+    try:
+        for name in REPLAY_CELLS:
+            recorded[name] = recorded_loop(name, os.path.join(root, name))
+        for name in REPLAY_CELLS:
+            d = os.path.join(root, name)
+            caps = trace.Journal(d).snapshot_cycles()
+            check(caps == [c["cycle"] for c in recorded[name]["cycles"]],
+                  f"{name}: captured cycles {caps}")
+            replays[name] = replay_cycles(d, caps, "cuda")
+            if name in REPLAY_NATIVE:
+                native[name] = replay_cycles(d, REPLAY_NATIVE[name], "native")
+
+        rec = recorded[LOOP_B].pop("recorder")
+        trace.set_recorder(rec)
+        server = ServingServer(port=0, debug_enabled=True).start()
+        try:
+            status, body = http_get(server.port, "/trace/last")
+        finally:
+            server.stop()
+            trace.disable()
+        check(status == 200, f"/trace/last answered {status}")
+        served = json.loads(body)
+        want = json.loads(json.dumps(trace.chrome_trace(rec.last_cycle())))
+        events = served.get("traceEvents", [])
+        check(served == want and served["metadata"]["cycle"] == rec.last_cycle()["cycle"]
+              and any(e["ph"] == "X" and e["name"] == "action:gpu-allocate" for e in events)
+              and sum(e["cat"] == "decision" and e["tid"] == 0 for e in events)
+              == recorded[LOOP_B]["cycles"][-1]["decisions"],
+              f"/trace/last served cycle {served.get('metadata')}, not the last recorded")
+
+        t0 = time.perf_counter()
+        here = os.path.dirname(os.path.abspath(__file__))
+        proc = subprocess.run(
+            [sys.executable, "-m", "volcano_tpu_torch.cmd.trace", "replay", "--dir",
+             os.path.join(root, LOOP_B), "--executor", "cuda"],
+            cwd=here, env=dict(os.environ, PYTHONPATH=here), capture_output=True, text=True,
+            timeout=300)
+        cmd_s = time.perf_counter() - t0
+        check(proc.returncode == 0 and "IDENTICAL" in proc.stdout,
+              f"cmd.trace replay exited {proc.returncode}: {proc.stdout} {proc.stderr[-2000:]}")
+    finally:
+        trace.disable()
+        shutil.rmtree(root, ignore_errors=True)
+    for cell in recorded.values():
+        cell.pop("recorder", None)
+    cost = recorder_cost(card)
+    out = dict(recorded=recorded, replays=replays, native=native, cost=cost,
+               trace_last_bytes=len(body), cmd_trace_s=cmd_s, cmd_trace=proc.stdout.strip(),
+               phase_ms=(time.perf_counter() - t_phase) * 1e3, card=card)
+    print(f"replay: {sum(len(v) for v in replays.values())} captured cycles replayed through "
+          f"the session kernel with zero diff, run ms "
+          f"{[round(r['run_ms'], 3) for v in replays.values() for r in v]}, load ms "
+          f"{[round(r['load_ms'], 3) for v in replays.values() for r in v]}; native run ms "
+          f"{ {k: [round(r['run_ms'], 3) for r in v] for k, v in native.items()} }; "
+          f"recorder cost on warm {LOOP_A} run_once: events {cost['events_overhead']:+.3%}, "
+          f"capture {cost['capture_overhead']:+.3%}; card {card}")
+    print(json.dumps({"replay": out}))
+    return out
+
+
 def kernel_failures() -> float:
     """Every failed or refused kernel call counted in this process."""
     from volcano_tpu_torch import metrics
@@ -2868,6 +3181,7 @@ def main() -> int:
     phase_preempt_cycle(PREEMPT_CYCLE_SECOND, card)
     loop_recs = {cell: phase_loop(cell, card) for cell in LOOP_CELLS}
     sidecar_rec = phase_sidecar(card, loop_recs)
+    replay_rec = phase_replay(card)
     from volcano_tpu_torch import faults
 
     check(kernel_failures() == 0 and not faults.degraded_reasons(),
@@ -2897,6 +3211,7 @@ def main() -> int:
             "cycle_launches": cycle_rec["launches_per_cycle"],
             "loop_launches": loop_recs[LOOP_A]["cycles"][-1]["launches"],
             "sidecar_launches": sidecar_rec["cycles"][-1]["child_launches"],
+            "replay_launches": replay_rec["replays"][LOOP_A][-1]["launches"],
             "library_ms": None,
         },
         {

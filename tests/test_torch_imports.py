@@ -217,3 +217,26 @@ def test_serving_module_imports_first_without_jax(module):
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == f"imported {module}"
+
+
+
+CHILD_TRACE_FIRST = CHILD_FIRST.replace(
+    'print("imported", sys.argv[1])',
+    'assert "volcano_tpu_torch.framework" not in sys.modules\n'
+    'print("imported", sys.argv[1])')
+
+
+@pytest.mark.parametrize("module", ["volcano_tpu_torch.trace", "volcano_tpu_torch.trace.replay",
+                                    "volcano_tpu_torch.native",
+                                    "volcano_tpu_torch.cmd.trace"])
+def test_trace_module_imports_first_without_jax(module):
+    """The trace package, the native rung and the trace entry point each
+    import first in a fresh interpreter with ``jax`` blocked and
+    ``volcano_tpu`` refused, and none of them pulls in the framework
+    (the framework imports ``trace``; the reverse would be a cycle)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD_TRACE_FIRST, module], cwd=ROOT, capture_output=True,
+        text=True, timeout=120, env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1"),
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == f"imported {module}"

@@ -3,8 +3,8 @@
 ``serving/http.ServingServer``: /healthz (ok, 503 from ``health_check``,
 "degraded: …" while a breaker is open), the /metrics scrape after a
 scheduler cycle, /debug/stacks and the loopback/``debug_enabled`` gate
-of the forensics endpoints, /trace/last answering 404 (the port records
-no cycle trace) — ``tests/test_serving.py``'s surface without leader
+of the forensics endpoints, /trace/last answering 404 with tracing off
+(the recorded cycle: ``tests/test_torch_trace.py``) — ``tests/test_serving.py``'s surface without leader
 election.  ``metrics.Registry.render()`` prints the JAX package's text
 for the same calls.  After the same cycle on ``tests/test_explain.py``'s
 sessions, ``explain_jobs`` and the /explain JSON are the JAX package's,

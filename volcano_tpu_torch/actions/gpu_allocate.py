@@ -53,12 +53,18 @@ Either way nothing is bound and nothing runs in the kernel's place.  A
 staging failure raises too (the reference logs it and runs on the numpy
 planes).
 
+Tracing: with a live recorder (``volcano_tpu_torch.trace``) whose
+sampling knob says so, the packed session, the kernel's assignment and
+the kernel parameters are captured into the journal for replay
+(``trace.replay.verify``), labelled with the executor that ran; each
+explained cycle emits an ``explain-summary`` event, and an expired
+deadline a ``watchdog:device-phase-abandoned`` event before it raises.
+
 Not present in the port yet: the reference's host-chooser route under an
-expired deadline, and the trace journal's capture of the packed session.
-With a compute-plane sidecar configured (ops/executor.py) the planes are
-still staged and prestaged on this process's device, as in the
-reference, so a session that falls back to the in-process kernel finds
-them resident.
+expired deadline.  With a compute-plane sidecar configured
+(ops/executor.py) the planes are still staged and prestaged on this
+process's device, as in the reference, so a session that falls back to
+the in-process kernel finds them resident.
 """
 
 from __future__ import annotations
@@ -82,6 +88,7 @@ from volcano_tpu_torch.actions.allocate import (
 from volcano_tpu_torch.actions.fast_apply import try_fast_apply
 from volcano_tpu_torch.actions.fast_order import try_compute_task_order
 from volcano_tpu_torch.api import FitError, TaskInfo, TaskStatus
+from volcano_tpu_torch.faults.watchdog import CycleDeadlineExceeded
 from volcano_tpu_torch.framework.interface import Action
 from volcano_tpu_torch.framework.session import Session
 from volcano_tpu_torch.ops import session_kernel
@@ -100,7 +107,7 @@ from volcano_tpu_torch.ops.explain import (
     set_last_explain,
     task_exactly_encoded,
 )
-from volcano_tpu_torch.ops.kernels import resolve_device
+from volcano_tpu_torch.ops.kernels import DEFAULT_WEIGHTS, resolve_device
 from volcano_tpu_torch.ops.packing import pack_session
 
 
@@ -343,7 +350,15 @@ class GpuAllocateAction(Action):
         # ExecutorFailed and CycleDeadlineExceeded leave execute() here,
         # before anything session-side has mutated; explain=True brings
         # the reason counts of the unplaced rows back with the assignment
-        assignment = execute_allocate(snap, device=self.device, explain=self.explain)
+        try:
+            assignment = execute_allocate(snap, device=self.device, explain=self.explain)
+        except CycleDeadlineExceeded as e:
+            # journaled before the cycle ends with nothing bound
+            rec = ssn._trace
+            if rec.enabled:
+                rec.event("watchdog:device-phase-abandoned", "fault",
+                          error=str(e))
+            raise
         execute_s = time.perf_counter() - t0
         self.last_phase_stats["execute_ms"] = execute_s * 1e3
         metrics.update_kernel_duration("execute", execute_s)
@@ -351,6 +366,21 @@ class GpuAllocateAction(Action):
             sk = session_kernel.last_session_stats
             self.last_phase_stats.update(
                 prepare_ms=sk["prepare_ms"], h2d_bytes=stage_bytes + sk["h2d_bytes"])
+
+        rec = ssn._trace
+        if rec.enabled and rec.should_capture():
+            # sampled journal capture: the packed session + the kernel's
+            # assignment + the kernel parameters, the replayable tuple
+            # trace.replay.verify diffs.  The label is the executor that
+            # produced the assignment ('auto' when the compute-plane
+            # sidecar ran it); the dispatch vocabulary is the replay one.
+            rec.capture(
+                snap,
+                assignment,
+                executor=last_allocate_executor(),
+                weights=DEFAULT_WEIGHTS,
+                gang_rounds=3,
+            )
 
         proposals = {}
         for i, task in enumerate(ordered_tasks):
@@ -411,7 +441,7 @@ class GpuAllocateAction(Action):
                 # also clears: a cycle that explained nothing (all
                 # placed, gate closed, a kernel failure) must not leave
                 # /explain serving a previous cycle's explanation
-                self._publish_explain(explain_ctx)
+                self._publish_explain(ssn, explain_ctx)
 
     def _explain_context(self, ssn, ordered, nodes, snap, assignment
                          ) -> Optional[_ExplainContext]:
@@ -460,14 +490,21 @@ class GpuAllocateAction(Action):
             explain_reduce_ms=reduce_ms, explain_rows=rows)
         return ctx
 
-    def _publish_explain(self, ctx: Optional[_ExplainContext]) -> None:
-        """Per-cycle reason summary → the ``/explain`` surface
-        (``ops/explain.set_last_explain``).  A ``None`` context or an
-        empty explained set CLEARS the surface — it reflects the most
-        recent cycle, never a stale one."""
+    def _publish_explain(self, ssn: Session, ctx: Optional[_ExplainContext]) -> None:
+        """Per-cycle reason summary → trace journal + the ``/explain``
+        surface (``ops/explain.set_last_explain``).  A ``None`` context
+        or an empty explained set CLEARS the surface — it reflects the
+        most recent cycle, never a stale one."""
         if ctx is None or not ctx.explained:
             set_last_explain(None)
             return
+        summary = ctx.summary()
+        rec = ssn._trace
+        if rec.enabled:
+            rec.event(
+                "explain-summary", "action",
+                tasks=len(ctx.explained), reasons=summary,
+            )
         tasks = {}
         for uid, hist in ctx.explained.items():
             nodes = ctx.node_reasons(uid)
@@ -476,7 +513,7 @@ class GpuAllocateAction(Action):
             "cycle": trace.current_cycle(),
             "n_nodes": ctx.n_nodes,
             "tasks": tasks,
-            "summary": ctx.summary(),
+            "summary": summary,
         })
 
     def _apply(self, ssn, ordered, proposals, snap, explain_ctx) -> str:

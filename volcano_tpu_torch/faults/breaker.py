@@ -28,7 +28,7 @@ import threading
 import time
 from typing import Dict, List
 
-from volcano_tpu_torch import metrics
+from volcano_tpu_torch import metrics, trace
 
 CLOSED = "closed"
 OPEN = "open"
@@ -104,10 +104,16 @@ class CircuitBreaker:
 
     def _transition(self, state: str) -> None:
         # requires-lock: self._lock
-        self._state = state
+        prev, self._state = self._state, state
         if state == OPEN:
             self._failures = 0
         metrics.update_circuit_breaker_state(self.name, _STATE_GAUGE[state])
+        rec = trace.get_recorder()
+        if rec.enabled:
+            rec.event(
+                f"breaker:{self.name}:{state}", "fault",
+                prev=prev, error=self._last_error,
+            )
 
     # ---- observability ----
 

@@ -40,7 +40,7 @@ import threading
 import zlib
 from typing import Dict, List, Optional
 
-from volcano_tpu_torch import metrics
+from volcano_tpu_torch import metrics, trace
 
 
 class FaultRule:
@@ -236,6 +236,9 @@ class FaultPlane:
                 n = st.fires
         if fire:
             metrics.register_fault_injected(point)
+            rec = trace.get_recorder()
+            if rec.enabled:
+                rec.event("fault:" + point, "fault", n=n)
         return fire
 
     def param_ms(self, point: str) -> float:

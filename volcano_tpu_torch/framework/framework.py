@@ -14,7 +14,7 @@ from __future__ import annotations
 import time
 from typing import TYPE_CHECKING, List
 
-from volcano_tpu_torch import metrics
+from volcano_tpu_torch import metrics, trace
 from volcano_tpu_torch.apis import scheduling
 from volcano_tpu_torch.cache.interface import Cache
 from volcano_tpu_torch.framework.arguments import Arguments
@@ -33,6 +33,8 @@ def open_session(
     cache: Cache, tiers: List[Tier], configurations: List[Configuration],
 ) -> Session:
     """framework.go:30-53 + session.go openSession:72-139."""
+    rec = trace.get_recorder()
+    open_start = time.perf_counter()
     ssn = Session(cache)
     ssn.tiers = tiers
     ssn.configurations = configurations
@@ -80,7 +82,12 @@ def open_session(
     for plugin in ssn.plugins.values():
         start = time.perf_counter()
         plugin.on_session_open(ssn)
-        metrics.update_plugin_duration(plugin.name(), time.perf_counter() - start)
+        plugin_s = time.perf_counter() - start
+        metrics.update_plugin_duration(plugin.name(), plugin_s)
+        if rec.enabled:
+            rec.complete(
+                f"plugin:{plugin.name()}.open", "plugin", start, plugin_s
+            )
 
     for job in list(ssn.jobs.values()):
         vr = ssn.job_valid(job)
@@ -102,6 +109,16 @@ def open_session(
                 )
             del ssn.jobs[job.uid]
 
+    if rec.enabled:
+        rec.complete(
+            "open_session",
+            "framework",
+            open_start,
+            time.perf_counter() - open_start,
+            jobs=len(ssn.jobs),
+            nodes=len(ssn.nodes),
+            queues=len(ssn.queues),
+        )
     log.debug(
         "Open session %s with %d jobs and %d queues",
         ssn.uid,
@@ -113,10 +130,17 @@ def open_session(
 
 def close_session(ssn: Session) -> None:
     """framework.go:56-66 + session.go closeSession:141-155."""
+    rec = trace.get_recorder()
+    close_start = time.perf_counter()
     for plugin in ssn.plugins.values():
         start = time.perf_counter()
         plugin.on_session_close(ssn)
-        metrics.update_plugin_duration(plugin.name(), time.perf_counter() - start)
+        plugin_s = time.perf_counter() - start
+        metrics.update_plugin_duration(plugin.name(), plugin_s)
+        if rec.enabled:
+            rec.complete(
+                f"plugin:{plugin.name()}.close", "plugin", start, plugin_s
+            )
 
     JobUpdater(ssn).update_all()
 
@@ -126,6 +150,12 @@ def close_session(ssn: Session) -> None:
     release = getattr(ssn.cache, "release_session_clones", None)
     if release is not None:
         release(ssn.clone_gen, ssn.touched_jobs, ssn.touched_nodes)
+
+    if rec.enabled:
+        rec.complete(
+            "close_session", "framework", close_start,
+            time.perf_counter() - close_start,
+        )
 
     ssn.jobs = {}
     ssn.nodes = {}

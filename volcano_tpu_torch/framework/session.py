@@ -1,8 +1,6 @@
 """Session — per-cycle facade over the snapshot plus plugin callback registries.
 
-A copy of ``volcano_tpu/framework/session.py``.  The session carries a
-null trace recorder: the decision journal's hooks stay in place and cost
-one attribute read each.
+A copy of ``volcano_tpu/framework/session.py``.
 
 Reference: pkg/scheduler/framework/session.go (struct + mutating ops) and
 session_plugins.go (tiered dispatch).  Dispatch semantics preserved exactly:
@@ -17,10 +15,10 @@ session_plugins.go (tiered dispatch).  Dispatch semantics preserved exactly:
 
 from __future__ import annotations
 
-import contextlib
 import uuid
 from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Tuple
 
+from volcano_tpu_torch import trace
 from volcano_tpu_torch.api import (
     JobInfo,
     NodeInfo,
@@ -42,27 +40,6 @@ if TYPE_CHECKING:  # the policy types import the framework package
 log = get_logger(__name__)
 
 
-class NullRecorder:
-    """The trace recorder of a session that records nothing: every
-    hook is guarded by ``enabled`` and every method is a no-op."""
-
-    enabled = False
-
-    def span(self, *args, **kwargs):
-        return contextlib.nullcontext()
-
-    def event(self, *args, **kwargs) -> None:
-        pass
-
-    def decision(self, *args, **kwargs) -> None:
-        pass
-
-    def complete(self, *args, **kwargs) -> None:
-        pass
-
-
-NULL_RECORDER = NullRecorder()
-
 CompareFn = Callable[[object, object], int]
 PredicateFn = Callable[[TaskInfo, NodeInfo], None]  # raises FitError to veto
 NodeOrderFn = Callable[[TaskInfo, NodeInfo], float]
@@ -78,10 +55,11 @@ class Session:
     def __init__(self, cache: Cache):
         self.uid: str = str(uuid.uuid4())
         self.cache = cache
-        #: trace recorder — the decision audit trail (bind/pipeline/evict
-        #: tuples) for this cycle; the null recorder, so the emit guards
-        #: cost one attribute access per placement.
-        self._trace = NULL_RECORDER
+        #: trace recorder pinned at open — the decision audit trail
+        #: (bind/pipeline/evict tuples) for this cycle.  NullRecorder
+        #: when tracing is off, so the emit guards cost one attribute
+        #: access per placement.
+        self._trace = trace.get_recorder()
 
         self.pod_group_status: Dict[str, scheduling.PodGroupStatus] = {}
         #: pod-group PHASE of every job at session open — the attempts

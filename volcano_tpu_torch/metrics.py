@@ -31,7 +31,10 @@ from __future__ import annotations
 import bisect
 import threading
 from collections import defaultdict
+import time
 from typing import Dict, List, Optional, Tuple
+
+from volcano_tpu_torch import trace
 
 _NAMESPACE = "volcano"
 
@@ -177,9 +180,16 @@ def register_fault_injected(point: str) -> None:
 
 
 def update_kernel_duration(phase: str, seconds: float) -> None:
-    """phase ∈ {pack, execute} of gpu-allocate's KERNEL phase."""
+    """phase ∈ {pack, execute} of gpu-allocate's KERNEL phase.  The same
+    timing feeds the trace recorder's timeline when a cycle is being
+    recorded — one measurement, two sinks."""
     registry.observe(f"{_NAMESPACE}_tpu_kernel_latency_milliseconds",
                      {"phase": phase}, seconds * 1e3)
+    rec = trace.get_recorder()
+    if rec.enabled:
+        rec.complete(
+            f"kernel:{phase}", "kernel", time.perf_counter() - seconds, seconds
+        )
 
 
 def update_action_duration(action_name: str, seconds: float) -> None:

@@ -61,27 +61,50 @@ def find_nvcc() -> str:
     return found
 
 
-def library_path() -> str:
-    """Where the library lives for the current sources, headers and flags."""
+def keyed_library(stem: str, files, flags, build_dir: str) -> str:
+    """``<build_dir>/<stem>_<hash>.so``, the hash taken over each file's
+    name and bytes and over the flags: an edit to any of them names a new
+    library, and an unchanged tree names the one already built."""
     h = hashlib.sha256()
-    for fn in (*sources(), *sources(".cuh")):
-        with open(os.path.join(CSRC, fn), "rb") as f:
-            h.update(fn.encode() + b"\0" + f.read())
-    h.update("\0".join((*NVCC_FLAGS, *LINK_FLAGS)).encode())
-    return os.path.join(BUILD_DIR, f"libvtkernels_{h.hexdigest()[:16]}.so")
+    for path in files:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    h.update("\0".join(flags).encode())
+    return os.path.join(build_dir, f"{stem}_{h.hexdigest()[:16]}.so")
 
 
-def build() -> str:
-    """Build the library unless it is built already; return its path.
-    Raises RuntimeError with nvcc's output when the build fails."""
-    global BUILD_LOG
-    path = library_path()
+def build_once(path: str, make) -> str:
+    """Return ``path``, first calling ``make(tmp)`` unless it exists.
+    ``make`` writes the library to the private temporary ``tmp`` or
+    raises; ``tmp`` is renamed into place, so a concurrent loader never
+    maps a half-written library, and removed on failure."""
     if os.path.exists(path):
         return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    # build into private temporaries and rename the library into place, so
-    # a concurrent loader never maps a half-written library
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        make(tmp)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return path
+
+
+def library_path() -> str:
+    """Where the library lives for the current sources, headers and flags."""
+    return keyed_library(
+        "libvtkernels",
+        [os.path.join(CSRC, fn) for fn in (*sources(), *sources(".cuh"))],
+        (*NVCC_FLAGS, *LINK_FLAGS),
+        BUILD_DIR,
+    )
+
+
+def _nvcc(out: str) -> None:
+    """Compile every source in its own nvcc, all at once, and link the
+    objects into ``out``.  Raises RuntimeError with nvcc's output."""
+    global BUILD_LOG
     objs = [os.path.join(BUILD_DIR, f"{fn}.{os.getpid()}.o") for fn in sources()]
     nvcc = find_nvcc()
     t0 = time.monotonic()
@@ -96,7 +119,7 @@ def build() -> str:
         logs = [proc.communicate()[0] for proc in procs]
         failed = [code for code in (proc.returncode for proc in procs) if code != 0]
         if not failed:
-            link = subprocess.run([nvcc, *LINK_FLAGS, "-o", tmp, *objs],
+            link = subprocess.run([nvcc, *LINK_FLAGS, "-o", out, *objs],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             logs.append(link.stdout)
             if link.returncode != 0:
@@ -104,12 +127,16 @@ def build() -> str:
         BUILD_LOG = (time.monotonic() - t0, "".join(logs))
         if failed:
             raise RuntimeError(f"nvcc failed (exit {failed[0]}):\n{BUILD_LOG[1]}")
-        os.replace(tmp, path)
     finally:
-        for f in (tmp, *objs):
+        for f in objs:
             if os.path.exists(f):
                 os.remove(f)
-    return path
+
+
+def build() -> str:
+    """Build the library unless it is built already; return its path.
+    Raises RuntimeError with nvcc's output when the build fails."""
+    return build_once(library_path(), _nvcc)
 
 
 def load() -> ctypes.CDLL:

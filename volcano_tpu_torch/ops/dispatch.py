@@ -47,7 +47,7 @@ from typing import Callable, Optional, Union
 import numpy as np
 import torch
 
-from volcano_tpu_torch import faults, metrics
+from volcano_tpu_torch import faults, metrics, trace
 from volcano_tpu_torch.faults import watchdog
 from volcano_tpu_torch.ops import preempt_kernel, session_kernel
 from volcano_tpu_torch.ops.kernels import (
@@ -199,6 +199,12 @@ def run_packed_auto(
     global _last_executor
     dev = resolve_device(device)
     executor = _last_executor = select_executor(snap, weights, dev)
+    rec = trace.get_recorder()
+    if rec.enabled:
+        rec.event(
+            "dispatch:allocate", "kernel",
+            executor=executor, tasks=snap.n_tasks, nodes=snap.n_nodes,
+        )
     discard = gang_discard_unstable()
     if executor == "torch-scan":
         return _checked(snap, executor, run_packed(
@@ -271,6 +277,13 @@ def run_preempt_auto(
     global _last_preempt_executor
     dev = resolve_device(device)
     executor = _last_preempt_executor = select_preempt_executor(pk, dev, weights)
+    rec = trace.get_recorder()
+    if rec.enabled:
+        rec.event(
+            "dispatch:preempt", "kernel",
+            executor=executor,
+            tasks=pk.base.n_tasks, victims=pk.n_victims,
+        )
     if executor == "dense":
         evicted, pipelined = preempt_dense(pk, weights=weights, device=dev)
         if not _preempt_valid(pk, evicted, pipelined):

@@ -35,7 +35,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from volcano_tpu_torch import faults, metrics
+from volcano_tpu_torch import faults, metrics, trace
 from volcano_tpu_torch.faults import watchdog
 from volcano_tpu_torch.ops import dispatch
 from volcano_tpu_torch.ops.kernels import DEFAULT_WEIGHTS, ScoreWeights
@@ -184,6 +184,7 @@ def execute_allocate(
     :func:`last_explain_counts`): on the sidecar, against the snapshot
     it holds, in the same round trip; in-process, on ``device``."""
     global _last_route, _last_explain_counts, _last_explain_ms
+    rec = trace.get_recorder()
     weights = weights or DEFAULT_WEIGHTS
     remote = _get_remote()
     # cleared up front: an aborted call must not leave a previous
@@ -197,11 +198,12 @@ def execute_allocate(
         and remote.usable()
     ):
         try:
-            out = watchdog.run_with_deadline(
-                lambda: remote.client.allocate(snap, explain=explain),
-                watchdog.remaining_s(),
-                "remote-allocate",
-            )
+            with rec.span("executor:remote-allocate", "kernel"):
+                out = watchdog.run_with_deadline(
+                    lambda: remote.client.allocate(snap, explain=explain),
+                    watchdog.remaining_s(),
+                    "remote-allocate",
+                )
             _last_route = "remote"
             if explain:
                 # the sidecar sends counts whenever a row went unplaced
@@ -213,10 +215,14 @@ def execute_allocate(
             # in-process route below raises at once on the exhausted
             # budget, counted there as the executor's deadline failure
             remote.mark_unhealthy(str(e))
+            if rec.enabled:
+                rec.event("executor:remote-fallback", "kernel", error=str(e))
             log.error("compute plane allocate overran the cycle deadline")
         except Exception as e:  # noqa: BLE001 — counted, logged, run in-process
             remote.mark_unhealthy(str(e))
             metrics.register_executor_fallback("remote", "local", "error")
+            if rec.enabled:
+                rec.event("executor:remote-fallback", "kernel", error=str(e))
             log.error("compute plane allocate failed (%s); in-process kernel", e)
     _last_route = "local"
     try:
@@ -247,16 +253,20 @@ def execute_preempt(
     no device is named.  The cycle watchdog does not bound this phase,
     as in the reference."""
     global _last_preempt_route
+    rec = trace.get_recorder()
     weights = weights or DEFAULT_WEIGHTS
     remote = _get_remote()
     if remote is not None and weights == DEFAULT_WEIGHTS and remote.usable():
         try:
-            out = remote.client.preempt(pk)
+            with rec.span("executor:remote-preempt", "kernel"):
+                out = remote.client.preempt(pk)
             _last_preempt_route = "remote"
             return out
         except Exception as e:  # noqa: BLE001 — counted, logged, run in-process
             remote.mark_unhealthy(str(e))
             metrics.register_executor_fallback("remote", "local", "error")
+            if rec.enabled:
+                rec.event("executor:remote-fallback", "kernel", error=str(e))
             log.error("compute plane preempt failed (%s); in-process kernel", e)
     _last_preempt_route = "local"
     return dispatch.run_preempt_auto(pk, weights=weights, device=device)

@@ -35,7 +35,7 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from volcano_tpu_torch import metrics
+from volcano_tpu_torch import metrics, trace
 from volcano_tpu_torch.api.unschedule_info import (
     FitErrors,
     NODE_POD_NUMBER_EXCEEDED,
@@ -137,6 +137,13 @@ def run_explain(
     sidecar) and observes its duration into the explain latency
     histogram there."""
     global last_run_ms
+    rec = trace.get_recorder()
+    if rec.enabled:
+        rec.event(
+            "dispatch:explain", "kernel",
+            tasks=snap.n_tasks, nodes=snap.n_nodes,
+            rows=(len(task_rows) if task_rows is not None else snap.n_tasks),
+        )
     dev = resolve_device(device)
     T, N = snap.n_tasks, snap.n_nodes
     rows = (

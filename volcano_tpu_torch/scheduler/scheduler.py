@@ -24,11 +24,17 @@ given.  Unlike the reference, a policy file that is missing or does not
 parse raises out of ``run_once`` instead of switching the cycle to the
 default policy.
 
+Every cycle is a cycle of the trace recorder (``trace.get_recorder()``:
+the shared null recorder unless tracing is enabled), with one
+``action:<name>`` span per action; the record is journaled after the
+cycle's elapsed time is stamped, also for a cycle whose session open
+raised.
+
 Not present in the port yet: the event-driven micro-cycles with their
 debounced wake (``micro_cycles``, ``attach_cache_events``,
 ``run_cycle_window``), which need the cache's change listeners;
-restricted and shadow sessions; and the trace recorder and flight
-recorder spans around the cycle (the session keeps its null recorder).
+restricted and shadow sessions; and the flight recorder's spans around
+the cycle (``volcano_tpu/obs``, which needs the bus).
 """
 
 from __future__ import annotations
@@ -157,8 +163,12 @@ class Scheduler:
         actions, close the session (also when an action raises, whose
         exception then propagates)."""
         watchdog.begin_cycle()  # stamp the cycle-deadline budget
+        rec = trace.get_recorder()
+        cid = rec.begin_cycle()
+        # cycle correlation id: the recorder's cycle id when tracing,
+        # else a local sequence
         self._cycle_seq += 1
-        trace.set_current_cycle(self._cycle_seq)
+        trace.set_current_cycle(cid if cid >= 0 else self._cycle_seq)
         start = time.perf_counter()
         ssn = None
         self.last_cycle = record = {"actions_s": {}}
@@ -177,10 +187,16 @@ class Scheduler:
                 action_s = time.perf_counter() - action_start
                 record["actions_s"][action.name()] = action_s
                 metrics.update_action_duration(action.name(), action_s)
+                if rec.enabled:
+                    rec.complete(
+                        f"action:{action.name()}", "action",
+                        action_start, action_s,
+                    )
         finally:
             try:
                 # ssn is None when open_session itself crashed (a plugin
-                # on_session_open is the likeliest site)
+                # on_session_open is the likeliest site) — that cycle's
+                # spans still get journaled below
                 if ssn is not None:
                     t_close = time.perf_counter()
                     close_session(ssn)
@@ -196,6 +212,12 @@ class Scheduler:
                     if self._cycles_since_quiesce >= self.gc_quiesce_period:
                         self._cycles_since_quiesce = 0
                         gc_quiesce()
+                # journal flush sits outside the e2e latency stamp for
+                # the same reason the gc quiesce does (maintenance I/O),
+                # but in the innermost finally: a cycle that crashes in
+                # session open, an action, OR session close is exactly
+                # the one the forensics journal must not drop
+                rec.end_cycle(duration_s=elapsed)
         metrics.update_e2e_duration(elapsed)
         self.full_cycles_run += 1
         if self.post_cycle is not None:

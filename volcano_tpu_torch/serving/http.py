@@ -16,7 +16,9 @@ server carries:
                      histograms (serving/explain.py).  Narrow with
                      ?namespace=&job=
   GET /debug/stacks → live thread stacks
-  GET /trace/last  → 404: the port records no cycle trace yet
+  GET /trace/last  → Chrome trace_event JSON of the last recorded
+                     scheduling cycle (trace.get_recorder()); 404 until
+                     a cycle has been recorded (is tracing enabled?)
 
 The forensics endpoints (/explain, /debug/stacks, /trace/last) answer
 loopback clients always and others only with ``debug_enabled``.
@@ -32,8 +34,9 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 from urllib.parse import parse_qs, urlsplit
 
-from volcano_tpu_torch import metrics
+from volcano_tpu_torch import metrics, trace
 from volcano_tpu_torch.faults.breaker import degraded_reasons
+from volcano_tpu_torch.trace.export import chrome_trace
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -77,10 +80,16 @@ class _Handler(BaseHTTPRequestHandler):
             body = metrics.registry.render().encode()
             ctype = "text/plain; version=0.0.4"
         elif self.path == "/trace/last":
+            # scheduling forensics (task uids, node placements, evict
+            # reasons) — same gate as /debug/stacks
             if self._deny_unless_debug():
                 return
-            self._text(404, b"no recorded cycle (is tracing enabled?)")
-            return
+            record = trace.get_recorder().last_cycle()
+            if record is None:
+                self._text(404, b"no recorded cycle (is tracing enabled?)")
+                return
+            body = json.dumps(chrome_trace(record)).encode()
+            ctype = "application/json"
         elif self.path == "/explain" or self.path.startswith("/explain?"):
             # unschedulability forensics (job/task names, node names,
             # failure reasons) — same gate as /debug/stacks
