@@ -83,7 +83,17 @@ Phases, each of which fails the run:
      operands built on the card from the resident planes; each warm
      pack is held against a seeded cold pack, the staged planes against
      the numpy planes and the node operands against the host's, bit for
-     bit; a ``{"loop": ...}`` line a cell;
+     bit; a ``{"loop": ...}`` line a cell; then the event-driven loop
+     (``phase_micro``): ``Scheduler(micro_cycles=True)`` over MICRO_CELLS
+     (a full cycle binding every pod, then 6 windows of arrivals, each
+     wake routed as the loop routes it), once over full sessions and once
+     with restricted sessions and a strict shadow cross-check every other
+     micro-cycle, every window's binds with the JAX package's digest
+     (MICRO_DIGESTS), the gang's window a full cycle counted under its
+     cause, every session on the session kernel; then MICRO_STREAM, 1,000
+     single-pod jobs at 100/s into ``Scheduler.run()`` in a thread, every
+     pod bound, submit -> bind p50/p99/max printed; a ``{"micro": ...}``
+     line a cell;
   7. the sidecar (``phase_sidecar``) — the compute-plane sidecar as a
      child process (``python -m volcano_tpu_torch.cmd.compute_plane
      --socket PATH --warmup``, serving on the card; its pid holds memory
@@ -304,6 +314,62 @@ LOOP_DIGESTS = {
         "e1fee391f5372f8a30d170d2ff4a7087aba9e05ccbaf75772f77dbac681e1eb0",
     ],
 }
+
+#: the event-driven loop's cells: a fresh ``SchedulerCache(snapshot_reuse=
+#: True)`` fed a cycle config's cluster, ``Scheduler(micro_cycles=True)``
+#: on it from a policy file naming gpu-allocate under CYCLE_TIERS; window
+#: 0 a full cycle binding every pod, then ``windows`` windows of
+#: ``generate_micro_events`` (seed 0, ``jobs`` jobs of 4 pods a window,
+#: the gang of 8 in window 3), each routed as the loop routes a wake
+#: (``micro_window``).  Every cell runs in each of MICRO_MODES on a fresh
+#: cache
+MICRO_A = "micro_50k_pods_10k_nodes_arrivals"
+MICRO_B = "micro_10k_pods_1k_nodes_arrivals"
+MICRO_CELLS = {
+    MICRO_A: dict(config=MAIN_CONFIG, jobs=64, windows=6),
+    MICRO_B: dict(config=SECOND_CONFIG, jobs=13, windows=6),
+}
+#: the Scheduler options of each mode: micro-cycles over full sessions,
+#: and restricted sessions with a strict shadow cross-check every other
+#: restricted cycle
+MICRO_MODES = {
+    "full-session": dict(restricted_sessions=False),
+    "restricted": dict(restricted_sessions=True, shadow_every=2, shadow_strict=True),
+}
+#: sha256 of each window's sorted binds that the JAX package's Scheduler
+#: with jax-allocate gives over each micro cell's events, restricted or
+#: not; tests/test_torch_digests.py recomputes them
+MICRO_DIGESTS = {
+    MICRO_A: [
+        "c5ccf48727093b88dd6634c8eb317b91cf968f30e419d920f5d637d389b374ca",
+        "20339ec73a4ab609a5bc0d3ed72f0d6c3fc567dd2273fc15f747bfa2662888b4",
+        "76446b9464df13123dab7002915e45ca2571bf3fe99bac98f42dc85249e0c647",
+        "bf42a2dfe9225fbc7731c3a413d4d84dd38d01b801d3b28a0fa1c010974ea3a8",
+        "7bb338c8fbff532532983b1e7258b90ae0678cb7d4a76d224c3abdfd12ef6f52",
+        "d287cde75d903ae54ee2346e629d9720cb06c7a3f148dadc6fc93a3c192c1464",
+        "a8061372e58d6d1691cf236f1ed6a99520f7c6e95418e3234c1c6aa028402333",
+    ],
+    MICRO_B: [
+        "9853688e576b441a556020ec00bb36671927f220ec2514ed5e728276f2e4859a",
+        "7c1eb71ebdac17968cc661452c59acc0cd48589c749b907352aaa7e15821dcf6",
+        "9bfb095a982b8577159786005f06c40861b3a36f66d2f65eedd1360186efa591",
+        "aab8657a711e9af6da5c1a1f5a417d721ddc74508b829616a026b7a774d5e0a8",
+        "845dddfc634f8d567698f4c5822ed9d5235db8574f16193d9dad0b461f6c9d46",
+        "9d043b59ef676ec59d8ac3f68db8d653b978dc4deedd9169282a0878cd8af446",
+        "fe5034d2ab3ffa8c90f69f86f7f2ddac8214dd5b600f2635ef6e6b80d6494026",
+    ],
+}
+#: the stream cell: the same cluster as MICRO_A after its window 0, then
+#: ``Scheduler.run()`` in a thread (restricted sessions, the reference's
+#: shadow sampling, 5 ms debounce) while single-pod jobs arrive at
+#: ``rate`` pods/s for ``seconds`` (the defaults of the reference's SLO
+#: harness, bench/loadgen.py).  Its period is 10 s, not the reference's
+#: 1 s: a full cycle at 50k x 10k takes ~4 s, and run_cycle_window runs
+#: micro-cycles only until its period ends, so a 1 s period would run no
+#: micro-cycle at all
+MICRO_S = "micro_50k_pods_10k_nodes_stream"
+MICRO_STREAM = dict(config=MAIN_CONFIG, rate=100, seconds=10.0, drain_s=30.0, period=10.0,
+                    shadow_every=16, debounce_ms=5.0)
 
 #: phase 2 sessions: the equivalence shapes of the JAX package's Pallas
 #: tests, plus one gang session with predicates at 2,000 x 1,000
@@ -1794,6 +1860,44 @@ def loop_objects(config: str):
     return generate_cluster_objects(**BASELINE_CONFIGS[config])
 
 
+def loop_cache(objects, binder=None):
+    """A ``SchedulerCache(snapshot_reuse=True)`` with ``binder`` (a
+    ``ListBinder`` where None) and a ``ListEvictor``, fed ``objects``
+    (nodes, pods, pod groups, queues[, priority classes]) through its
+    handlers; (cache, seconds)."""
+    from volcano_tpu_torch.cache import SchedulerCache
+
+    nodes, pods, pod_groups, queues, *rest = objects
+    t0 = time.perf_counter()
+    cache = SchedulerCache(binder=binder or ListBinder(), evictor=ListEvictor(),
+                           snapshot_reuse=True)
+    for pc in (rest[0] if rest else ()):
+        cache.add_priority_class(pc)
+    for add, objs in ((cache.add_node, nodes), (cache.add_pod, pods),
+                      (cache.add_pod_group, pod_groups), (cache.add_queue, queues)):
+        for obj in objs:
+            add(obj)
+    return cache, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def policy_file(tiers, actions):
+    """The path of a policy document (``loop_conf_text``) written to a
+    temporary directory, removed after."""
+    import os
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="vtpu-loop-")
+    try:
+        path = os.path.join(tmp, "scheduler.conf")
+        with open(path, "w") as f:
+            f.write(loop_conf_text(tiers, actions))
+        yield path
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def loop_cycles(objects, tiers, actions, cycles: int, between=None, cache_hook=None,
                 cycle_window=contextlib.nullcontext):
     """The port's scheduler loop on one cache: feed ``objects`` (nodes,
@@ -1809,11 +1913,7 @@ def loop_cycles(objects, tiers, actions, cycles: int, between=None, cache_hook=N
     ``cache_hook(cache)`` runs once, after the feed, and each
     ``run_once`` runs inside ``cycle_window()``.  The actions run as
     registered (``framework.get_action``)."""
-    import os
-    import shutil
-    import tempfile
-
-    from volcano_tpu_torch.cache import feed_events, SchedulerCache
+    from volcano_tpu_torch.cache import feed_events
     from volcano_tpu_torch.framework import get_action, register_action
     from volcano_tpu_torch.ops.synthetic import (
         generate_loop_events,
@@ -1823,26 +1923,14 @@ def loop_cycles(objects, tiers, actions, cycles: int, between=None, cache_hook=N
     from volcano_tpu_torch.scheduler.scheduler import Scheduler
 
     nodes, pods, pod_groups, queues, *rest = objects
-    t0 = time.perf_counter()
-    cache = SchedulerCache(binder=ListBinder(), evictor=ListEvictor(), snapshot_reuse=True)
-    for pc in (rest[0] if rest else ()):
-        cache.add_priority_class(pc)
-    for add, objs in ((cache.add_node, nodes), (cache.add_pod, pods),
-                      (cache.add_pod_group, pod_groups), (cache.add_queue, queues)):
-        for obj in objs:
-            add(obj)
-    feed_s = time.perf_counter() - t0
+    cache, feed_s = loop_cache(objects)
     if cache_hook is not None:
         cache_hook(cache)
     world = loop_world((nodes, pods, pod_groups, queues)) if between == "churn" else None
     by_name = {f"{p.metadata.namespace}/{p.metadata.name}": p for p in pods}
     recorder = RecordPipelined()
     register_action(recorder)
-    tmp = tempfile.mkdtemp(prefix="vtpu-loop-")
-    try:
-        path = os.path.join(tmp, "scheduler.conf")
-        with open(path, "w") as f:
-            f.write(loop_conf_text(tiers, tuple(actions) + (recorder.name(),)))
+    with policy_file(tiers, tuple(actions) + (recorder.name(),)) as path:
         scheduler = Scheduler(cache, scheduler_conf_path=path)
         binds = []
         for k in range(cycles):
@@ -1864,8 +1952,6 @@ def loop_cycles(objects, tiers, actions, cycles: int, between=None, cache_hook=N
                        pipelined=recorder.pipelined, feed_s=feed_s,
                        pool_nodes=cache.last_pool_reuse[0], pool_jobs=cache.last_pool_reuse[1],
                        phases=dict(allocate.last_phase_stats), **scheduler.last_cycle)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def packs_equal(warm, cold) -> list:
@@ -2197,8 +2283,8 @@ def phase_loop(name: str, card: str) -> dict:
                 **checks.split, **gc_clock.take(),
                 **{key: ph.get(key) for key in (
                     "order_ms", "node_prepack_ms", "relay_overlap_ms", "stage_ms",
-                    "stage_bytes", "prepare_ms", "h2d_bytes", "apply_ms", "mode",
-                    "cold_cause", "reused_tasks", "repacked_nodes")},
+                    "stage_bytes", "prepare_ms", "h2d_bytes", "apply_ms", "commit_ms",
+                    "mode", "cold_cause", "reused_tasks", "repacked_nodes")},
                 pack_ms=ph.get("pack_ms", 0.0) - check_pack_s * 1e3,
                 device_ms=ph.get("execute_ms", 0.0) - check_kernel_s * 1e3))
     check(checks.packs == checks.sessions == len(cycles),
@@ -2285,6 +2371,457 @@ def pack_routes(card: str, name: str = MAIN_CONFIG, reps: int = 5) -> dict:
                median_ms={r: statistics.median(v) for r, v in ms.items()})
     print(json.dumps({"pack_routes": out}))
     return out
+
+
+# ---- the event-driven loop (phase_micro) ----
+
+
+def micro_window(scheduler, register_fallback) -> Optional[str]:
+    """One wake of the event-driven loop after a window's events went
+    through the cache's handlers, routed as ``run_cycle_window`` routes
+    it, without its clock: a pending full cause (a gang arrived, the node
+    set changed) runs a full cycle, counted by ``register_fallback(cause)``;
+    else the drained triggers run one micro-cycle labelled by them, unless
+    no "task" trigger came and nothing is pending.  Returns "full", the
+    micro-cycle's trigger, or None when no session opened.  It drives the
+    JAX package's Scheduler the same way (its metrics' counter given)."""
+    cause = scheduler._take_full_cause()
+    if cause is not None:
+        register_fallback(cause)
+        scheduler._drain_triggers()
+        scheduler.run_once()
+        return "full"
+    pending = scheduler._drain_triggers()
+    if not pending or ("task" not in pending and not scheduler._has_pending_work()):
+        return None
+    trigger = scheduler._trigger_label(pending)
+    scheduler.run_once(trigger=trigger)
+    return trigger
+
+
+class LedgerClock:
+    """Calls and seconds inside one cache's ``share_ledger.observe`` (the
+    diff every job mutation pays under the mutex), its timer's own cost
+    included."""
+
+    def __init__(self):
+        self.calls = 0
+        self.s = 0.0
+
+    def hook(self, cache) -> None:
+        orig = cache.share_ledger.observe
+
+        def observe(job, uid):
+            t0 = time.perf_counter()
+            try:
+                return orig(job, uid)
+            finally:
+                self.s += time.perf_counter() - t0
+                self.calls += 1
+
+        cache.share_ledger.observe = observe
+
+    def take(self) -> dict:
+        out = dict(ledger_ms=self.s * 1e3, ledger_observes=self.calls)
+        self.calls, self.s = 0, 0.0
+        return out
+
+
+def micro_windows(objects, tiers, actions, windows: int, jobs: int, cache_hook=None,
+                  cycle_window=contextlib.nullcontext, **options):
+    """The port's event-driven loop on one cache, window by window: feed
+    ``objects`` (``loop_cache``), then ``Scheduler(cache,
+    scheduler_conf_path=..., micro_cycles=True, **options)``; window 0
+    is ``run_once()``, a full cycle, and each window after it feeds
+    ``generate_micro_events`` (seed 0, the last window's binds echoed)
+    through ``cache.feed_events`` and routes the wake (``micro_window``).
+    Yields one record a window: its route, binds, the events' seconds,
+    every snapshot the cache took (scope, jobs cloned, jobs in the
+    session), and for a window that opened a session gpu-allocate's
+    phases and ``Scheduler.last_cycle``; ``scheduler`` and ``cache``
+    ride along.  ``cache_hook(cache)`` runs once after the feed, and each
+    window's cycle inside ``cycle_window()``."""
+    from volcano_tpu_torch import metrics
+    from volcano_tpu_torch.cache import feed_events
+    from volcano_tpu_torch.framework import get_action
+    from volcano_tpu_torch.ops.synthetic import generate_micro_events, loop_world
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+
+    cache, feed_s = loop_cache(objects)
+    world = loop_world(objects[:4])
+    snapshots = []
+    take = cache.snapshot
+
+    def snapshot(scope="full"):
+        snap = take(scope)
+        snapshots.append(dict(scope=scope, jobs=len(snap.jobs), session_jobs=len(
+            getattr(snap, "restricted_uids", snap.jobs))))
+        return snap
+
+    cache.snapshot = snapshot
+    if cache_hook is not None:
+        cache_hook(cache)
+    with policy_file(tiers, actions) as path:
+        scheduler = Scheduler(cache, scheduler_conf_path=path, micro_cycles=True, **options)
+        binds = []
+        for w in range(windows + 1):
+            if w:
+                t0 = time.perf_counter()
+                feed_events(cache, generate_micro_events(world, w, seed=0, binds=binds,
+                                                         jobs=jobs))
+                feed_s = time.perf_counter() - t0
+            n = len(cache.binder.binds)
+            snapshots.clear()
+            with cycle_window():
+                if w:
+                    route = micro_window(scheduler, metrics.register_full_cycle_fallback)
+                else:
+                    scheduler.run_once()
+                    route = "full"
+            binds = cache.binder.binds[n:]
+            rec = dict(window=w, route=route, binds=binds, feed_s=feed_s,
+                       snapshots=list(snapshots), scheduler=scheduler, cache=cache)
+            if route is not None:
+                rec.update(phases=dict(get_action("gpu-allocate").last_phase_stats),
+                           **scheduler.last_cycle)
+            yield rec
+
+
+def stager_state() -> dict:
+    """Every device stager's plane revisions, by registry key: what a
+    shadow session must leave as it found."""
+    from volcano_tpu_torch.ops import device_stage
+
+    return {key: dict(st.plane_rev) for key, st in device_stage._stagers.items()}
+
+
+class ShadowTally:
+    """Around ``incremental.subgraph.run_shadow_session`` (what the
+    scheduler calls for a shadow cross-check): its seconds, the session
+    kernel's launches inside it, the executor each shadow session ran on,
+    and whether any device stager's planes moved during it, since the
+    last take."""
+
+    def __init__(self):
+        self.ms, self.launches, self.executors, self.stager_moved = 0.0, 0, [], False
+        self._orig = None
+
+    def __enter__(self):
+        from volcano_tpu_torch.incremental import subgraph
+        from volcano_tpu_torch.ops import session_kernel
+        from volcano_tpu_torch.ops.executor import last_allocate_executor
+
+        self._orig = orig = subgraph.run_shadow_session
+
+        def run(*args, **kwargs):
+            launches = session_kernel.LAUNCHES + session_kernel.WIDE_LAUNCHES
+            stagers = stager_state()
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                self.ms += (time.perf_counter() - t0) * 1e3
+                self.launches += (session_kernel.LAUNCHES + session_kernel.WIDE_LAUNCHES
+                                  - launches)
+                self.executors.append(last_allocate_executor())
+                self.stager_moved |= stager_state() != stagers
+
+        subgraph.run_shadow_session = run
+        return self
+
+    def __exit__(self, *exc):
+        from volcano_tpu_torch.incremental import subgraph
+
+        subgraph.run_shadow_session = self._orig
+        return False
+
+    def take(self) -> dict:
+        out = dict(shadow_ms=self.ms, shadow_launches=self.launches,
+                   shadow_executors=self.executors, shadow_stager_moved=self.stager_moved)
+        self.ms, self.launches, self.executors, self.stager_moved = 0.0, 0, [], False
+        return out
+
+
+def phase_micro_cell(name: str, card: str) -> dict:
+    """A micro cell on the card, in each of MICRO_MODES on a fresh cache
+    (``micro_windows``).  Every window: the binds' digest MICRO_DIGESTS'
+    (window 0 binding every pod), no kernel failure; every window but
+    the gang's opens a micro-cycle, the gang's window a full cycle
+    counted under ``cause="gang-arrival"`` (by ``micro_window``, the
+    loop's routing copied without its clock); every session on executor
+    ``cuda`` with session-kernel launches (counts set to 0 before each
+    window, read after); in the restricted mode every micro-cycle opens a
+    restricted snapshot ("restricted", or "shadow" when cross-checked,
+    the shadow session on ``cuda`` with launches of its own and every
+    device stager's planes as it found them), and no shadow divergence.
+    The collector's pauses are counted inside each window's cycle
+    (``GcClock``), and the share ledger's observe time (``LedgerClock``).
+    One ``{"micro": ...}`` line."""
+    import torch
+
+    from volcano_tpu_torch import metrics
+    from volcano_tpu_torch.ops import session_kernel
+    from volcano_tpu_torch.ops.executor import last_allocate_executor
+    from volcano_tpu_torch.ops.synthetic import MICRO_GANG_WINDOW
+
+    spec = MICRO_CELLS[name]
+    t_phase = time.perf_counter()
+    modes = {}
+    for mode, options in MICRO_MODES.items():
+        t0 = time.perf_counter()
+        objects = loop_objects(spec["config"])
+        build_s = time.perf_counter() - t0
+        n_pods = len(objects[1])
+        ledger = LedgerClock()
+        windows = []
+        with GcClock() as gc_clock, ShadowTally() as shadow:
+            it = micro_windows(objects, CYCLE_TIERS, ("gpu-allocate",), spec["windows"],
+                               spec["jobs"], cache_hook=ledger.hook,
+                               cycle_window=gc_clock.cycle, **options)
+            while True:
+                failures = kernel_failures()
+                gang = metrics.registry.counter("volcano_full_cycle_fallbacks_total",
+                                                cause="gang-arrival")
+                torch.cuda.synchronize()
+                session_kernel.LAUNCHES = session_kernel.WIDE_LAUNCHES = 0
+                gc_clock.take()
+                ledger.take()
+                shadow.take()
+                rec = next(it, None)
+                if rec is None:
+                    break
+                launches = session_kernel.LAUNCHES + session_kernel.WIDE_LAUNCHES
+                w, route, scheduler = rec["window"], rec["route"], rec["scheduler"]
+                what = f"{name} {mode} window {w}"
+                digest = cycle_digest(rec["binds"])
+                check(digest == MICRO_DIGESTS[name][w],
+                      f"{what}: digest {digest} != the JAX package's {MICRO_DIGESTS[name][w]}")
+                check(kernel_failures() == failures, f"{what}: kernel failures counted")
+                if w == 0:
+                    check(len(rec["binds"]) == n_pods, f"{what}: {len(rec['binds'])} binds")
+                gang_counted = metrics.registry.counter(
+                    "volcano_full_cycle_fallbacks_total", cause="gang-arrival") - gang
+                if w == MICRO_GANG_WINDOW:
+                    check(route == "full" and gang_counted == 1,
+                          f"{what}: the gang's window routed {route!r}, "
+                          f"{gang_counted} gang-arrival fallbacks counted")
+                elif w:
+                    check(route not in (None, "full") and gang_counted == 0,
+                          f"{what}: routed {route!r}, expected a micro-cycle")
+                scopes = [s["scope"] for s in rec["snapshots"]]
+                micro = route not in (None, "full")
+                want = (("restricted",), ("shadow",)) if micro and options[
+                    "restricted_sessions"] else (("full",),)
+                check(tuple(scopes) in want, f"{what}: snapshots {scopes}, expected {want}")
+                sh = shadow.take()
+                check(last_allocate_executor() == "cuda" and launches > 0,
+                      f"{what}: executor {last_allocate_executor()!r}, {launches} launches")
+                if scopes == ["shadow"]:
+                    check(sh["shadow_executors"] == ["cuda"] and sh["shadow_launches"] > 0
+                          and not sh["shadow_stager_moved"],
+                          f"{what}: shadow session on {sh['shadow_executors']}, "
+                          f"{sh['shadow_launches']} launches, the live stager's planes "
+                          f"moved: {sh['shadow_stager_moved']}")
+                check(scheduler.shadow_divergences == 0, f"{what}: shadow divergence")
+                ph = rec["phases"]
+                snap = rec["snapshots"][0]
+                windows.append(dict(
+                    window=w, route=route, scope=scopes[0], snapshot_jobs=snap["jobs"],
+                    session_jobs=snap["session_jobs"], binds=len(rec["binds"]),
+                    launches=launches, run_once_ms=rec["e2e_s"] * 1e3,
+                    open_ms=rec["open_s"] * 1e3, close_ms=rec["close_s"] * 1e3,
+                    events_ms=rec["feed_s"] * 1e3,
+                    pack_route=ph.get("mode", "pack_session"),
+                    device_ms=ph.get("execute_ms"),
+                    **{key: ph.get(key) for key in (
+                        "order_ms", "pack_ms", "stage_bytes", "prepare_ms", "h2d_bytes",
+                        "apply_ms", "commit_ms", "cold_cause")},
+                    **sh, **ledger.take(), **gc_clock.take()))
+        check(scheduler.restricted_cycles_run == (
+            spec["windows"] - 1 if options["restricted_sessions"] else 0),
+            f"{name} {mode}: {scheduler.restricted_cycles_run} restricted cycles")
+        modes[mode] = dict(
+            build_objects_ms=build_s * 1e3, micro_cycles_run=scheduler.micro_cycles_run,
+            full_cycles_run=scheduler.full_cycles_run,
+            restricted_cycles_run=scheduler.restricted_cycles_run,
+            shadow_checks_run=scheduler.shadow_checks_run,
+            shadow_divergences=scheduler.shadow_divergences, windows=windows)
+        print(f"{name} {mode}: {len(windows)} windows, each with the JAX package's digest, "
+              f"executor cuda; routes {[x['route'] for x in windows]}, scopes "
+              f"{[x['scope'] for x in windows]}, run_once ms "
+              f"{[round(x['run_once_ms'], 3) for x in windows]}, open ms "
+              f"{[round(x['open_ms'], 3) for x in windows]}, pack ms "
+              f"{[round(x['pack_ms'] or 0.0, 3) for x in windows]} "
+              f"({[x['pack_route'] for x in windows]}), launches "
+              f"{[x['launches'] for x in windows]}; card {card}")
+    out = dict(cell=name, config=spec["config"], jobs=spec["jobs"], card=card,
+               phase_ms=(time.perf_counter() - t_phase) * 1e3, modes=modes)
+    print(json.dumps({"micro": out}))
+    return out
+
+
+class StampBinder(ListBinder):
+    """A ``ListBinder`` that also stamps each bind's ``time.monotonic()``
+    by ``ns/name``."""
+
+    def __init__(self):
+        super().__init__()
+        self.at = {}
+
+    def bind(self, task, hostname):
+        super().bind(task, hostname)
+        self.at[f"{task.namespace}/{task.name}"] = time.monotonic()
+
+
+def stream_jobs(n: int, seed: int = 0) -> list:
+    """``n`` single-pod jobs, each (PodGroup with minMember 1, its pod),
+    made by the micro cells' job generator, as the port's API objects."""
+    from volcano_tpu_torch.apis import core, scheduling
+    from volcano_tpu_torch.ops.synthetic import micro_job
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        pg, (pod,) = micro_job(f"stream-{i:05d}", float(i), 1, 1, rng)
+        out.append((scheduling.PodGroup.from_dict(pg), core.Pod.from_dict(pod)))
+    return out
+
+
+def phase_micro_stream(card: str) -> dict:
+    """The stream cell on the card: MICRO_STREAM's cluster on a fresh
+    cache, window 0 (``run_once``, every pod bound with MICRO_A's window-0
+    digest), then ``Scheduler.run()`` in a thread while a feeder thread
+    submits ``rate`` single-pod jobs a second for ``seconds``, once the
+    loop's first window has run its full cycle.  Every streamed pod must
+    bind within ``drain_s`` after the last submit, exactly once, with the
+    session kernel launched, executor ``cuda``, no kernel failure and no
+    shadow divergence; the loop is stopped and joined.  Prints submit →
+    bind p50, p99 and max (the binder's stamps), the cycles by kind, the
+    median restricted open and the windows that ran a micro-cycle; one
+    ``{"micro": ...}`` line."""
+    import threading
+
+    import torch
+
+    from volcano_tpu_torch.ops import session_kernel
+    from volcano_tpu_torch.ops.executor import last_allocate_executor
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+
+    spec = MICRO_STREAM
+    t_phase = time.perf_counter()
+    cache, _ = loop_cache(loop_objects(spec["config"]), binder=StampBinder())
+    jobs = stream_jobs(int(spec["rate"] * spec["seconds"]))
+    names = {f"{pod.metadata.namespace}/{pod.metadata.name}" for _, pod in jobs}
+    failures = kernel_failures()
+    with policy_file(CYCLE_TIERS, ("gpu-allocate",)) as path:
+        scheduler = Scheduler(cache, scheduler_conf_path=path, period=spec["period"],
+                              micro_cycles=True, micro_debounce_ms=spec["debounce_ms"],
+                              restricted_sessions=True, shadow_every=spec["shadow_every"])
+        scheduler.run_once()
+        digest = cycle_digest(cache.binder.binds)
+        check(digest == MICRO_DIGESTS[MICRO_A][0], f"{MICRO_S}: window 0 digest {digest}")
+        n0 = len(cache.binder.binds)
+        windows = []
+        run_window = scheduler.run_cycle_window
+
+        def counted(max_cycles=None):
+            ran = run_window(max_cycles)
+            windows.append(ran)
+            return ran
+
+        scheduler.run_cycle_window = counted
+        errors = []
+
+        def guarded(fn):
+            def run():
+                try:
+                    fn()
+                except BaseException as e:  # noqa: BLE001 — reported by the main thread
+                    errors.append(e)
+            return run
+
+        submitted = {}
+
+        def feed():
+            t0 = time.monotonic()
+            for i, (pg, pod) in enumerate(jobs):
+                delay = t0 + i / spec["rate"] - time.monotonic()
+                if delay > 0:
+                    time.sleep(delay)
+                submitted[f"{pod.metadata.namespace}/{pod.metadata.name}"] = time.monotonic()
+                cache.add_pod_group(pg)
+                cache.add_pod(pod)
+
+        torch.cuda.synchronize()
+        session_kernel.LAUNCHES = session_kernel.WIDE_LAUNCHES = 0
+        loop = threading.Thread(target=guarded(scheduler.run), name="micro-stream-loop",
+                                daemon=True)
+        feeder = threading.Thread(target=guarded(feed), name="micro-stream-feeder", daemon=True)
+        loop.start()
+        try:
+            deadline = time.monotonic() + 120
+            while scheduler.full_cycles_run < 2 and not errors and time.monotonic() < deadline:
+                time.sleep(0.01)
+            check(scheduler.full_cycles_run >= 2 and not errors,
+                  f"{MICRO_S}: the loop's first full cycle did not run: {errors}")
+            t_feed = time.monotonic()
+            feeder.start()
+            feeder.join(timeout=spec["seconds"] + 60)
+            check(not feeder.is_alive() and not errors, f"{MICRO_S}: feeder: {errors}")
+            feed_s = time.monotonic() - t_feed
+            deadline = time.monotonic() + spec["drain_s"]
+            while (not errors and time.monotonic() < deadline
+                   and not names <= cache.binder.at.keys()):
+                time.sleep(0.01)
+            drained_s = time.monotonic() - t_feed - feed_s
+        finally:
+            scheduler.stop()
+            loop.join(timeout=120)
+        check(not loop.is_alive(), f"{MICRO_S}: Scheduler.run did not stop")
+        check(not errors, f"{MICRO_S}: {errors}")
+    launches = session_kernel.LAUNCHES + session_kernel.WIDE_LAUNCHES
+    stream_binds = cache.binder.binds[n0:]
+    missing = names - cache.binder.at.keys()
+    check(not missing, f"{MICRO_S}: {len(missing)} of {len(names)} pods unbound after "
+                       f"{spec['drain_s']} s")
+    check(len(stream_binds) == len(names) and {b[0] for b in stream_binds} == names,
+          f"{MICRO_S}: {len(stream_binds)} binds for {len(names)} pods")
+    check(launches > 0 and last_allocate_executor() == "cuda",
+          f"{MICRO_S}: {launches} launches, executor {last_allocate_executor()!r}")
+    check(kernel_failures() == failures, f"{MICRO_S}: kernel failures counted")
+    check(scheduler.shadow_divergences == 0, f"{MICRO_S}: shadow divergence")
+    lat = np.array([cache.binder.at[n] - submitted[n] for n in sorted(names)]) * 1e3
+    samples = scheduler.restricted_open_samples
+    out = dict(
+        cell=MICRO_S, config=spec["config"], card=card, pods=len(names), rate=spec["rate"],
+        period_s=spec["period"], feed_s=feed_s, drain_s=drained_s,
+        submit_to_bind_ms=dict(p50=float(np.percentile(lat, 50)),
+                               p99=float(np.percentile(lat, 99)), max=float(lat.max())),
+        launches=launches, micro_cycles_run=scheduler.micro_cycles_run,
+        full_cycles_run=scheduler.full_cycles_run,
+        restricted_cycles_run=scheduler.restricted_cycles_run,
+        shadow_checks_run=scheduler.shadow_checks_run,
+        shadow_divergences=scheduler.shadow_divergences,
+        restricted_open_ms_median=statistics.median(samples) * 1e3 if samples else None,
+        windows=len(windows), windows_with_micro=sum(1 for n in windows if n > 1),
+        phase_ms=(time.perf_counter() - t_phase) * 1e3)
+    print(f"{MICRO_S}: {len(names)} pods at {spec['rate']}/s all bound, submit->bind ms p50 "
+          f"{out['submit_to_bind_ms']['p50']:.3f} p99 {out['submit_to_bind_ms']['p99']:.3f} "
+          f"max {out['submit_to_bind_ms']['max']:.3f}; {scheduler.micro_cycles_run} micro "
+          f"({scheduler.restricted_cycles_run} restricted, {scheduler.shadow_checks_run} "
+          f"shadow-checked), {scheduler.full_cycles_run} full cycles, "
+          f"{out['windows_with_micro']} of {len(windows)} windows ran a micro-cycle; "
+          f"card {card}")
+    print(json.dumps({"micro": out}))
+    return out
+
+
+def phase_micro(card: str) -> dict:
+    """The event-driven loop's cells: MICRO_A, MICRO_B, then the stream
+    cell; each phase's record by cell name."""
+    recs = {cell: phase_micro_cell(cell, card) for cell in (MICRO_A, MICRO_B)}
+    recs[MICRO_S] = phase_micro_stream(card)
+    return recs
 
 
 #: the sidecar phase (``phase_sidecar``): the loop cell and the preempting
@@ -3180,6 +3717,7 @@ def main() -> int:
     preempt_cycle_rec = phase_preempt_cycle(PREEMPT_CYCLE_MAIN, card)
     phase_preempt_cycle(PREEMPT_CYCLE_SECOND, card)
     loop_recs = {cell: phase_loop(cell, card) for cell in LOOP_CELLS}
+    micro_recs = phase_micro(card)
     sidecar_rec = phase_sidecar(card, loop_recs)
     replay_rec = phase_replay(card)
     from volcano_tpu_torch import faults
@@ -3212,6 +3750,8 @@ def main() -> int:
             "loop_launches": loop_recs[LOOP_A]["cycles"][-1]["launches"],
             "sidecar_launches": sidecar_rec["cycles"][-1]["child_launches"],
             "replay_launches": replay_rec["replays"][LOOP_A][-1]["launches"],
+            "micro_launches": [w["launches"] for mode in micro_recs[MICRO_A]["modes"].values()
+                               for w in mode["windows"] if w["route"] != "full"],
             "library_ms": None,
         },
         {

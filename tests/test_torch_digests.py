@@ -24,6 +24,18 @@ cycle, and the port's loop (``chip_smoke.loop_cycles``, its device
 actions registered with ``device="cpu"``) the same
 (``tests/test_torch_scheduler.py`` runs the port's loop on the other two
 cells).
+
+And for the event-driven loop's cells: the JAX package's ``Scheduler``
+with ``micro_cycles=True`` and ``jax-allocate`` over
+``generate_micro_events`` (seed 0), each wake routed as
+``chip_smoke.micro_window`` routes it, gives ``chip_smoke.MICRO_DIGESTS``
+window by window, both with restricted sessions (every one shadow
+cross-checked, strict) and with full sessions; the port's loop
+(``chip_smoke.micro_windows`` in each of ``chip_smoke.MICRO_MODES``) gives
+the same at 10k pods x 1k nodes on the CPU.  The JAX package's
+50k x 10k cell takes 88 s (full sessions) and 115 s (restricted, a
+shadow full session every window) under pytest on one CPU, so both are
+marked ``slow``.
 """
 
 from __future__ import annotations
@@ -43,6 +55,7 @@ from volcano_tpu.apis import core as jax_core, scheduling as jax_scheduling
 from volcano_tpu.cache import SchedulerCache as JaxCache
 from volcano_tpu.conf import PluginOption as JaxPluginOption, Tier as JaxTier
 from volcano_tpu.framework import close_session, open_session
+from volcano_tpu.metrics import metrics as jax_metrics
 from volcano_tpu.ops.synthetic import (
     BASELINE_CONFIGS as JAX_CONFIGS,
     generate_cluster_objects as jax_generate_cluster_objects,
@@ -54,8 +67,10 @@ from volcano_tpu_torch.ops.synthetic import (
     BASELINE_CONFIGS,
     generate_cluster_objects,
     generate_loop_events,
+    generate_micro_events,
     generate_preempt_cluster_objects,
     loop_world,
+    MICRO_GANG_WINDOW,
     record_binds,
 )
 
@@ -198,3 +213,77 @@ def test_port_loop_digests_on_cpu(cpu_actions):
         assert rec["phases"]["reused_tasks"] > 0
         assert rec["phases"]["repacked_nodes"] < 1_000
         assert rec["pool_nodes"] > 0
+
+
+@pytest.mark.parametrize("mode", ["restricted", "full-session"])
+@pytest.mark.parametrize("name", [
+    chip_smoke.MICRO_B,
+    pytest.param(chip_smoke.MICRO_A, marks=pytest.mark.slow),
+])
+def test_jax_micro_digests_are_chip_smokes(tmp_path, name, mode):
+    """The JAX package's event-driven Scheduler over a micro cell: one
+    cache with snapshot reuse, window 0 a full cycle, then each window's
+    events through its handlers and the wake routed as the loop routes
+    it; each window's binds have MICRO_DIGESTS' digest, the gang's window
+    is a full cycle, and every restricted cycle's shadow agrees."""
+    spec = chip_smoke.MICRO_CELLS[name]
+    config = spec["config"]
+    cache = JaxCache(binder=chip_smoke.ListBinder(), snapshot_reuse=True)
+    for add, objs in zip((cache.add_node, cache.add_pod, cache.add_pod_group, cache.add_queue),
+                         jax_generate_cluster_objects(**JAX_CONFIGS[config])):
+        for obj in objs:
+            add(obj)
+    world = loop_world(generate_cluster_objects(**BASELINE_CONFIGS[config]))
+    path = tmp_path / "scheduler.conf"
+    path.write_text(chip_smoke.loop_conf_text(chip_smoke.CYCLE_TIERS, ("jax-allocate",)))
+    options = dict(restricted_sessions=True, shadow_every=1, shadow_strict=True) \
+        if mode == "restricted" else {}
+    scheduler = JaxScheduler(cache, scheduler_conf_path=str(path), micro_cycles=True, **options)
+    binds, digests, routes = [], [], []
+    for w in range(spec["windows"] + 1):
+        n = len(cache.binder.binds)
+        if w:
+            jax_feed_events(cache, generate_micro_events(world, w, seed=0, binds=binds,
+                                                         jobs=spec["jobs"]))
+            routes.append(chip_smoke.micro_window(
+                scheduler, jax_metrics.register_full_cycle_fallback))
+        else:
+            scheduler.run_once()
+        binds = cache.binder.binds[n:]
+        digests.append(chip_smoke.cycle_digest(binds))
+    assert digests == chip_smoke.MICRO_DIGESTS[name]
+    assert [r == "full" for r in routes] == [w == MICRO_GANG_WINDOW
+                                             for w in range(1, spec["windows"] + 1)]
+    assert None not in routes
+    restricted = spec["windows"] - 1 if mode == "restricted" else 0
+    assert scheduler.restricted_cycles_run == scheduler.shadow_checks_run == restricted
+    assert scheduler.shadow_divergences == 0
+
+
+@pytest.mark.parametrize("mode", sorted(chip_smoke.MICRO_MODES))
+def test_port_micro_digests_on_cpu(cpu_actions, mode):
+    """The port's event-driven loop over the 10k x 1k micro cell on the
+    CPU, as chip_smoke.py drives it on the card: MICRO_DIGESTS window by
+    window, a restricted snapshot on every micro-cycle of the restricted
+    mode (cross-checked every other one), full snapshots otherwise."""
+    name = chip_smoke.MICRO_B
+    spec = chip_smoke.MICRO_CELLS[name]
+    options = chip_smoke.MICRO_MODES[mode]
+    recs = list(chip_smoke.micro_windows(
+        chip_smoke.loop_objects(spec["config"]), chip_smoke.CYCLE_TIERS, ("gpu-allocate",),
+        spec["windows"], spec["jobs"], **options))
+    assert [chip_smoke.cycle_digest(r["binds"]) for r in recs] == chip_smoke.MICRO_DIGESTS[name]
+    scopes = [[s["scope"] for s in r["snapshots"]] for r in recs]
+    if options["restricted_sessions"]:
+        assert scopes == [["full"], ["restricted"], ["shadow"], ["full"], ["restricted"],
+                          ["shadow"], ["restricted"]]
+        assert all(r["snapshots"][0]["session_jobs"] == spec["jobs"]
+                   for r in recs if r["snapshots"][0]["scope"] == "restricted")
+    else:
+        assert scopes == [["full"]] * len(recs)
+        assert [r["phases"]["mode"] for r in recs][1:] == ["micro"] + ["warm"] * 5
+    scheduler = recs[-1]["scheduler"]
+    assert [r["route"] for r in recs] == ["full", "mixed", "mixed", "full", "mixed", "mixed",
+                                          "mixed"]
+    assert scheduler.micro_cycles_run == 5 and scheduler.full_cycles_run == 2
+    assert scheduler.shadow_divergences == 0

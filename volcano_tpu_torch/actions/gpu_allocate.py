@@ -25,9 +25,12 @@ actions/allocate.py (drive_allocate_loop):
    ``pack_cache`` (ops/pack_cache.py) and stages the planes on the
    kernel's device (ops/device_stage.py), where the session kernel
    builds its node operands from them; the dynamic node planes are
-   packed and staged before ORDER, so their copy overlaps it.  Any other
-   session packs cold (ops/packing.py), and the kernel puts its planes
-   on the device whole.
+   packed and staged before ORDER, so their copy overlaps it; a warm
+   pack that went cold during a micro-triggered cycle counts its cold
+   cause in ``volcano_full_cycle_fallbacks_total``.  Any other session
+   (a restricted or shadow session among them) packs cold
+   (ops/packing.py), and the kernel puts its planes on the device
+   whole.
 3. APPLY — the bulk commit of actions/fast_apply.py for a fully-placed
    exact session; otherwise the real control flow, placing each task on
    its kernel-proposed node after an O(1) host validation (plugin
@@ -327,6 +330,13 @@ class GpuAllocateAction(Action):
                 enforce_pod_count=enforce,
             )
             self.last_phase_stats.update(pack_cache.last_stats)
+            if getattr(ssn.cache, "in_micro_cycle", False):
+                # a micro-triggered cycle that still had to cold-rebuild
+                # (registry overflow, axis change, …) paid full-cycle
+                # cost — attribute the cause
+                cause = pack_cache.last_stats.get("cold_cause")
+                if cause is not None:
+                    metrics.register_full_cycle_fallback(cause)
         else:
             snap = pack_session(
                 ordered_tasks, list(jobs.values()), nodes, enforce_pod_count=enforce,

@@ -1,18 +1,27 @@
 """SchedulerCache — mutex-guarded mirror of cluster state.
 
 The synchronous path of ``volcano_tpu/cache/cache.py``: the event
-handlers for pods, nodes, PodGroups, queues, priority classes and PVCs,
-the full snapshot, bind/evict/volume/status effects dispatched inline on
-the calling thread, the warm packer's change tracking (``PackEpoch``,
-the dirty marks every handler makes, ``clear_dirty_through`` and the
-lazy ``pack_cache``) and the opt-in snapshot clone pool
-(``snapshot_reuse``, ``release_session_clones``).  Not present in the
-port yet: the pipelined commit plane, the incremental share ledger (and
-with it restricted snapshots), the resync worker and its quarantine,
-change listeners, the informer sink, and the resource-quota handlers
-(the namespace weights of drf's weighted namespace order).  A failed
-bind or evict is queued in ``err_tasks`` for the resync a later slice
-brings, as the reference queues it when it has no API client.
+handlers for pods, nodes, PodGroups, queues, priority classes, PVCs and
+resource quotas (the namespace weights of drf's weighted namespace
+order, in every snapshot's ``namespace_info``), bind/evict/volume/status
+effects dispatched inline on the calling thread, the warm packer's
+change tracking (``PackEpoch``, the dirty marks every handler makes,
+``clear_dirty_through`` and the lazy ``pack_cache``) and the opt-in
+snapshot clone pool (``snapshot_reuse``, ``release_session_clones``).
+
+The event surface of the event-driven scheduler loop: every handler
+tells the change listeners (``add_change_listener``) what kind of change
+it made, after the mutex is released, and every job mutation passes
+through ``_mark_job``, where the incremental share ledger
+(``incremental/shares.py``) observes it — the O(1) wake gate
+(``has_schedulable_pending``, ``ledger_counts``) and the seed of a
+restricted snapshot (``snapshot(scope="restricted" | "shadow")``).
+
+Not present in the port yet: the pipelined commit plane, the resync
+worker and its quarantine, the v1alpha1 PodGroup and Queue handlers and
+``update_pod_condition`` (they come with an API client and its scheme).
+A failed bind or evict is queued in ``err_tasks`` for the resync a later
+slice brings, as the reference queues it when it has no API client.
 
 Reference: pkg/scheduler/cache/cache.go + event_handlers.go.  Fed by
 event handlers (called directly, the reference's own unit-test pattern,
@@ -28,6 +37,7 @@ from volcano_tpu_torch import metrics
 from volcano_tpu_torch.api import (
     ClusterInfo,
     JobInfo,
+    NamespaceCollection,
     new_task_info,
     NodeInfo,
     QueueInfo,
@@ -36,6 +46,7 @@ from volcano_tpu_torch.api import (
 )
 from volcano_tpu_torch.apis import core, scheduling
 from volcano_tpu_torch.cache.interface import Binder, Cache, Evictor, StatusUpdater
+from volcano_tpu_torch.incremental.shares import ShareLedger
 from volcano_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -137,9 +148,15 @@ class SchedulerCache(Cache):
         self.default_priority = default_priority
 
         self.jobs: Dict[str, JobInfo] = {}  # guarded-by: self._mutex
+        #: incremental fair-share ledger + schedulable-work counter,
+        #: maintained by _mark_job (the choke point every job-mutating
+        #: handler passes through) so micro-cycles can gate wakes and
+        #: open restricted sessions without O(resident jobs) sweeps
+        self.share_ledger = ShareLedger()  # guarded-by: self._mutex
         self.nodes: Dict[str, NodeInfo] = {}  # guarded-by: self._mutex
         self.queues: Dict[str, QueueInfo] = {}  # guarded-by: self._mutex
         self.priority_classes: Dict[str, core.PriorityClass] = {}  # guarded-by: self._mutex
+        self.namespace_collections: Dict[str, NamespaceCollection] = {}  # guarded-by: self._mutex
         #: PVCs keyed "ns/name" (pvcInformer, cache.go:415-421)
         self.pvcs: Dict[str, core.PersistentVolumeClaim] = {}  # guarded-by: self._mutex
 
@@ -150,6 +167,18 @@ class SchedulerCache(Cache):
         #: tasks whose side effects failed, deduped by uid (cache.go:687-709
         #: errTasks); nothing drains it in the port yet
         self.err_tasks: List[TaskInfo] = []  # guarded-by: self._mutex
+        #: change listeners for the event-driven scheduler loop: each is
+        #: called with a coarse category string AFTER the mutating
+        #: handler releases the mutex (so a listener that takes its own
+        #: lock — the scheduler's wake condition — never nests inside
+        #: the cache mutex).  Categories: "task" (schedulable work
+        #: appeared/changed), "node" (capacity moved: pod finished/
+        #: deleted, node object updated), "topology" (node set changed),
+        #: "gang" (a PodGroup with min_member > 1 arrived), "group"
+        #: (other scheduling-relevant object churn).  Bind echoes of our
+        #: own placements are deliberately NOT emitted — they would
+        #: wake the loop once per bind for cycles with nothing to do.
+        self._change_listeners: List = []  # guarded-by: self._mutex
         #: job uid → the unschedulable tasks its last status writeback
         #: recorded (record_job_status_event); the durable source of
         #: ``GET /explain`` (serving/explain.py), since fit errors live on
@@ -193,6 +222,11 @@ class SchedulerCache(Cache):
         #: clones the last snapshot() took from the pool (nodes, jobs)
         self.last_pool_reuse = (0, 0)
 
+        #: set by the scheduler loop for the length of a micro-triggered
+        #: cycle (plain attribute, single-threaded cycle-loop
+        #: discipline); gpu-allocate reads it to attribute a cold pack
+        self.in_micro_cycle = False
+
     # ---- lifecycle ----
 
     def run(self) -> None:
@@ -200,6 +234,76 @@ class SchedulerCache(Cache):
 
     def wait_for_cache_sync(self) -> bool:
         return True
+
+    # ---- change notification (the event-driven scheduler's wake) ----
+
+    def add_change_listener(self, fn) -> None:
+        """Register ``fn(category: str)`` to be called after every
+        scheduling-relevant cache mutation (watch events — never our own
+        bind/evict accounting, which would be a feedback loop).
+        Listeners run outside the cache mutex, on the thread that
+        delivered the event; they must be cheap and non-blocking (the
+        scheduler's listener just flips a condition variable)."""
+        with self._mutex:
+            if fn not in self._change_listeners:
+                self._change_listeners.append(fn)
+
+    def remove_change_listener(self, fn) -> None:
+        with self._mutex:
+            if fn in self._change_listeners:
+                self._change_listeners.remove(fn)
+
+    def _emit_change(self, category: Optional[str]) -> None:
+        """Fan a change category out to the listeners.  Called OUTSIDE
+        the mutex by the public event handlers; ``None`` (a suppressed
+        bind-echo) is a no-op."""
+        if category is None:
+            return
+        with self._mutex:
+            listeners = list(self._change_listeners)
+        for fn in listeners:
+            try:
+                fn(category)
+            except Exception as e:  # noqa: BLE001 — a bad listener must
+                # not break event delivery
+                log.error("cache change listener failed: %s", e)
+
+    def has_schedulable_pending(self) -> bool:
+        """Is there any pending task a scheduling cycle could act on?
+        The event-driven loop consults this before spending a session on
+        a capacity-freed wake ("node"/"group" triggers).  Answered O(1)
+        from the incremental ledger's schedulable-work counter (the set
+        of jobs with a live PodGroup and a non-empty Pending bucket)."""
+        with self._mutex:
+            return self.share_ledger.schedulable_count > 0
+
+    def ledger_counts(self):
+        """(resident, schedulable) job counts from the incremental
+        ledger — the volcano_resident_jobs / volcano_schedulable_jobs
+        gauges."""
+        with self._mutex:
+            return (
+                self.share_ledger.resident_count,
+                self.share_ledger.schedulable_count,
+            )
+
+    @staticmethod
+    def _classify_pod_update(old_ti: TaskInfo, new_ti: TaskInfo,
+                             spec_changed: bool) -> Optional[str]:
+        """Wake category for a pod MODIFIED event — or None for churn a
+        scheduling cycle cannot act on (the common case in steady
+        state: our own bind's watch echo and the kubelet's
+        Pending→Running flip, which would otherwise wake the loop once
+        per placement)."""
+        if spec_changed:
+            return "task"
+        if is_terminated(new_ti.status) and not is_terminated(old_ti.status):
+            return "node"  # capacity freed — stuck tasks may now fit
+        if not old_ti.node_name and new_ti.node_name:
+            return None  # bind echo of a placement this loop made
+        if old_ti.status != new_ti.status and new_ti.status == TaskStatus.Pending:
+            return "task"  # task returned to schedulable
+        return None
 
     # ---- warm-cycle change tracking ----
 
@@ -224,6 +328,11 @@ class SchedulerCache(Cache):
         # requires-lock: self._mutex
         self._rev += 1
         self._job_mut_rev[uid] = self._rev
+        # every handler marks AFTER mutating the JobInfo, so the ledger
+        # observes the post-mutation truth here — one diff per event,
+        # never a sweep.  (delete_pod_group marks with pod_group already
+        # None before dropping the job, so the retraction is covered.)
+        self.share_ledger.observe(self.jobs.get(uid), uid)
 
     def _mark_topology(self) -> None:
         # requires-lock: self._mutex
@@ -335,52 +444,72 @@ class SchedulerCache(Cache):
             ti = new_task_info(pod)
             self._mark_task(ti.uid)
             self._add_task(ti)
+        # a freshly-submitted schedulable pod is THE micro-cycle trigger;
+        # a pre-bound or terminated pod only moves accounting
+        self._emit_change(
+            "task"
+            if not ti.node_name and ti.status == TaskStatus.Pending
+            else None
+        )
 
     def update_pod(self, old_pod: core.Pod, new_pod: core.Pod) -> None:
         with self._mutex:
+            old_ti = new_task_info(old_pod)
             new_ti = new_task_info(new_pod)
             # status/node churn re-derives job/node accounting (marked by
             # _delete/_add below) but keeps the packed task row clean —
             # only spec-level changes invalidate it
-            if _task_pack_relevant_changed(old_pod, new_pod):
+            spec_changed = _task_pack_relevant_changed(old_pod, new_pod)
+            if spec_changed:
                 self._mark_task(new_ti.uid)
-            self._delete_task(new_task_info(old_pod))
+            self._delete_task(old_ti)
             self._add_task(new_ti)
+        self._emit_change(
+            self._classify_pod_update(old_ti, new_ti, spec_changed)
+        )
 
     def delete_pod(self, pod: core.Pod) -> None:
         with self._mutex:
             ti = new_task_info(pod)
             self._mark_task(ti.uid)
             self._delete_task(ti)
+        # a deleted bound pod frees capacity stuck tasks may want; a
+        # deleted pending pod just removes work
+        self._emit_change("node" if ti.node_name else None)
 
     # ---- event handlers: nodes (event_handlers.go:255-354) ----
 
     def add_node(self, node: core.Node) -> None:
         with self._mutex:
             name = node.metadata.name
-            if name in self.nodes:
-                self.nodes[name].set_node(node)
-            else:
+            fresh = name not in self.nodes
+            if fresh:
                 self.nodes[name] = NodeInfo(node)
                 self._mark_topology()
+            else:
+                self.nodes[name].set_node(node)
             self._mark_node_full(name)
+        self._emit_change("topology" if fresh else "node")
 
     def update_node(self, old_node: core.Node, new_node: core.Node) -> None:
         self.add_node(new_node)
 
     def delete_node(self, node: core.Node) -> None:
         with self._mutex:
-            if self.nodes.pop(node.metadata.name, None) is not None:
+            popped = self.nodes.pop(node.metadata.name, None) is not None
+            if popped:
                 self._mark_topology()
                 self._mark_node_full(node.metadata.name)
                 # mutation stamps only matter for LIVE objects (absent
                 # entry = never reusable) — drop so the dict tracks the
                 # live node set, not historical churn
                 self._node_mut_rev.pop(node.metadata.name, None)
+        if popped:
+            self._emit_change("topology")
 
     # ---- event handlers: podgroups (event_handlers.go:356-581) ----
 
-    def add_pod_group(self, pg: scheduling.PodGroup) -> None:
+    def _set_pod_group(self, pg: scheduling.PodGroup) -> None:
         with self._mutex:
             job_id = pg.key()
             if job_id not in self.jobs:
@@ -388,8 +517,24 @@ class SchedulerCache(Cache):
             self.jobs[job_id].set_pod_group(pg)
             self._mark_job(job_id)
 
+    def add_pod_group(self, pg: scheduling.PodGroup) -> None:
+        self._set_pod_group(pg)
+        # a gang group's members arrive as an event storm right behind
+        # it — route the whole arrival to a full cycle (the gang/fair-
+        # share re-equilibration path) instead of micro-scheduling a
+        # half-arrived gang
+        self._emit_change(
+            "gang" if (pg.spec.min_member or 0) > 1 else "group"
+        )
+
     def update_pod_group(self, old_pg, new_pg: scheduling.PodGroup) -> None:
-        self.add_pod_group(new_pg)
+        self._set_pod_group(new_pg)
+        # the overwhelmingly common MODIFIED is our own status writeback
+        # echoing back through the watch — only a SPEC change is
+        # scheduling-relevant
+        self._emit_change(
+            "group" if old_pg is None or old_pg.spec != new_pg.spec else None
+        )
 
     def delete_pod_group(self, pg: scheduling.PodGroup) -> None:
         with self._mutex:
@@ -403,6 +548,7 @@ class SchedulerCache(Cache):
                     del self.jobs[pg.key()]
                     self._job_mut_rev.pop(pg.key(), None)
                     self.unschedulable_digest.pop(pg.key(), None)
+        self._emit_change("group")
 
     # ---- event handlers: queues (event_handlers.go:696-863) ----
 
@@ -410,13 +556,24 @@ class SchedulerCache(Cache):
         with self._mutex:
             qi = QueueInfo(queue)
             self.queues[qi.uid] = qi
+        self._emit_change("group")
 
     def update_queue(self, old_queue, new_queue: scheduling.Queue) -> None:
-        self.add_queue(new_queue)
+        with self._mutex:
+            qi = QueueInfo(new_queue)
+            self.queues[qi.uid] = qi
+        # status writebacks echo through the watch every cycle — only a
+        # spec change (weight/capability) is scheduling-relevant
+        self._emit_change(
+            "group"
+            if old_queue is None or old_queue.spec != new_queue.spec
+            else None
+        )
 
     def delete_queue(self, queue: scheduling.Queue) -> None:
         with self._mutex:
             self.queues.pop(queue.metadata.name, None)
+        self._emit_change("group")
 
     # ---- event handlers: priority classes (event_handlers.go:865-958) ----
 
@@ -425,34 +582,87 @@ class SchedulerCache(Cache):
             self.priority_classes[pc.metadata.name] = pc
             if pc.global_default:
                 self.default_priority = pc.value
+        self._emit_change("group")
 
     def delete_priority_class(self, pc: core.PriorityClass) -> None:
         with self._mutex:
             self.priority_classes.pop(pc.metadata.name, None)
             if pc.global_default:
                 self.default_priority = 0
+        self._emit_change("group")
 
     # ---- PVC handlers (pvcInformer wiring, cache.go:415-421) ----
 
-    def add_pvc(self, pvc: core.PersistentVolumeClaim) -> None:
+    def _put_pvc(self, pvc: core.PersistentVolumeClaim) -> None:
         with self._mutex:
             self.pvcs[f"{pvc.metadata.namespace}/{pvc.metadata.name}"] = pvc
 
+    def add_pvc(self, pvc: core.PersistentVolumeClaim) -> None:
+        self._put_pvc(pvc)
+        self._emit_change("group")
+
     def update_pvc(self, old, new: core.PersistentVolumeClaim) -> None:
+        # echo suppression: bind_volumes already parked our own
+        # provisioning write via _put_pvc, so when the watch echoes it
+        # back the cached object matches the incoming one (modulo the
+        # store's resourceVersion bump) — such an update carries no new
+        # scheduling information and must not wake the event loop
+        with self._mutex:
+            key = f"{new.metadata.namespace}/{new.metadata.name}"
+            cached = self.pvcs.get(key)
+        if cached is not None:
+            a, b = cached.clone(), new.clone()
+            a.metadata.resource_version = b.metadata.resource_version = 0
+            if a == b:
+                self._put_pvc(new)  # keep the fresher resourceVersion
+                return
         self.add_pvc(new)
 
     def delete_pvc(self, pvc: core.PersistentVolumeClaim) -> None:
         with self._mutex:
             self.pvcs.pop(f"{pvc.metadata.namespace}/{pvc.metadata.name}", None)
+        self._emit_change("group")
+
+    # ---- event handlers: resource quotas (event_handlers.go:961-1036) ----
+
+    def add_resource_quota(self, namespace: str, quota_name: str, weight: Optional[int]) -> None:
+        with self._mutex:
+            coll = self.namespace_collections.setdefault(
+                namespace, NamespaceCollection(namespace)
+            )
+            coll.update(quota_name, weight)
+        self._emit_change("group")
+
+    def delete_resource_quota(self, namespace: str, quota_name: str) -> None:
+        with self._mutex:
+            coll = self.namespace_collections.get(namespace)
+            if coll is not None:
+                coll.delete(quota_name)
+        self._emit_change("group")
 
     # ---- snapshot (cache.go:712-790) ----
 
-    def snapshot(self) -> ClusterInfo:
-        """Every ready node, queue and PVC, and every job with a PodGroup
-        in a known queue, deep-copied for one session — or, with
-        ``snapshot_reuse``, the previous session's clone of an object
-        that session left untouched and the cache has not mutated since.
-        Stamps the change-tracking epoch (``pack_epoch``)."""
+    def snapshot(self, scope: str = "full") -> ClusterInfo:
+        """Every ready node, queue and PVC, each namespace's weight, and
+        every job with a PodGroup in a known queue, deep-copied for one
+        session — or, with ``snapshot_reuse``, the previous session's
+        clone of an object that session left untouched and the cache has
+        not mutated since.  Stamps the change-tracking epoch
+        (``pack_epoch``).
+
+        ``scope`` is the incremental-session seam:
+          "full"       — every job (the classic snapshot);
+          "restricted" — clone ONLY jobs with schedulable work
+                         (O(pending), the restricted micro-cycle);
+          "shadow"     — full job set, but ALSO annotated like a
+                         restricted snapshot, so one atomic world can
+                         feed both the restricted session and its
+                         shadow full-session cross-check (computing the
+                         restricted set outside the mutex would race
+                         cache churn into false divergence).
+        "restricted"/"shadow" attach ``share_seed`` (the ledger's cloned
+        totals) and ``restricted_uids`` (the schedulable jobs that made
+        it into the snapshot)."""
         with self._mutex:
             snapshot = ClusterInfo()
             self._bound_dirty()
@@ -479,7 +689,17 @@ class SchedulerCache(Cache):
                 snapshot.queues[queue.uid] = queue.clone()
             for key, pvc in self.pvcs.items():
                 snapshot.pvcs[key] = pvc.clone()
-            for job in self.jobs.values():
+            for name, coll in self.namespace_collections.items():
+                snapshot.namespace_info[name] = coll.snapshot()
+            if scope == "restricted":
+                job_iter = [
+                    self.jobs[uid]
+                    for uid in sorted(self.share_ledger.schedulable_uids())
+                    if uid in self.jobs
+                ]
+            else:
+                job_iter = self.jobs.values()
+            for job in job_iter:
                 # No scheduling spec → not schedulable (cache.go:765-770).
                 if job.pod_group is None:
                     continue
@@ -510,6 +730,15 @@ class SchedulerCache(Cache):
                 dirty_nodes=set(self._dirty_nodes),
                 dirty_nodes_full=set(self._dirty_nodes_full),
             )
+            if scope != "full":
+                snapshot.share_seed = self.share_ledger.seed()
+                if scope == "restricted":
+                    snapshot.restricted_uids = set(snapshot.jobs)
+                else:
+                    snapshot.restricted_uids = (
+                        self.share_ledger.schedulable_uids()
+                        & set(snapshot.jobs)
+                    )
             self.last_pool_reuse = (reused_n, reused_j)
             if self.snapshot_reuse:
                 self._clone_gen += 1
@@ -685,7 +914,9 @@ class SchedulerCache(Cache):
             )
             pvc.spec["volumeName"] = f"pv-{pvc.metadata.name}"
             pvc.status["phase"] = "Bound"
-            self.add_pvc(pvc)
+            # _put_pvc, not add_pvc: our own provisioning write must not
+            # wake the event loop
+            self._put_pvc(pvc)
         task.volume_ready = True
 
     # ---- status writeback ----

@@ -1,10 +1,11 @@
 """OpenSession/CloseSession — session lifecycle.
 
-A copy of ``volcano_tpu/framework/framework.py`` for full sessions: the
-port has no restricted (incremental) sessions, so ``open_session``
-always takes a full snapshot.  It stamps the snapshot's change-tracking
-epoch and clone-pool generation on the session, and ``close_session``
-hands the session's untouched clones back to the cache's pool.
+A copy of ``volcano_tpu/framework/framework.py``.  ``open_session``
+takes the cache's snapshot, or a snapshot the caller took (a restricted
+session and its shadow cross-check share one), optionally restricted to
+a subset of its jobs; it stamps the snapshot's change-tracking epoch and
+clone-pool generation on the session, and ``close_session`` hands the
+session's untouched clones back to the cache's pool.
 
 Reference: pkg/scheduler/framework/framework.go:30-66.
 """
@@ -31,15 +32,28 @@ log = get_logger(__name__)
 
 def open_session(
     cache: Cache, tiers: List[Tier], configurations: List[Configuration],
+    snapshot=None, job_uids=None,
 ) -> Session:
-    """framework.go:30-53 + session.go openSession:72-139."""
+    """framework.go:30-53 + session.go openSession:72-139.
+
+    ``snapshot``/``job_uids`` are the incremental-session seams
+    (volcano_tpu_torch/incremental/subgraph.py): a pre-taken snapshot
+    skips the cache call (so a restricted session and its shadow
+    cross-check derive from ONE atomic world), and ``job_uids``
+    restricts the session's job view to that subset — carrying the
+    snapshot's share seed into ``ssn.share_seed`` so proportion/DRF can
+    seed the totals the excluded jobs would have contributed.
+    Restricted sessions run with ``pack_epoch=None``: the
+    cycle-persistent warm packer's registry must only ever consume full
+    worlds."""
     rec = trace.get_recorder()
     open_start = time.perf_counter()
     ssn = Session(cache)
     ssn.tiers = tiers
     ssn.configurations = configurations
 
-    snapshot = cache.snapshot()
+    if snapshot is None:
+        snapshot = cache.snapshot()
     ssn.jobs = snapshot.jobs
     ssn.nodes = snapshot.nodes
     ssn.queues = snapshot.queues
@@ -47,6 +61,14 @@ def open_session(
     ssn.pvcs = snapshot.pvcs
     ssn.pack_epoch = getattr(snapshot, "pack_epoch", None)
     ssn.clone_gen = getattr(snapshot, "clone_gen", 0)
+    if job_uids is not None:
+        ssn.jobs = {
+            uid: snapshot.jobs[uid]
+            for uid in job_uids
+            if uid in snapshot.jobs
+        }
+        ssn.share_seed = getattr(snapshot, "share_seed", None)
+        ssn.pack_epoch = None
 
     # Instantiate plugins listed in tiers (framework.go:37-45).
     for tier in tiers:

@@ -74,6 +74,13 @@ class Session:
         self.namespace_info: Dict[str, NamespaceInfo] = {}
         self.pvcs: Dict[str, object] = {}
 
+        #: ShareSeed exported by the cache's incremental fair-share
+        #: ledger (volcano_tpu_torch/incremental/shares.py) — set by
+        #: open_session for RESTRICTED sessions only, so proportion/DRF
+        #: can seed the per-queue/per-namespace totals the excluded
+        #: resident jobs would have contributed.  None in full sessions
+        #: (plugins sweep ssn.jobs as always).
+        self.share_seed = None
         #: change-tracking epoch of the snapshot this session computes on
         #: (ClusterInfo.pack_epoch) — consumed by the warm packer
         self.pack_epoch = None

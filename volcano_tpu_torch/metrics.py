@@ -5,8 +5,10 @@ The scheduling cycle writes the series the JAX package's scheduler loop,
 framework, cache, plugins and actions write (cycle, action, plugin and
 task latencies, sessions opened, schedule attempts,
 unschedulable reasons, kernel phase latencies, the explain reduction's
-latency, preemption victims and attempts), each under the same name
-and labels; a histogram keeps the reference's buckets, its count and its sum.
+latency, preemption victims and attempts), and the event-driven loop the
+series of its micro-cycles, full-cycle fallbacks, resident and
+schedulable jobs and shadow cross-checks, each under the same name and
+labels; a histogram keeps the reference's buckets, its count and its sum.
 
 ``volcano_executor_failures_total{executor,cause}`` counts every failed or
 refused kernel call, a device phase that overran the cycle deadline and
@@ -204,9 +206,61 @@ def update_e2e_duration(seconds: float) -> None:
 
 
 def register_session_scope(mode: str) -> None:
-    """One session opened; mode is "full" (the port opens no restricted
-    sessions)."""
+    """One session opened, by scope; mode ∈ {full, restricted} (a
+    restricted micro-cycle opens over the jobs with pending work only,
+    incremental/subgraph.py)."""
     registry.inc(f"{_NAMESPACE}_session_scope_total", {"mode": mode})
+
+
+# ---- event-driven micro-cycles (scheduler/scheduler.py) ----
+
+
+def register_micro_cycle(trigger: str) -> None:
+    """volcano_micro_cycles_total{trigger}: one count per event-driven
+    micro-cycle; trigger ∈ {task, node, group, gang, topology, mixed} —
+    the coalesced change category that woke the loop."""
+    registry.inc(f"{_NAMESPACE}_micro_cycles_total", {"trigger": trigger})
+
+
+def update_micro_cycle_duration(seconds: float) -> None:
+    """volcano_micro_cycle_latency_milliseconds: wall-clock of one
+    micro-cycle (wake → session closed), kept apart from the e2e
+    histogram so full-cycle mass cannot hide a micro-path regression."""
+    registry.observe(f"{_NAMESPACE}_micro_cycle_latency_milliseconds", {},
+                     seconds * 1e3)
+
+
+def register_full_cycle_fallback(cause: str) -> None:
+    """volcano_full_cycle_fallbacks_total{cause}: an event that wanted a
+    micro-cycle ran (or forced) a full cycle instead.  cause ∈
+    {gang-arrival, topology, registry-overflow, axis-change, node-set,
+    pack-cold} — the scheduler's routing causes plus the pack-level
+    causes PackCache.last_stats reports."""
+    registry.inc(f"{_NAMESPACE}_full_cycle_fallbacks_total", {"cause": cause})
+
+
+# ---- incremental-session plane (volcano_tpu_torch/incremental) ----
+
+
+def update_resident_jobs(count: int) -> None:
+    """volcano_resident_jobs: jobs resident in the scheduler cache
+    (everything with a PodGroup, running or pending) — the O(resident)
+    cost a full session pays and a restricted session does not."""
+    registry.set_gauge(f"{_NAMESPACE}_resident_jobs", {}, count)
+
+
+def update_schedulable_jobs(count: int) -> None:
+    """volcano_schedulable_jobs: jobs with schedulable pending work
+    (the share ledger's schedulable set) — the O(pending) working set a
+    restricted session opens over."""
+    registry.set_gauge(f"{_NAMESPACE}_schedulable_jobs", {}, count)
+
+
+def register_share_ledger_drift_check(result: str) -> None:
+    """volcano_share_ledger_drift_checks_total{result}: one count per
+    shadow full-session cross-check of a restricted session; result ∈
+    {ok, divergence} (a divergence raises in strict mode)."""
+    registry.inc(f"{_NAMESPACE}_share_ledger_drift_checks_total", {"result": result})
 
 
 def update_plugin_duration(plugin_name: str, seconds: float) -> None:

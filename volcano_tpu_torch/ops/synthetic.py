@@ -6,9 +6,10 @@ generation is numpy ``RandomState(seed)`` in the same call order, so the
 same arguments give byte-identical arrays (and API objects whose dicts
 are equal) in both packages.  ``generate_lr_mode_split``,
 ``add_scalar_lanes``, ``generate_preempt_cluster_objects`` (the
-preempt config as API objects) and the scheduler loop's churn
-(``loop_world``, ``record_binds``, ``generate_loop_events``) are the
-port's own.
+preempt config as API objects), the scheduler loop's churn
+(``loop_world``, ``record_binds``, ``generate_loop_events``) and the
+event-driven loop's arrivals (``generate_micro_events``) are the port's
+own.
 """
 
 from __future__ import annotations
@@ -707,4 +708,105 @@ def generate_loop_events(world: dict, cycle: int, seed: int = 0) -> list:
     while asked < LOOP_BACKLOG * free:
         j += 1
         asked += arrive(j, pair)
+    return events
+
+
+# ---- the event-driven loop's traffic (chip_smoke.py's micro cells) ----
+
+#: the share of fully bound gangs that finish in each micro window
+MICRO_FINISH_FRACTION = 0.01
+#: jobs arriving in each micro window at 50k pods (PodGroups with
+#: minMember 1 of MICRO_JOB_PODS pods each)
+MICRO_JOBS = 64
+MICRO_JOB_PODS = 4
+#: the window that also brings one gang of MICRO_GANG pods (minMember
+#: MICRO_GANG), which the event-driven loop routes to a full cycle
+MICRO_GANG_WINDOW = 3
+MICRO_GANG = 8
+
+
+def micro_job(name: str, stamp: float, min_member: int, n_pods: int, rng) -> tuple:
+    """One arriving job of the micro cells, as store dicts: its PodGroup
+    ``bench/name`` (queue "default", phase Inqueue) and ``n_pods`` pending
+    pods ``name-0`` … in one of the config's request shapes, the cpu and
+    then the memory drawn from ``rng``."""
+    from volcano_tpu_torch.apis.scheduling import GROUP_NAME_ANNOTATION_KEY as GROUP
+
+    cpu, mem = int(rng.choice(LOOP_CPU)), int(rng.choice(LOOP_MEM))
+    pg = {
+        "metadata": {"name": name, "namespace": "bench", "uid": f"pg-{name}",
+                     "creationTimestamp": stamp},
+        "spec": {"minMember": min_member, "queue": "default"},
+        "status": {"phase": "Inqueue"},
+    }
+    pods = [{
+        "metadata": {"name": f"{name}-{i}", "namespace": "bench",
+                     "uid": f"pod-{name}-{i}", "annotations": {GROUP: name},
+                     "creationTimestamp": stamp},
+        "spec": {"containers": [{"name": "main", "resources": {
+            "requests": {"cpu": f"{cpu}m", "memory": f"{mem}Mi"}}}],
+            "nodeName": ""},
+        "status": {"phase": "Pending"},
+    } for i in range(n_pods)]
+    return pg, pods
+
+
+def generate_micro_events(world: dict, window: int, seed: int = 0, binds=(),
+                          jobs: int = MICRO_JOBS) -> list:
+    """The store's events of micro window ``window`` (1, 2, …) of a
+    micro cell, applied to ``world`` (:func:`loop_world`); each is a dict
+    like :func:`generate_loop_events`' (``kind`` "pod" or "pod_group").
+    Seeded by ``(seed, window)``:
+
+      * ``binds``, the last window's binds (a binder's ``(ns/name,
+        hostname)`` record), echo back Pending → Running on their nodes
+        (``update_pod``: a bind echo, which wakes no cycle);
+      * ``MICRO_FINISH_FRACTION`` of the gangs whose pods are all bound
+        finish: their pods are deleted, then their PodGroups;
+      * ``jobs`` jobs arrive, each a PodGroup with minMember 1 and
+        ``MICRO_JOB_PODS`` pods in one of the config's request shapes;
+      * in window ``MICRO_GANG_WINDOW``, one gang of ``MICRO_GANG`` pods
+        (minMember ``MICRO_GANG``) arrives after them.
+    """
+    from volcano_tpu_torch.apis.scheduling import GROUP_NAME_ANNOTATION_KEY as GROUP
+
+    rng = np.random.RandomState([seed, window])
+    pods, groups = world["pods"], world["pod_groups"]
+    events = []
+    for name, host in binds:
+        old = pods[name]
+        new = json.loads(json.dumps(old))
+        new["spec"]["nodeName"] = host
+        new["status"]["phase"] = "Running"
+        pods[name] = new
+        events.append({"op": "update", "kind": "pod", "old": old, "object": new})
+
+    members = {}
+    for name, pod in pods.items():
+        group = pod["metadata"]["annotations"][GROUP]
+        members.setdefault(f"{pod['metadata']['namespace']}/{group}", []).append(name)
+    bound = sorted(g for g in groups
+                   if members.get(g) and all(pods[p]["spec"].get("nodeName")
+                                             for p in members[g]))
+    n_finish = int(round(MICRO_FINISH_FRACTION * len(bound)))
+    finished = [bound[i] for i in sorted(rng.choice(len(bound), n_finish, replace=False))]
+    for g in finished:
+        for p in members[g]:
+            events.append({"op": "delete", "kind": "pod", "object": pods.pop(p)})
+    for g in finished:
+        events.append({"op": "delete", "kind": "pod_group", "object": groups.pop(g)})
+
+    def arrive(name: str, stamp: float, min_member: int, n_pods: int) -> None:
+        pg, job_pods = micro_job(name, stamp, min_member, n_pods, rng)
+        groups[f"bench/{name}"] = pg
+        events.append({"op": "add", "kind": "pod_group", "object": pg})
+        for pod in job_pods:
+            pods[f"bench/{pod['metadata']['name']}"] = pod
+            events.append({"op": "add", "kind": "pod", "object": pod})
+
+    for j in range(jobs):
+        arrive(f"micro{window:02d}-{j:05d}", float(1_000_000 * window + j), 1, MICRO_JOB_PODS)
+    if window == MICRO_GANG_WINDOW:
+        arrive(f"micro{window:02d}-gang", float(1_000_000 * window + jobs), MICRO_GANG,
+               MICRO_GANG)
     return events

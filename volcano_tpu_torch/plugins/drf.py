@@ -1,8 +1,8 @@
 """DRF plugin — Dominant Resource Fairness job ordering and preemption.
 
-A copy of ``volcano_tpu/plugins/drf.py`` for full sessions: the port has
-no share-ledger seed, so the namespace totals always come from the job
-sweep.
+A copy of ``volcano_tpu/plugins/drf.py``: the namespace totals come from
+the job sweep, or in a restricted session from the share ledger's seed
+(``ssn.share_seed``).
 
 Reference: pkg/scheduler/plugins/drf/drf.go.
 """
@@ -75,6 +75,22 @@ class DrfPlugin(Plugin):
 
         namespace_order_enabled = self._namespace_order_enabled(ssn)
 
+        # A restricted session (incremental/subgraph.py) carries the
+        # share ledger's seed.  Per-job attrs need no seeding — they
+        # only matter for jobs the session can order/preempt, all of
+        # which are IN the restricted view — but the namespace
+        # aggregates span every resident job, so they come from the
+        # seed instead of the (restricted) job sweep below.
+        seed = getattr(ssn, "share_seed", None)
+        if namespace_order_enabled and seed is not None:
+            for ns, allocated in seed.namespaces.items():
+                ns_opt = _Attr()
+                # clone: on_allocate mutates in place; the seed belongs
+                # to the snapshot, not this session
+                ns_opt.allocated = allocated.clone()
+                self._update_share(ns_opt)
+                self.namespace_opts[ns] = ns_opt
+
         for job in ssn.jobs.values():
             attr = _Attr()
             for status, tasks in job.task_status_index.items():
@@ -84,7 +100,7 @@ class DrfPlugin(Plugin):
             self._update_share(attr)
             self.job_attrs[job.uid] = attr
 
-            if namespace_order_enabled:
+            if namespace_order_enabled and seed is None:
                 ns_opt = self.namespace_opts.setdefault(job.namespace, _Attr())
                 ns_opt.allocated.add(attr.allocated)
                 self._update_share(ns_opt)

@@ -1,8 +1,8 @@
 """Proportion plugin — queue fair share by iterative water-filling.
 
-A copy of ``volcano_tpu/plugins/proportion.py`` for full sessions: the
-port has no share-ledger seed, so the queue totals always come from the
-job sweep.
+A copy of ``volcano_tpu/plugins/proportion.py``: the queue totals come
+from the job sweep, or in a restricted session from the share ledger's
+seed (``ssn.share_seed``).
 
 Reference: pkg/scheduler/plugins/proportion/proportion.go.
 """
@@ -57,24 +57,45 @@ class ProportionPlugin(Plugin):
         for node in ssn.nodes.values():
             self.total_resource.add(node.allocatable)
 
-        # Build queue attributes (proportion.go:70-102).
-        for job in ssn.jobs.values():
-            if job.queue not in self.queue_opts:
-                queue = ssn.queues.get(job.queue)
+        # Build queue attributes (proportion.go:70-102).  A restricted
+        # session (incremental/subgraph.py) carries the share ledger's
+        # seed: the per-queue allocated/request totals the full sweep
+        # below would have produced over ALL resident jobs — exact, not
+        # approximate (integer cpu-milli/bytes in float64, so the
+        # incremental sums match the swept sums bit-for-bit), covering
+        # the jobs the restricted job view excludes.  Seed entries for
+        # queues absent from the snapshot are skipped, exactly as the
+        # sweep skips jobs whose queue is gone.
+        seed = getattr(ssn, "share_seed", None)
+        if seed is not None:
+            for uid, (allocated, request) in seed.queues.items():
+                queue = ssn.queues.get(uid)
                 if queue is None:
                     continue
-                self.queue_opts[job.queue] = _QueueAttr(
-                    queue.uid, queue.name, queue.weight
-                )
-            attr = self.queue_opts[job.queue]
-            for status, tasks in job.task_status_index.items():
-                if allocated_status(status):
-                    for t in tasks.values():
-                        attr.allocated.add(t.resreq)
-                        attr.request.add(t.resreq)
-                elif status == TaskStatus.Pending:
-                    for t in tasks.values():
-                        attr.request.add(t.resreq)
+                attr = _QueueAttr(queue.uid, queue.name, queue.weight)
+                # clone: on_allocate mutates these in place, and the
+                # seed belongs to the snapshot, not this session
+                attr.allocated = allocated.clone()
+                attr.request = request.clone()
+                self.queue_opts[uid] = attr
+        else:
+            for job in ssn.jobs.values():
+                if job.queue not in self.queue_opts:
+                    queue = ssn.queues.get(job.queue)
+                    if queue is None:
+                        continue
+                    self.queue_opts[job.queue] = _QueueAttr(
+                        queue.uid, queue.name, queue.weight
+                    )
+                attr = self.queue_opts[job.queue]
+                for status, tasks in job.task_status_index.items():
+                    if allocated_status(status):
+                        for t in tasks.values():
+                            attr.allocated.add(t.resreq)
+                            attr.request.add(t.resreq)
+                    elif status == TaskStatus.Pending:
+                        for t in tasks.values():
+                            attr.request.add(t.resreq)
 
         # Iterative water-filling of deserved (proportion.go:104-157).
         remaining = self.total_resource.clone()
