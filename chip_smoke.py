@@ -23,7 +23,9 @@ Phases, each of which fails the run:
      with no device on 100k pods (90k victims + 10k preemptors) x 10k
      nodes: each must run through its kernel (launch count > 0, executor
      ``cuda``) and equal the port's PyTorch specification (and, for
-     preempt, the plain pass) on the same session; the session kernel's
+     preempt, the plain pass) on the same session (allocate's, with
+     phase 5's, computed on the CPU beside phases 2-6 by ``SpecPool`` and
+     held after them); the session kernel's
      fast steps must equal the repeated rows counted on the host, the
      preempt kernel's fast attempts the host's count, and each kernel
      with its plane off must equal the pass with it; latency, kernel time
@@ -71,7 +73,7 @@ Phases, each of which fails the run:
      cell.  No kernel failure may be counted on any main path;
      then the scheduler loop (``phase_loop``): ``Scheduler.run_once``
      cycle after cycle on one cache with snapshot reuse, from a policy
-     file, for each of LOOP_CELLS — 6 cycles at 50k x 10k with every
+     file, for each of LOOP_CELLS — 4 cycles at 50k x 10k with every
      bound pod returned to Pending between cycles (``update_pod``, spec
      unchanged; every cycle the JAX package's cycle digest, every cycle
      after the first a warm pack reusing all 50,000 task rows), 5 at
@@ -93,12 +95,28 @@ Phases, each of which fails the run:
      cause, every session on the session kernel; then MICRO_STREAM, 1,000
      single-pod jobs at 100/s into ``Scheduler.run()`` in a thread, every
      pod bound, submit -> bind p50/p99/max printed; a ``{"micro": ...}``
-     line a cell;
+     line a cell; then the store (``phase_store``): the port's in-process
+     ``APIServer`` seeded with the cluster, a ``SchedulerCache(client=
+     SchedulerClient(api), snapshot_reuse=True)`` filled from its watch,
+     and ``Scheduler.run_once`` from a policy file, every bind, eviction,
+     Event, pod condition and PodGroup status landing in the store as a
+     commit frame, on the scheduling thread and again through the
+     pipelined commit plane (STORE_MODES, each on a fresh store): 2 cycles
+     at 50k x 10k (the store's digest STORE_DIGESTS, 50,000 Scheduled
+     Events, every PodGroup Running, the cache on store truth), the stream
+     (1,000 single-pod jobs at 100/s through ``api.create`` into
+     ``Scheduler.run()`` on the pipelined store, every pod bound, submit ->
+     bind p50/p99/max at store truth and from the histogram's
+     observations), 5 churn cycles at 10k x 1k with
+     ``generate_loop_events`` applied through the store's API
+     (STORE_LOOP_DIGESTS), and one preempting cycle whose evictions land
+     as store deletes (STORE_PREEMPT_DIGESTS); no commit failure, resync
+     entry or quarantined task; a ``{"store": ...}`` line a cell;
   7. the sidecar (``phase_sidecar``) — the compute-plane sidecar as a
      child process (``python -m volcano_tpu_torch.cmd.compute_plane
      --socket PATH --warmup``, serving on the card; its pid holds memory
      in ``nvidia-smi``), this process its scheduler through
-     ``executor.configure``: LOOP_A's 6 cycles through it (a full frame,
+     ``executor.configure``: LOOP_A's 4 cycles through it (a full frame,
      then delta frames; each cycle LOOP_A's digest, executor ``auto``,
      no fallback, no kernel launched here and the session kernel
      launched in the child, read through its SIGUSR1 status line), one
@@ -108,7 +126,7 @@ Phases, each of which fails the run:
      SIGKILLed and a 10k x 1k cycle on the in-process kernel with its
      digest, exactly one fallback counted and /healthz degraded; a
      ``{"sidecar": ...}`` line with the frames' bytes and round trips;
-  8. replay (``phase_replay``) — the trace recorder on: LOOP_A's 6
+  8. replay (``phase_replay``) — the trace recorder on: LOOP_A's 4
      cycles, LOOP_C's preempting cycle and LOOP_B's 5 churn cycles with
      ``trace.enable(dir, snapshot_every=1)``, each cycle with its digest
      and a journal record holding a bind decision per bind and the
@@ -239,9 +257,12 @@ DGX_CONFIG = dict(n_tasks=50_000, n_nodes=10_000, gang_size=8, label_classes=8,
 #: 232,448, so it runs on the session kernel's wide instance
 WIDE_CONFIG = dict(n_tasks=50_000, n_nodes=20_000, gang_size=8, label_classes=8,
                    taint_fraction=0.1)
+DGX_CELL = "dgx_h100_50k_pods_10k_nodes"
+WIDE_CELL = "50k_pods_20k_nodes_gang_predicates"
 #: the 9-lane session: the second config with 7 scalar lanes (device
 #: plugins) beside cpu and memory, more lanes than the shared layout takes
 LANES_SESSION = 9
+LANES_CELL = f"10k_pods_1k_nodes_fairshare_{LANES_SESSION}_lanes"
 #: candidates a task tracks in the blocked formulation's runs here: its
 #: inner step is launch-bound, so 32 slots cost what 8 do and stop no
 #: block of the cells (8, the reference's default, stops most of them)
@@ -249,7 +270,15 @@ BLOCKED_TOP_K = 32
 MAIN_CONFIG = "50k_pods_10k_nodes_gang_predicates"
 SECOND_CONFIG = "10k_pods_1k_nodes_fairshare"
 PREEMPT_CONFIG = "100k_pods_10k_nodes_preempt"
-WARM_RUNS = 5
+#: the packed-session cells whose assignment is held against the torch
+#: spec (``run_packed``) at full width, longest first.  The spec is a
+#: sequential scan, about a minute a cell on the card, so ``SpecPool``
+#: computes it on the CPU (the spec tier-1 holds against the JAX
+#: package), in two child processes beside phases 2-6
+SPEC_CELLS = (WIDE_CELL, MAIN_CONFIG, DGX_CELL, SECOND_CONFIG, LANES_CELL)
+#: warm sessions timed a packed-session cell: 3 give a median and keep the
+#: whole run inside its time limit
+WARM_RUNS = 3
 
 #: the scheduling cycle's tiers (the JAX package's bench/_profsetup.py)
 CYCLE_TIERS = (("priority", "gang"), ("drf", "predicates", "proportion", "nodeorder", "binpack"))
@@ -260,8 +289,8 @@ CYCLE_DIGESTS = {
     MAIN_CONFIG: "c5ccf48727093b88dd6634c8eb317b91cf968f30e419d920f5d637d389b374ca",
     SECOND_CONFIG: "9853688e576b441a556020ec00bb36671927f220ec2514ed5e728276f2e4859a",
 }
-#: cycles a cycle cell runs, each on a fresh cache
-CYCLE_RUNS = 5
+#: cycles a cycle cell runs, each on a fresh cache (3, as for WARM_RUNS)
+CYCLE_RUNS = 3
 
 #: the preempting cycle: its tiers (tests/test_preempt_kernel.py's), its
 #: actions, and its cells (generate_preempt_cluster_objects, seed 0) with
@@ -275,7 +304,7 @@ PREEMPT_CYCLE_CELLS = {
     PREEMPT_CYCLE_MAIN: dict(n_victims=90_000, n_nodes=10_000, n_preemptors=10_000),
     PREEMPT_CYCLE_SECOND: dict(n_victims=9_000, n_nodes=1_000, n_preemptors=1_000),
 }
-PREEMPT_CYCLE_RUNS = {PREEMPT_CYCLE_MAIN: 5, PREEMPT_CYCLE_SECOND: 3}
+PREEMPT_CYCLE_RUNS = {PREEMPT_CYCLE_MAIN: 3, PREEMPT_CYCLE_SECOND: 3}
 #: sha256 of repr((sorted evicted names, sorted (name, node) pipelined
 #: pairs)) that the JAX package's enqueue, jax-allocate, jax-preempt,
 #: backfill give on each cell's objects under PREEMPT_CYCLE_TIERS;
@@ -286,9 +315,11 @@ PREEMPT_CYCLE_DIGESTS = {
 }
 
 #: the scheduler loop's cells: ``Scheduler.run_once`` cycle after cycle
-#: on one cache (``snapshot_reuse=True``), from a policy file.  A cell
-#: names its cluster (a cycle config, or the preempt cell), its tiers and
-#: actions, its cycles, and what happens in the store between cycles:
+#: on one cache (``snapshot_reuse=True``), from a policy file (the revert
+#: cell's 4 cycles, a cold one and 3 warm, keep the whole run inside its
+#: time limit).  A cell names its cluster (a cycle config, or the
+#: preempt cell), its tiers and actions, its cycles, and what happens in
+#: the store between cycles:
 #: ``revert`` (every bound pod back to Pending through ``update_pod``
 #: with its spec unchanged) or ``churn`` (``generate_loop_events``, seed 0)
 LOOP_A = "loop_50k_pods_10k_nodes_revert"
@@ -296,7 +327,7 @@ LOOP_B = "loop_10k_pods_1k_nodes_churn"
 LOOP_C = "loop_10k_pods_1k_nodes_preempt"
 LOOP_CELLS = {
     LOOP_A: dict(config=MAIN_CONFIG, tiers=CYCLE_TIERS, actions=("gpu-allocate",),
-                 cycles=6, between="revert"),
+                 cycles=4, between="revert"),
     LOOP_B: dict(config=SECOND_CONFIG, tiers=CYCLE_TIERS, actions=("gpu-allocate",),
                  cycles=5, between="churn"),
     LOOP_C: dict(config=PREEMPT_CYCLE_SECOND, tiers=PREEMPT_CYCLE_TIERS,
@@ -370,6 +401,62 @@ MICRO_DIGESTS = {
 MICRO_S = "micro_50k_pods_10k_nodes_stream"
 MICRO_STREAM = dict(config=MAIN_CONFIG, rate=100, seconds=10.0, drain_s=30.0, period=10.0,
                     shadow_every=16, debounce_ms=5.0)
+
+#: the store cells (``phase_store``): the cluster created in the port's
+#: in-process ``APIServer`` (priority classes, nodes, pods, pod groups,
+#: queues, in the generator's order), a ``SchedulerCache(client=
+#: SchedulerClient(api), snapshot_reuse=True)`` filled from its watch, and
+#: ``Scheduler.run_once`` from a policy file; binds, evictions, Events,
+#: pod conditions and PodGroup statuses land in the store as commit frames,
+#: on the scheduling thread (``sync``) or through the pipelined commit plane
+#: with the reference daemon's two bind workers (``pipelined``), each mode
+#: on a fresh store.  A cell names its cluster, tiers, actions, cycles and
+#: what happens between cycles (``churn``: ``generate_loop_events``, seed 0,
+#: applied through the store's API)
+STORE_MODES = {
+    "sync": dict(pipelined_commit=False),
+    "pipelined": dict(pipelined_commit=True),
+}
+STORE_CYCLE = "store_50k_pods_10k_nodes_cycle"
+STORE_CHURN = "store_10k_pods_1k_nodes_churn"
+STORE_PREEMPT = "store_10k_pods_1k_nodes_preempt"
+STORE_STREAM = "store_50k_pods_10k_nodes_stream"
+STORE_CELLS = {
+    STORE_CYCLE: dict(config=MAIN_CONFIG, tiers=CYCLE_TIERS, actions=("gpu-allocate",),
+                      cycles=2, between=None),
+    STORE_CHURN: dict(config=SECOND_CONFIG, tiers=CYCLE_TIERS, actions=("gpu-allocate",),
+                      cycles=5, between="churn"),
+    STORE_PREEMPT: dict(config=PREEMPT_CYCLE_SECOND, tiers=PREEMPT_CYCLE_TIERS,
+                        actions=PREEMPT_CYCLE_ACTIONS, cycles=1, between=None),
+}
+#: sha256 of the store's sorted (ns/name, spec.node_name) pairs after a
+#: cycle config's first cycle through the store, as the JAX package's
+#: Scheduler with jax-allocate gives it through its own APIServer and
+#: SchedulerClient (tests/test_torch_store_loop.py recomputes them).  They
+#: differ from CYCLE_DIGESTS: the store stamps the wall clock on an object
+#: created with a zero creation timestamp, as an API server does, which
+#: makes the generator's first PodGroup the newest job
+STORE_DIGESTS = {
+    MAIN_CONFIG: "c4918e79d782eff31dd394afcc81f816f4ef2b52eb4c919856c4c3d9fb5cbb7a",
+    SECOND_CONFIG: "587433fafbf4f761d59ba6cc580e28089fe7b2e3da357c509967c0974854a175",
+}
+#: the same digest after each cycle of the churn cell
+STORE_LOOP_DIGESTS = {
+    STORE_CHURN: [
+        "587433fafbf4f761d59ba6cc580e28089fe7b2e3da357c509967c0974854a175",
+        "05364eee13d054b7cd9c49da9382b52b8f2c15002b12fdabfa1a5f46a57d9437",
+        "d5a0718bdd8aebab31448211406806832bf7d644cafe5c86a6e79560def10e41",
+        "9f580afe4e0cbd878821b5120ab0e66bf4a992f107116876ca839159ba2088c8",
+        "a2e5c3afada34793aaf2bbf0d3aa68894c8801f191771702bbba624ac31ee5b0",
+    ],
+}
+#: sha256 of repr((sorted pods deleted from the store, sorted pipelined
+#: (name, node) pairs)) of the preempt cell's cycle through the JAX
+#: package's store (the preempt cell binds nothing, and its digest is the
+#: cycle's without the store, PREEMPT_CYCLE_DIGESTS')
+STORE_PREEMPT_DIGESTS = {
+    PREEMPT_CYCLE_SECOND: "8bad40bf659689c3508a934dc810f6213a868194a3f6f81e10d0eaeaa792317d",
+}
 
 #: phase 2 sessions: the equivalence shapes of the JAX package's Pallas
 #: tests, plus one gang session with predicates at 2,000 x 1,000
@@ -1037,12 +1124,11 @@ def preempt_latency_floor_ms(inputs, fired: int, KQ: int) -> dict:
     return out
 
 
-def phase_main_path(name: str, card: str, compare_plain: bool) -> dict:
+def phase_main_path(name: str, card: str, compare_plain: bool, specs: SpecPool) -> dict:
     import torch
 
     from volcano_tpu_torch.ops import session_kernel
     from volcano_tpu_torch.ops.executor import execute_allocate, last_allocate_executor
-    from volcano_tpu_torch.ops.kernels import run_packed
     from volcano_tpu_torch.ops.session_kernel import (
         prepare_session_arrays,
         repeated_rows,
@@ -1066,13 +1152,9 @@ def phase_main_path(name: str, card: str, compare_plain: bool) -> dict:
     check(executor == "cuda", f"{name}: executor {executor!r}, expected 'cuda'")
     check(out.shape == (snap.n_tasks,), f"{name}: assignment shape {out.shape}")
 
-    t0 = time.perf_counter()
-    spec = run_packed(snap, device="cuda")
-    spec_s = time.perf_counter() - t0
-    check(np.array_equal(out, spec), f"{name}: assignment != torch spec run_packed")
+    specs.hold(name, out)
     placed = int((out >= 0).sum())
-    print(f"{name}: assignment == torch spec ({spec_s:.3f} s to compute the spec); "
-          f"placed {placed}/{snap.n_tasks}; first session {first_s * 1e3:.3f} ms; "
+    print(f"{name}: placed {placed}/{snap.n_tasks}; first session {first_s * 1e3:.3f} ms; "
           f"launches {launches}")
 
     # warm sessions, each paying its full host prepare
@@ -1160,6 +1242,72 @@ def phase_main_path(name: str, card: str, compare_plain: bool) -> dict:
               f"{narrow_ms:.3f} ms per pass ({narrow_ms * 1e6 / steps:.1f} ns per step); "
               f"full width {pass_ms * 1e6 / steps:.1f} ns per step; card {card}")
     return record
+
+
+def spec_snapshot(name: str):
+    """A SPEC_CELLS cell's snapshot (``generate_snapshot``)."""
+    from volcano_tpu_torch.ops.synthetic import (
+        add_scalar_lanes,
+        BASELINE_CONFIGS,
+        generate_snapshot,
+    )
+
+    if name == LANES_CELL:
+        return add_scalar_lanes(generate_snapshot(**BASELINE_CONFIGS[SECOND_CONFIG]),
+                                LANES_SESSION - 2, LANES_SESSION)
+    config = {DGX_CELL: DGX_CONFIG, WIDE_CELL: WIDE_CONFIG}.get(name) or BASELINE_CONFIGS[name]
+    return generate_snapshot(**config)
+
+
+def cpu_spec(name: str) -> tuple:
+    """The torch spec's assignment of a cell's snapshot on the CPU, and
+    the seconds it took."""
+    from volcano_tpu_torch.ops.kernels import run_packed
+
+    t0 = time.perf_counter()
+    out = run_packed(spec_snapshot(name), device="cpu")
+    return out, time.perf_counter() - t0
+
+
+def one_intra_op_thread() -> None:
+    import torch
+
+    torch.set_num_threads(1)
+
+
+class SpecPool:
+    """``cpu_spec`` of every SPEC_CELLS cell, in two spawned child
+    processes (no CUDA context; one intra-op thread each, so two of the
+    host's cores), started before the build.  A phase ``hold``s its
+    cell's assignment; ``check_all`` holds each against its spec after
+    the cycle phases (the children are done by then), and ``close`` stops
+    the children, before the long-lived-cache phases run."""
+
+    def __init__(self):
+        import multiprocessing
+
+        self.pool = multiprocessing.get_context("spawn").Pool(
+            2, initializer=one_intra_op_thread)
+        self.specs = {name: self.pool.apply_async(cpu_spec, (name,)) for name in SPEC_CELLS}
+        self.held = {}
+
+    def hold(self, name: str, out) -> None:
+        self.held[name] = out
+
+    def check_all(self) -> None:
+        check(set(self.held) == set(SPEC_CELLS), f"spec cells held: {sorted(self.held)}")
+        for name in SPEC_CELLS:
+            spec, spec_s = self.specs[name].get(timeout=600)
+            check(np.array_equal(self.held[name], spec),
+                  f"{name}: assignment != torch spec run_packed on the CPU")
+            print(f"{name}: assignment == torch spec run_packed on the CPU ({spec_s:.3f} s in "
+                  f"a child process beside the card's phases)")
+
+    def close(self) -> None:
+        if self.pool is not None:
+            self.pool.terminate()
+            self.pool.join()
+            self.pool = None
 
 
 def int_weights():
@@ -1277,7 +1425,7 @@ def warm_sessions(snap, n: int, want) -> list:
     return lat
 
 
-def phase_dgx_cell(card: str, f32_cell_ms: float) -> dict:
+def phase_dgx_cell(card: str, f32_cell_ms: float, specs: SpecPool) -> dict:
     """The DGX H100 cell through execute_allocate: the kernel in its int
     mode, equal to the torch spec on the card; its pass in int mode and,
     on the same data, in f32 mode, beside the f32 cell's pass."""
@@ -1285,11 +1433,11 @@ def phase_dgx_cell(card: str, f32_cell_ms: float) -> dict:
 
     from volcano_tpu_torch.ops import session_kernel
     from volcano_tpu_torch.ops.executor import execute_allocate, last_allocate_executor
-    from volcano_tpu_torch.ops.kernels import f32_lr_exact, run_packed
+    from volcano_tpu_torch.ops.kernels import f32_lr_exact
     from volcano_tpu_torch.ops.session_kernel import repeated_rows, session_pass_cuda
     from volcano_tpu_torch.ops.synthetic import generate_snapshot
 
-    name = "dgx_h100_50k_pods_10k_nodes"
+    name = DGX_CELL
     snap = generate_snapshot(**DGX_CONFIG)
     check(not f32_lr_exact(snap), f"{name}: inside the f32 envelope")
     torch.cuda.synchronize()
@@ -1301,10 +1449,7 @@ def phase_dgx_cell(card: str, f32_cell_ms: float) -> dict:
     executor = last_allocate_executor()
     check(launches > 0, f"{name}: the session kernel was not launched")
     check(executor == "cuda", f"{name}: executor {executor!r}, expected 'cuda'")
-    t0 = time.perf_counter()
-    spec = run_packed(snap, device="cuda")
-    spec_s = time.perf_counter() - t0
-    check(np.array_equal(out, spec), f"{name}: assignment != torch spec run_packed (int32)")
+    specs.hold(name, out)
     lat = warm_sessions(snap, WARM_RUNS, out)
     med_ms = statistics.median(lat) * 1e3
 
@@ -1318,8 +1463,7 @@ def phase_dgx_cell(card: str, f32_cell_ms: float) -> dict:
     check(stats == [snap.n_tasks - repeats, repeats], f"{name}: kernel counts {stats}")
     by_bytes, by_ops, _ = pass_bound_ms(inputs, chosen, snap.n_nodes, int_mode=True)
     bound_ms, bound_by = max((by_bytes, "bytes"), (by_ops, "operations"))
-    print(f"{name}: assignment == torch spec run_packed in int32 ({spec_s:.3f} s to compute "
-          f"the spec); placed {int((out >= 0).sum())}/{snap.n_tasks}; first session "
+    print(f"{name}: int mode; placed {int((out >= 0).sum())}/{snap.n_tasks}; first session "
           f"{first_s * 1e3:.3f} ms; launches {launches}; executor {executor}")
     print(f"{name}: session median {med_ms:.3f} ms, max {max(lat) * 1e3:.3f} ms over "
           f"{WARM_RUNS} warm runs; kernel {int_ms:.3f} ms per pass in int mode, "
@@ -1355,7 +1499,7 @@ def blocked_pass_ms(snap) -> tuple:
     return (time.perf_counter() - t0) * 1e3, stats
 
 
-def phase_wide_cell(card: str) -> dict:
+def phase_wide_cell(card: str, specs: SpecPool) -> dict:
     """The wide cell through execute_allocate: the session kernel's wide
     instance, equal to the torch spec on the card and, at full width, to
     its plain version; one blocked session beside it."""
@@ -1364,7 +1508,6 @@ def phase_wide_cell(card: str) -> dict:
     from volcano_tpu_torch.ops import session_kernel
     from volcano_tpu_torch.ops.blocked import run_packed_blocked
     from volcano_tpu_torch.ops.executor import execute_allocate, last_allocate_executor
-    from volcano_tpu_torch.ops.kernels import run_packed
     from volcano_tpu_torch.ops.session_kernel import (
         repeated_rows,
         session_pass_cuda,
@@ -1372,7 +1515,7 @@ def phase_wide_cell(card: str) -> dict:
     )
     from volcano_tpu_torch.ops.synthetic import generate_snapshot
 
-    name = "50k_pods_20k_nodes_gang_predicates"
+    name = WIDE_CELL
     snap = generate_snapshot(**WIDE_CONFIG)
     R, NK = snap.task_resreq.shape[1], session_kernel.node_width(snap.n_nodes)
     check(not session_kernel.fits_shared_memory(R, NK), f"{name}: node state fits one block")
@@ -1387,10 +1530,7 @@ def phase_wide_cell(card: str) -> dict:
     check(executor == "cuda", f"{name}: executor {executor!r}, expected 'cuda'")
     check(launches > 0 and session_kernel.LAUNCHES == 0,
           f"{name}: wide launches {launches}, shared-layout launches {session_kernel.LAUNCHES}")
-    t0 = time.perf_counter()
-    spec = run_packed(snap, device="cuda")
-    spec_s = time.perf_counter() - t0
-    check(np.array_equal(out, spec), f"{name}: assignment != torch spec run_packed")
+    specs.hold(name, out)
     lat = warm_sessions(snap, WARM_RUNS, out)
     med_ms = statistics.median(lat) * 1e3
 
@@ -1409,8 +1549,7 @@ def phase_wide_cell(card: str) -> dict:
     by_bytes, by_ops, share = pass_bound_ms(inputs, chosen, snap.n_nodes)
     bound_ms, bound_by = max((by_bytes, "bytes"), (by_ops, "operations"))
     lens = (inputs[4][1:] - inputs[4][:-1]).float()
-    print(f"{name}: assignment == torch spec run_packed ({spec_s:.3f} s to compute the "
-          f"spec); placed {int((out >= 0).sum())}/{snap.n_tasks}; first session "
+    print(f"{name}: placed {int((out >= 0).sum())}/{snap.n_tasks}; first session "
           f"{first_s * 1e3:.3f} ms; executor {executor}, wide launches {launches}; node state "
           f"{(R + 1) * NK * 4} bytes in global memory")
     print(f"{name}: session median {med_ms:.3f} ms, max {max(lat) * 1e3:.3f} ms over "
@@ -1435,23 +1574,16 @@ def phase_wide_cell(card: str) -> dict:
                 blocked_blocks=bstats["blocks"], blocked_stops=bstats["stops"])
 
 
-def phase_lanes_session(card: str) -> None:
+def phase_lanes_session(card: str, specs: SpecPool) -> None:
     """A session with LANES_SESSION resource lanes at 10k x 1k through
     execute_allocate: the wide instance, equal to the torch spec."""
     import torch
 
     from volcano_tpu_torch.ops import session_kernel
     from volcano_tpu_torch.ops.executor import execute_allocate, last_allocate_executor
-    from volcano_tpu_torch.ops.kernels import run_packed
-    from volcano_tpu_torch.ops.synthetic import (
-        add_scalar_lanes,
-        BASELINE_CONFIGS,
-        generate_snapshot,
-    )
 
-    name = f"{SECOND_CONFIG}_{LANES_SESSION}_lanes"
-    snap = add_scalar_lanes(generate_snapshot(**BASELINE_CONFIGS[SECOND_CONFIG]),
-                            LANES_SESSION - 2, LANES_SESSION)
+    name = LANES_CELL
+    snap = spec_snapshot(name)
     torch.cuda.synchronize()
     session_kernel.LAUNCHES = session_kernel.WIDE_LAUNCHES = 0
     t0 = time.perf_counter()
@@ -1461,10 +1593,9 @@ def phase_lanes_session(card: str) -> None:
     check(last_allocate_executor() == "cuda" and launches > 0
           and session_kernel.LAUNCHES == 0,
           f"{name}: executor {last_allocate_executor()!r}, wide launches {launches}")
-    check(np.array_equal(out, run_packed(snap, device="cuda")),
-          f"{name}: assignment != torch spec run_packed")
+    specs.hold(name, out)
     lat = warm_sessions(snap, WARM_RUNS, out)
-    print(f"{name}: assignment == torch spec run_packed; placed {int((out >= 0).sum())}/"
+    print(f"{name}: placed {int((out >= 0).sum())}/"
           f"{snap.n_tasks}; first session {first_ms:.3f} ms, median "
           f"{statistics.median(lat) * 1e3:.3f} ms over {WARM_RUNS} warm runs; wide launches "
           f"{launches}; card {card}")
@@ -2824,6 +2955,508 @@ def phase_micro(card: str) -> dict:
     return recs
 
 
+# ---- the store: the API server, the scheduler's client and the commit plane ----
+
+
+class StoreAudit:
+    """A watch on an API server's Pods and Events (either package's
+    ``APIServer``), registered before the store is seeded: store truth as
+    the store's watch delivers it, under the store's lock.  ``bound`` maps
+    ``ns/name`` to the node its pod is bound to and ``bound_at`` to the
+    ``time.monotonic()`` of the notification that set it; ``rebinds``
+    lists every pod whose node changed, ``deleted`` the pods deleted, in
+    order; ``events`` counts, by reason, the Events created and the
+    updates that aggregated a repeat into one; ``evict_events`` holds the
+    ``ns/name`` of every pod with an Evict Event."""
+
+    def __init__(self, api):
+        self.api = api
+        self.bound, self.bound_at, self.rebinds, self.deleted = {}, {}, [], []
+        self.events, self.evict_events = {}, set()
+        api.watch("Pod", self._pod, send_initial=False)
+        api.watch("Event", self._event, send_initial=False)
+
+    def _pod(self, event, old, new):
+        if event == "DELETED":
+            key = f"{old.metadata.namespace}/{old.metadata.name}"
+            self.bound.pop(key, None)
+            self.deleted.append(key)
+            return
+        node = new.spec.node_name
+        if not node:
+            return
+        key = f"{new.metadata.namespace}/{new.metadata.name}"
+        prev = self.bound.get(key)
+        if prev is None:
+            self.bound[key] = node
+            self.bound_at[key] = time.monotonic()
+        elif prev != node:
+            self.rebinds.append((key, prev, node))
+
+    def _event(self, event, old, new):
+        if new is None:
+            return
+        self.events.setdefault(new.reason, [0, 0])[event == "MODIFIED"] += 1
+        if new.reason == "Evict":
+            obj = new.involved_object
+            self.evict_events.add(f"{obj.get('namespace')}/{obj.get('name')}")
+
+    def binds(self) -> list:
+        """The store's (ns/name, node) pairs of bound pods."""
+        with self.api.locked():
+            return list(self.bound.items())
+
+    def digest(self) -> str:
+        return cycle_digest(self.binds())
+
+
+def seed_store(api, objects) -> None:
+    """Create a cell's objects (nodes, pods, pod groups, queues[, priority
+    classes]) in the store, priority classes first, each kind in the
+    generator's order.  Each is created from a copy with its own metadata,
+    since the store stamps its resource version and, where it is zero, its
+    creation timestamp on the object it is given."""
+    import copy
+
+    nodes, pods, pod_groups, queues, *rest = objects
+    for objs in ((rest[0] if rest else ()), nodes, pods, pod_groups, queues):
+        for obj in objs:
+            obj = copy.copy(obj)
+            obj.metadata = copy.copy(obj.metadata)
+            api.create(obj)
+
+
+def apply_store_events(api, events, classes=None) -> None:
+    """``generate_loop_events``' events through the store's API: ``add``
+    is ``api.create``, ``update`` ``api.update`` and ``delete``
+    ``api.delete``; ``classes`` maps an event's kind to the API type its
+    object is built as (the port's where None)."""
+    if classes is None:
+        from volcano_tpu_torch.apis import core, scheduling
+
+        classes = {"node": core.Node, "pod": core.Pod, "pod_group": scheduling.PodGroup}
+    for ev in events:
+        cls = classes[ev["kind"]]
+        obj = cls.from_dict(ev["object"])
+        if ev["op"] == "add":
+            api.create(obj)
+        elif ev["op"] == "update":
+            api.update(obj)
+        elif ev["op"] == "delete":
+            api.delete(cls.__name__, obj.metadata.namespace, obj.metadata.name)
+        else:
+            raise ValueError(f"unknown event op {ev['op']!r}")
+
+
+class FrameTally:
+    """The commit frames a client sends: one ``(binds, evicts, events,
+    conditions, pod_groups)`` tuple of section sizes a
+    ``client.commit_batch`` call, from whichever thread sends it."""
+
+    def __init__(self, client):
+        self.frames = []
+        orig = client.commit_batch
+
+        def commit_batch(binds=(), evicts=(), events=(), conditions=(), pod_groups=()):
+            self.frames.append(tuple(len(x) for x in (binds, evicts, events, conditions,
+                                                      pod_groups)))
+            return orig(binds=binds, evicts=evicts, events=events, conditions=conditions,
+                        pod_groups=pod_groups)
+
+        client.commit_batch = commit_batch
+
+    def take(self) -> dict:
+        """The frames since the last take: their count and each
+        section's sizes (binds: the coalesce sizes)."""
+        frames, self.frames = self.frames, []
+        out = dict(frames=len(frames))
+        for i, name in enumerate(("binds", "evicts", "events", "conditions", "pod_groups")):
+            out[f"frame_{name}"] = [f[i] for f in frames if f[i]]
+        return out
+
+
+def commit_failures() -> float:
+    """Every failed commit effect counted in this process."""
+    from volcano_tpu_torch import metrics
+
+    return sum(metrics.registry.counters("volcano_commit_failures_total").values())
+
+
+def store_cycles(objects, tiers, actions, cycles: int, mode: str, between=None,
+                 cycle_window=contextlib.nullcontext):
+    """The port's scheduler loop against its store: ``seed_store`` into a
+    fresh ``APIServer`` (watched by a ``StoreAudit``), a
+    ``SchedulerCache(client=SchedulerClient(api), snapshot_reuse=True)``
+    in ``STORE_MODES[mode]`` filled by ``cache.run()`` (the informer
+    sync), the policy (``tiers``, ``actions``) written to a file, and
+    ``Scheduler(cache, scheduler_conf_path=...).run_once()`` ``cycles``
+    times.  With ``between="churn"``, before every cycle but the first
+    the cache is flushed, the last cycle's binds are read from the store
+    into the world (``record_binds``) and ``generate_loop_events``' churn
+    goes through the store's API.  Yields one record a cycle, just after
+    ``run_once`` (the pipelined commit may still be in flight): the
+    store's and each step's seconds, the cycle's ``Scheduler.last_cycle``,
+    gpu-allocate's phases, the pipelined pairs, the commit plane's last
+    barrier, the bind echoes so far, and ``api``, ``audit``, ``cache``,
+    ``frames`` (a ``FrameTally``) and ``scheduler``.  Each ``run_once``
+    runs inside ``cycle_window()``.  The caller stops the commit plane
+    (``cache.stop_commit_plane()``)."""
+    from volcano_tpu_torch.cache import SchedulerCache
+    from volcano_tpu_torch.client import APIServer, SchedulerClient
+    from volcano_tpu_torch.framework import get_action, register_action
+    from volcano_tpu_torch.ops.synthetic import generate_loop_events, loop_world, record_binds
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+
+    api = APIServer()
+    audit = StoreAudit(api)
+    t0 = time.perf_counter()
+    seed_store(api, objects)
+    seed_s = time.perf_counter() - t0
+    client = SchedulerClient(api)
+    frames = FrameTally(client)
+    cache = SchedulerCache(client=client, snapshot_reuse=True, **STORE_MODES[mode])
+    echoes = [0]
+    update_pod = cache.update_pod
+
+    def counted(old, new):
+        echoes[0] += 1
+        update_pod(old, new)
+
+    cache.update_pod = counted
+    t0 = time.perf_counter()
+    cache.run()
+    sync_s = time.perf_counter() - t0
+    world = loop_world(objects[:4]) if between == "churn" else None
+    recorder = RecordPipelined()
+    register_action(recorder)
+    with policy_file(tiers, tuple(actions) + (recorder.name(),)) as path:
+        scheduler = Scheduler(cache, scheduler_conf_path=path)
+        before = set()
+        for k in range(cycles):
+            events_s = 0.0
+            if k and between == "churn":
+                cache.flush()
+                record_binds(world, [b for b in audit.binds() if b[0] not in before])
+                t0 = time.perf_counter()
+                apply_store_events(api, generate_loop_events(world, k, seed=0))
+                events_s = time.perf_counter() - t0
+            before = {name for name, _ in audit.binds()}
+            with cycle_window():
+                scheduler.run_once()
+            plane = cache._commit_plane
+            yield dict(cycle=k, seed_s=seed_s, sync_s=sync_s, events_s=events_s,
+                       pipelined=recorder.pipelined, echoes=echoes[0],
+                       barrier=dict(plane.last_barrier) if plane is not None else None,
+                       phases=dict(get_action("gpu-allocate").last_phase_stats),
+                       api=api, audit=audit, cache=cache, frames=frames,
+                       scheduler=scheduler, **scheduler.last_cycle)
+
+
+def phase_store_cell(name: str, card: str) -> tuple:
+    """A store cell on the card, in each of STORE_MODES on a fresh store
+    (``store_cycles``).  Every cycle that has pending work: the session
+    kernel launched (counts set to 0 before run_once, read after; 3 in
+    the cycle cell's cycle 0), executor ``cuda``; no kernel failure.  After the cell's
+    cycles (the cache flushed): no commit failure, resync entry,
+    quarantined task or rebind.  The cycle cell: the store's digest
+    STORE_DIGESTS' in both modes after cycle 1 (which, every pod bound,
+    launches nothing; in the pipelined mode its snapshot's barrier lands
+    cycle 0's frames), 50,000 Scheduled Events each of count 1, one bind
+    echo a pod, every PodGroup Running, every cache task on its store
+    pod's node; the churn cell: every cycle's store digest
+    STORE_LOOP_DIGESTS' (flushed after each cycle), the third cycle on
+    packing warm with task rows reused; the preempt cell: the
+    digest of (pods deleted from the store, pipelined pairs)
+    STORE_PREEMPT_DIGESTS', one preempt launch, an Evict Event for every
+    deleted pod.  The collector's pauses count inside each run_once only
+    (``GcClock``).  One ``{"store": ...}`` line; returns (the record, the
+    pipelined mode's ``(api, audit, cache)`` for the stream)."""
+    import gc
+
+    import torch
+
+    from volcano_tpu_torch.apis import scheduling
+    from volcano_tpu_torch.framework import get_action
+    from volcano_tpu_torch.ops import preempt_kernel, session_kernel
+    from volcano_tpu_torch.ops.executor import last_allocate_executor
+
+    spec = STORE_CELLS[name]
+    t_phase = time.perf_counter()
+    modes, handoff = {}, None
+    # one set of objects for both modes: the store keeps a clone of each,
+    # and the seed a copy of its metadata, so no mode changes them
+    objects = loop_objects(spec["config"])
+    build_s = time.perf_counter() - t_phase
+    n_pods = len(objects[1])
+    for mode in STORE_MODES:
+        cycles = []
+        commit0 = commit_failures()
+        with GcClock() as gc_clock:
+            it = store_cycles(objects, spec["tiers"], spec["actions"], spec["cycles"], mode,
+                              spec["between"], cycle_window=gc_clock.cycle)
+            while True:
+                failures = kernel_failures()
+                torch.cuda.synchronize()
+                session_kernel.LAUNCHES = session_kernel.WIDE_LAUNCHES = 0
+                preempt_kernel.LAUNCHES = 0
+                gc_clock.take()
+                rec = next(it, None)
+                if rec is None:
+                    break
+                launches = session_kernel.LAUNCHES + session_kernel.WIDE_LAUNCHES
+                preempt_launches = preempt_kernel.LAUNCHES
+                k, ph, cache, audit = rec["cycle"], rec["phases"], rec["cache"], rec["audit"]
+                what = f"{name} {mode} cycle {k}"
+                gc_ms = gc_clock.take()
+                check(kernel_failures() == failures, f"{what}: kernel failures counted")
+                if name != STORE_CYCLE or k == 0:
+                    check(last_allocate_executor() == "cuda" and launches > 0,
+                          f"{what}: executor {last_allocate_executor()!r}, {launches} launches")
+                t0 = time.perf_counter()
+                if spec["between"] == "churn" or k == spec["cycles"] - 1:
+                    cache.flush()
+                flush_ms = (time.perf_counter() - t0) * 1e3
+                digest = want = None
+                if spec["between"] == "churn":
+                    digest, want = audit.digest(), STORE_LOOP_DIGESTS[name][k]
+                    if k >= 2:
+                        check(ph.get("mode") == "warm" and ph.get("reused_tasks", 0) > 0,
+                              f"{what}: pack {ph.get('mode')}, {ph.get('reused_tasks')} rows "
+                              f"reused")
+                elif name == STORE_PREEMPT:
+                    digest = preempt_cycle_digest(audit.deleted, rec["pipelined"])
+                    want = STORE_PREEMPT_DIGESTS[spec["config"]]
+                    preempt = get_action("gpu-preempt")
+                    check(preempt.last_executor == "cuda" and preempt_launches == 1,
+                          f"{what}: preempt executor {preempt.last_executor!r}, "
+                          f"{preempt_launches} launches")
+                    check(audit.deleted and audit.evict_events == set(audit.deleted),
+                          f"{what}: {len(audit.deleted)} pods deleted, "
+                          f"{len(audit.evict_events)} Evict Events")
+                elif k == 0:
+                    check(launches == 3, f"{what}: {launches} launches, expected 3")
+                else:
+                    # every pod is bound: the cycle has nothing to pack
+                    check(launches == 0, f"{what}: {launches} launches with nothing pending")
+                    digest, want = audit.digest(), STORE_DIGESTS[spec["config"]]
+                if want is not None:
+                    check(digest == want, f"{what}: store digest {digest} != the JAX "
+                                          f"package's {want}")
+                barrier = rec["barrier"] or {}
+                cycles.append(dict(
+                    cycle=k, launches=launches, preempt_launches=preempt_launches,
+                    run_once_ms=rec["e2e_s"] * 1e3, open_ms=rec["open_s"] * 1e3,
+                    close_ms=rec["close_s"] * 1e3,
+                    execute_ms={a: v * 1e3 for a, v in rec["actions_s"].items()},
+                    events_ms=rec["events_s"] * 1e3, flush_ms=flush_ms,
+                    barrier_ms=barrier.get("wait_ms"), barrier_busy_ms=barrier.get("busy_ms"),
+                    overlap_ratio=barrier.get("overlap_ratio"), echoes=rec["echoes"],
+                    binds_in_store=len(audit.bound), device_ms=ph.get("execute_ms"),
+                    **rec["frames"].take(), **gc_ms,
+                    **{key: ph.get(key) for key in (
+                        "order_ms", "pack_ms", "apply_ms", "commit_ms", "mode", "cold_cause")}))
+                last = rec
+        cache, audit, api = last["cache"], last["audit"], last["api"]
+        what = f"{name} {mode}"
+        check(commit_failures() == commit0 and not cache.err_tasks
+              and not cache.quarantined_tasks and not audit.rebinds,
+              f"{what}: {commit_failures() - commit0:.0f} commit failures, "
+              f"{len(cache.err_tasks)} resync entries, {len(cache.quarantined_tasks)} "
+              f"quarantined, {len(audit.rebinds)} rebinds")
+        if name == STORE_CYCLE:
+            scheduled = audit.events.get("Scheduled", [0, 0])
+            check(scheduled == [n_pods, 0], f"{what}: Scheduled Events created, aggregated: "
+                                            f"{scheduled}, expected [{n_pods}, 0]")
+            phases = {pg.status.phase for pg in api.list("PodGroup")}
+            check(phases == {scheduling.POD_GROUP_RUNNING}, f"{what}: PodGroup phases {phases}")
+            with api.locked():
+                off = [t.uid for job in cache.jobs.values() for t in job.tasks.values()
+                       if audit.bound.get(f"{t.namespace}/{t.name}", "") != t.node_name]
+            check(not off, f"{what}: {len(off)} cache tasks off their store pod's node")
+            check(last["echoes"] == n_pods, f"{what}: {last['echoes']} bind echoes")
+        modes[mode] = dict(seed_ms=last["seed_s"] * 1e3,
+                           sync_ms=last["sync_s"] * 1e3, events=dict(audit.events),
+                           deleted=len(audit.deleted), cycles=cycles)
+        if name == STORE_CYCLE and mode == "pipelined":
+            handoff = (api, audit, cache)
+        else:
+            cache.stop_commit_plane()
+        del it, last, rec, cache, audit, api
+        gc.collect()
+        print(f"{name} {mode}: {len(cycles)} cycles through the store, seed "
+              f"{modes[mode]['seed_ms']:.3f} ms, informer sync {modes[mode]['sync_ms']:.3f} ms; "
+              f"run_once ms {[round(c['run_once_ms'], 3) for c in cycles]}, close ms "
+              f"{[round(c['close_ms'], 3) for c in cycles]}, commit ms "
+              f"{[round(c['commit_ms'] or 0.0, 3) for c in cycles]}, barrier ms "
+              f"{[c['barrier_ms'] and round(c['barrier_ms'], 3) for c in cycles]}, frames "
+              f"{[c['frames'] for c in cycles]}, gc ms {[round(c['gc_ms'], 3) for c in cycles]}; "
+              f"card {card}")
+    out = dict(cell=name, config=spec["config"], card=card, build_objects_ms=build_s * 1e3,
+               phase_ms=(time.perf_counter() - t_phase) * 1e3, modes=modes)
+    print(json.dumps({"store": out}))
+    return out, handoff
+
+
+def phase_store_stream(card: str, api, audit, cache) -> dict:
+    """The store stream on the card: the pipelined cycle cell's store and
+    cache after its cycles, ``Scheduler.run()`` in a thread with
+    MICRO_STREAM's settings (micro-cycles, restricted sessions, shadow
+    sampling, debounce, period) while a feeder thread creates ``rate``
+    single-pod jobs a second for ``seconds`` through ``api.create``
+    (PodGroup, then Pod), each with a zero creation timestamp, so the
+    store stamps the wall clock.  Every pod must bind within ``drain_s``
+    after the last submit, once, with the session kernel launched,
+    executor ``cuda``, no kernel or commit failure, no resync entry and
+    no shadow divergence; the loop is stopped and joined and the commit
+    plane stopped.  Submit → bind is read at store truth (the
+    ``StoreAudit`` stamps the notification that set ``nodeName``) and
+    from the ``volcano_submit_to_bind_latency_milliseconds`` observations
+    (the store's creation stamp → the bind landed); p50, p99 and max of
+    both are printed with the cycles by kind; one ``{"store": ...}``
+    line."""
+    import threading
+
+    import torch
+
+    from volcano_tpu_torch import metrics
+    from volcano_tpu_torch.ops import session_kernel
+    from volcano_tpu_torch.ops.executor import last_allocate_executor
+    from volcano_tpu_torch.scheduler.scheduler import Scheduler
+
+    spec = MICRO_STREAM
+    t_phase = time.perf_counter()
+    jobs = stream_jobs(int(spec["rate"] * spec["seconds"]))
+    for pg, pod in jobs:
+        pg.metadata.creation_timestamp = pod.metadata.creation_timestamp = 0.0
+    names = {f"{pod.metadata.namespace}/{pod.metadata.name}" for _, pod in jobs}
+    failures, commit0 = kernel_failures(), commit_failures()
+    observed = []
+    observe = metrics.observe_submit_to_bind
+
+    def observe_and_keep(seconds):
+        observed.append(seconds * 1e3)
+        observe(seconds)
+
+    metrics.observe_submit_to_bind = observe_and_keep
+    errors, submitted = [], {}
+
+    def guarded(fn):
+        def run():
+            try:
+                fn()
+            except BaseException as e:  # noqa: BLE001 — reported by the main thread
+                errors.append(e)
+        return run
+
+    def feed():
+        t0 = time.monotonic()
+        for i, (pg, pod) in enumerate(jobs):
+            delay = t0 + i / spec["rate"] - time.monotonic()
+            if delay > 0:
+                time.sleep(delay)
+            submitted[f"{pod.metadata.namespace}/{pod.metadata.name}"] = time.monotonic()
+            api.create(pg)
+            api.create(pod)
+
+    def all_bound():
+        with api.locked():
+            return names <= audit.bound_at.keys()
+
+    try:
+        with policy_file(CYCLE_TIERS, ("gpu-allocate",)) as path:
+            scheduler = Scheduler(cache, scheduler_conf_path=path, period=spec["period"],
+                                  micro_cycles=True, micro_debounce_ms=spec["debounce_ms"],
+                                  restricted_sessions=True, shadow_every=spec["shadow_every"])
+            torch.cuda.synchronize()
+            session_kernel.LAUNCHES = session_kernel.WIDE_LAUNCHES = 0
+            loop = threading.Thread(target=guarded(scheduler.run), name="store-stream-loop",
+                                    daemon=True)
+            feeder = threading.Thread(target=guarded(feed), name="store-stream-feeder",
+                                      daemon=True)
+            loop.start()
+            try:
+                deadline = time.monotonic() + 120
+                while (scheduler.full_cycles_run < 1 and not errors
+                       and time.monotonic() < deadline):
+                    time.sleep(0.01)
+                check(scheduler.full_cycles_run >= 1 and not errors,
+                      f"{STORE_STREAM}: the loop's first full cycle did not run: {errors}")
+                t_feed = time.monotonic()
+                feeder.start()
+                feeder.join(timeout=spec["seconds"] + 60)
+                check(not feeder.is_alive() and not errors, f"{STORE_STREAM}: feeder: {errors}")
+                feed_s = time.monotonic() - t_feed
+                deadline = time.monotonic() + spec["drain_s"]
+                while not errors and time.monotonic() < deadline and not all_bound():
+                    time.sleep(0.01)
+                drained_s = time.monotonic() - t_feed - feed_s
+            finally:
+                scheduler.stop()
+                loop.join(timeout=120)
+            check(not loop.is_alive(), f"{STORE_STREAM}: Scheduler.run did not stop")
+            check(not errors, f"{STORE_STREAM}: {errors}")
+            cache.flush()
+    finally:
+        metrics.observe_submit_to_bind = observe
+        cache.stop_commit_plane()
+    launches = session_kernel.LAUNCHES + session_kernel.WIDE_LAUNCHES
+    missing = names - audit.bound_at.keys()
+    check(not missing, f"{STORE_STREAM}: {len(missing)} of {len(names)} pods unbound after "
+                       f"{spec['drain_s']} s")
+    check(not audit.rebinds and len(observed) == len(names),
+          f"{STORE_STREAM}: {len(audit.rebinds)} rebinds, {len(observed)} submit-to-bind "
+          f"observations for {len(names)} pods")
+    check(launches > 0 and last_allocate_executor() == "cuda",
+          f"{STORE_STREAM}: {launches} launches, executor {last_allocate_executor()!r}")
+    check(kernel_failures() == failures, f"{STORE_STREAM}: kernel failures counted")
+    check(commit_failures() == commit0 and not cache.err_tasks and not cache.quarantined_tasks,
+          f"{STORE_STREAM}: {commit_failures() - commit0:.0f} commit failures, "
+          f"{len(cache.err_tasks)} resync entries, {len(cache.quarantined_tasks)} quarantined")
+    check(scheduler.shadow_divergences == 0, f"{STORE_STREAM}: shadow divergence")
+
+    def pcts(ms):
+        ms = np.asarray(ms)
+        return dict(p50=float(np.percentile(ms, 50)), p99=float(np.percentile(ms, 99)),
+                    max=float(ms.max()))
+
+    store_ms = pcts([(audit.bound_at[n] - submitted[n]) * 1e3 for n in sorted(names)])
+    hist_ms = pcts(observed)
+    out = dict(cell=STORE_STREAM, config=spec["config"], card=card, pods=len(names),
+               rate=spec["rate"], period_s=spec["period"], feed_s=feed_s, drain_s=drained_s,
+               submit_to_bind_ms=store_ms, submit_to_bind_histogram_ms=hist_ms,
+               launches=launches, micro_cycles_run=scheduler.micro_cycles_run,
+               full_cycles_run=scheduler.full_cycles_run,
+               restricted_cycles_run=scheduler.restricted_cycles_run,
+               shadow_checks_run=scheduler.shadow_checks_run,
+               shadow_divergences=scheduler.shadow_divergences,
+               phase_ms=(time.perf_counter() - t_phase) * 1e3)
+    print(f"{STORE_STREAM}: {len(names)} pods at {spec['rate']}/s through the store all bound; "
+          f"submit->bind ms at store truth p50 {store_ms['p50']:.3f} p99 {store_ms['p99']:.3f} "
+          f"max {store_ms['max']:.3f}, by the histogram's observations p50 "
+          f"{hist_ms['p50']:.3f} p99 {hist_ms['p99']:.3f} max {hist_ms['max']:.3f}; "
+          f"{scheduler.micro_cycles_run} micro ({scheduler.restricted_cycles_run} restricted, "
+          f"{scheduler.shadow_checks_run} shadow-checked), {scheduler.full_cycles_run} full "
+          f"cycles; card {card}")
+    print(json.dumps({"store": out}))
+    return out
+
+
+def phase_store(card: str) -> dict:
+    """The store cells: the 50k x 10k cycle in both modes, the stream on
+    its pipelined store, then the churn and preempt cells; each record by
+    cell name."""
+    import gc
+
+    recs = {}
+    recs[STORE_CYCLE], handoff = phase_store_cell(STORE_CYCLE, card)
+    recs[STORE_STREAM] = phase_store_stream(card, *handoff)
+    del handoff
+    gc.collect()  # the 50k store, before the next cell's seed is timed
+    for name in (STORE_CHURN, STORE_PREEMPT):
+        recs[name] = phase_store_cell(name, card)[0]
+    return recs
+
+
 #: the sidecar phase (``phase_sidecar``): the loop cell and the preempting
 #: cell it drives through a compute-plane sidecar process, the cycle it
 #: runs in-process after the sidecar is killed, and the seconds the
@@ -3320,7 +3953,7 @@ class Stopwatch:
 #: cycle of the 50k x 10k cell), and the warm cycles a recorder mode
 #: gets in the interleaved cost run of LOOP_A
 REPLAY_CELLS = (LOOP_A, LOOP_C, LOOP_B)
-REPLAY_NATIVE = {LOOP_A: (5,), LOOP_B: (0, 1, 2, 3, 4)}
+REPLAY_NATIVE = {LOOP_A: (3,), LOOP_B: (0, 1, 2, 3, 4)}
 RECORDER_COST_ORDER = ("off", "events", "capture", "events", "capture", "off",
                        "capture", "off", "events", "off", "events", "capture")
 
@@ -3504,7 +4137,7 @@ def recorder_cost(card: str) -> dict:
 
 def phase_replay(card: str) -> dict:
     """The trace recorder, the cycle journal and replay on the card.
-      * LOOP_A's 6 cycles, LOOP_C's preempting cycle and LOOP_B's 5
+      * LOOP_A's 4 cycles, LOOP_C's preempting cycle and LOOP_B's 5
         churn cycles run with ``trace.enable(dir, snapshot_every=1)``
         (``recorded_loop``: each cycle's JAX digest, executor ``cuda``,
         its journal record complete);
@@ -3690,6 +4323,17 @@ def phase_failures(card: str) -> None:
           f"card {card}")
 
 
+def timed(phase, *args, **kwargs):
+    """Run a phase and print the seconds of wall clock it took, with its
+    first argument where it has one (the cell or config)."""
+    t0 = time.perf_counter()
+    out = phase(*args, **kwargs)
+    cells = {MAIN_CONFIG, SECOND_CONFIG, PREEMPT_CYCLE_MAIN, PREEMPT_CYCLE_SECOND, *LOOP_CELLS}
+    what = f" {args[0]}" if args and args[0] in cells else ""
+    print(f"time: {phase.__name__}{what} {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3698,34 +4342,49 @@ def main() -> int:
         return 1
     import volcano_tpu_torch  # noqa: F401 — without the checkout, fail before any output
 
+    specs = SpecPool()
+    try:
+        return run_phases(specs)
+    finally:
+        specs.close()
+
+
+def run_phases(specs: SpecPool) -> int:
+    """Every phase in order (the spec checks after the cycle phases), then
+    the kernels line and the result line."""
+    import torch
+
     card = card_line()
     print(f"card: {card}")
-    phase_build()
-    phase_kernel_vs_plain()
-    phase_preempt_kernel_vs_plain()
-    phase_int_kernel_vs_plain()
-    phase_wide_kernel_vs_plain()
-    main_rec = phase_main_path(MAIN_CONFIG, card, compare_plain=True)
-    phase_main_path(SECOND_CONFIG, card, compare_plain=False)
-    pre_rec = phase_preempt_main_path(card)
-    dgx_rec = phase_dgx_cell(card, main_rec["ms"])
-    wide_rec = phase_wide_cell(card)
-    phase_lanes_session(card)
-    blocked_rec = phase_blocked_vs_kernel(card, main_rec)
-    cycle_rec = phase_cycle(MAIN_CONFIG, card)
-    phase_cycle(SECOND_CONFIG, card)
-    preempt_cycle_rec = phase_preempt_cycle(PREEMPT_CYCLE_MAIN, card)
-    phase_preempt_cycle(PREEMPT_CYCLE_SECOND, card)
-    loop_recs = {cell: phase_loop(cell, card) for cell in LOOP_CELLS}
-    micro_recs = phase_micro(card)
-    sidecar_rec = phase_sidecar(card, loop_recs)
-    replay_rec = phase_replay(card)
+    timed(phase_build)
+    timed(phase_kernel_vs_plain)
+    timed(phase_preempt_kernel_vs_plain)
+    timed(phase_int_kernel_vs_plain)
+    timed(phase_wide_kernel_vs_plain)
+    main_rec = timed(phase_main_path, MAIN_CONFIG, card, compare_plain=True, specs=specs)
+    timed(phase_main_path, SECOND_CONFIG, card, compare_plain=False, specs=specs)
+    pre_rec = timed(phase_preempt_main_path, card)
+    dgx_rec = timed(phase_dgx_cell, card, main_rec["ms"], specs)
+    wide_rec = timed(phase_wide_cell, card, specs)
+    timed(phase_lanes_session, card, specs)
+    blocked_rec = timed(phase_blocked_vs_kernel, card, main_rec)
+    cycle_rec = timed(phase_cycle, MAIN_CONFIG, card)
+    timed(phase_cycle, SECOND_CONFIG, card)
+    preempt_cycle_rec = timed(phase_preempt_cycle, PREEMPT_CYCLE_MAIN, card)
+    timed(phase_preempt_cycle, PREEMPT_CYCLE_SECOND, card)
+    specs.check_all()
+    specs.close()
+    loop_recs = {cell: timed(phase_loop, cell, card) for cell in LOOP_CELLS}
+    micro_recs = timed(phase_micro, card)
+    store_recs = timed(phase_store, card)
+    sidecar_rec = timed(phase_sidecar, card, loop_recs)
+    replay_rec = timed(phase_replay, card)
     from volcano_tpu_torch import faults
 
     check(kernel_failures() == 0 and not faults.degraded_reasons(),
           f"the main paths counted {kernel_failures():.0f} kernel failures: "
           f"{faults.degraded_reasons()}")
-    phase_failures(card)
+    timed(phase_failures, card)
 
     kernels = [
         {
@@ -3752,6 +4411,9 @@ def main() -> int:
             "replay_launches": replay_rec["replays"][LOOP_A][-1]["launches"],
             "micro_launches": [w["launches"] for mode in micro_recs[MICRO_A]["modes"].values()
                                for w in mode["windows"] if w["route"] != "full"],
+            "store_launches": {cell: [c["launches"] for mode in store_recs[cell]["modes"].values()
+                                      for c in mode["cycles"]]
+                               for cell in (STORE_CYCLE, STORE_CHURN, STORE_PREEMPT)},
             "library_ms": None,
         },
         {
@@ -3788,6 +4450,9 @@ def main() -> int:
             "cycle_launches": preempt_cycle_rec["preempt_launches_per_cycle"],
             "loop_launches": loop_recs[LOOP_C]["cycles"][-1]["preempt_launches"],
             "sidecar_launches": sidecar_rec["preempt_cycle"]["child_launches"]["preempt"],
+            "store_launches": [c["preempt_launches"]
+                               for mode in store_recs[STORE_PREEMPT]["modes"].values()
+                               for c in mode["cycles"]],
             "library_ms": None,
         },
     ]

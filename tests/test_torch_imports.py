@@ -6,7 +6,8 @@ refuses ``volcano_tpu`` and its submodules (but not
 allocate session (also through the blocked executor), a preempt pass,
 a scheduling cycle (cache → session → gpu-allocate → binds) and a
 preempting cycle (enqueue → gpu-allocate → gpu-preempt → backfill) on
-the CPU."""
+the CPU; and (the store path) binds a small cluster through the port's
+API store in both commit modes."""
 
 from __future__ import annotations
 
@@ -172,8 +173,63 @@ def test_port_loop_runs_without_jax_or_reference():
     assert proc.stdout.strip().splitlines() == ["loop cold warm warm"]
 
 
+CHILD_STORE = r"""
+import importlib, importlib.abc, sys
+
+sys.modules["jax"] = None
+
+
+class RefuseReference(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "volcano_tpu" or name.startswith("volcano_tpu."):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+
+sys.meta_path.insert(0, RefuseReference())
+import pkgutil
+import volcano_tpu_torch
+
+modules = [m.name for m in pkgutil.walk_packages(volcano_tpu_torch.__path__, "volcano_tpu_torch.")]
+for mod in ("client", "client.apiserver", "client.clients", "apis.scheme",
+            "cache.commit_plane"):
+    assert "volcano_tpu_torch." + mod in modules, mod
+    importlib.import_module("volcano_tpu_torch." + mod)
+
+import chip_smoke
+from volcano_tpu_torch.actions.gpu_allocate import GpuAllocateAction
+from volcano_tpu_torch.framework import register_action
+from volcano_tpu_torch.ops.synthetic import generate_cluster_objects
+
+register_action(GpuAllocateAction(device="cpu"))
+for mode in ("sync", "pipelined"):
+    objects = generate_cluster_objects(n_tasks=64, n_nodes=16, gang_size=4, seed=1)
+    for rec in chip_smoke.store_cycles(objects, chip_smoke.CYCLE_TIERS, ("gpu-allocate",), 2,
+                                       mode):
+        rec["cache"].flush()
+    rec["cache"].stop_commit_plane()
+    print(mode, len(rec["audit"].bound), rec["audit"].events["Scheduled"], rec["echoes"])
+assert "jax" not in {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
+"""
+
+
+def test_store_runs_without_jax_or_reference():
+    """The store, the client and the commit plane stand alone: a fresh
+    interpreter with ``jax`` blocked and ``volcano_tpu`` refused imports
+    them and binds a small cluster through the store in both commit
+    modes."""
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD_STORE], cwd=ROOT, capture_output=True, text=True,
+        timeout=120, env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1"),
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines() == ["sync 64 [64, 0] 64", "pipelined 64 [64, 0] 64"]
+
+
 @pytest.mark.parametrize("module", ["volcano_tpu_torch.conf", "volcano_tpu_torch.framework",
-                                    "volcano_tpu_torch.scheduler.scheduler"])
+                                    "volcano_tpu_torch.scheduler.scheduler",
+                                    "volcano_tpu_torch.client",
+                                    "volcano_tpu_torch.cache.commit_plane"])
 def test_each_entry_module_imports_first(module):
     """Each of these imports on its own in a fresh interpreter (the
     policy module used to reach itself through the framework package)."""

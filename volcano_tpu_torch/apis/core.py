@@ -1,7 +1,8 @@
 """Core Kubernetes-style objects used by the framework.
 
-A copy of ``volcano_tpu/apis/core.py`` without the objects the scheduler
-does not read (ConfigMap, Secret, Service, NetworkPolicy, Event).
+A copy of ``volcano_tpu/apis/core.py`` without the objects neither the
+scheduler nor its client reads or writes (ConfigMap, Secret, Service,
+NetworkPolicy).
 
 Only the fields the reference framework actually reads/writes are modeled
 (e.g. Pod: requests/ports/selector/affinity/tolerations/priority; Node:
@@ -225,3 +226,18 @@ class PriorityClass(K8sObject):
 class PersistentVolumeClaim(K8sObject):
     spec: Dict[str, object] = field(default_factory=dict)
     status: Dict[str, object] = field(default_factory=dict)
+
+
+@dataclass
+class Event(K8sObject):
+    """Kubernetes Event — the user-facing audit trail.  ``count``
+    aggregates repeats of the same (object, type, reason) — the message
+    is deliberately NOT part of the aggregation key, matching the k8s
+    correlator, so variable-detail repeats collapse into one Event
+    (whose message refreshes to the latest occurrence)."""
+
+    involved_object: Dict[str, str] = field(default_factory=dict)
+    type: str = "Normal"
+    reason: str = ""
+    message: str = ""
+    count: int = 1

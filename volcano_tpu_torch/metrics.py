@@ -7,8 +7,11 @@ task latencies, sessions opened, schedule attempts,
 unschedulable reasons, kernel phase latencies, the explain reduction's
 latency, preemption victims and attempts), and the event-driven loop the
 series of its micro-cycles, full-cycle fallbacks, resident and
-schedulable jobs and shadow cross-checks, each under the same name and
-labels; a histogram keeps the reference's buckets, its count and its sum.
+schedulable jobs and shadow cross-checks, and the cache's commit path
+the series of its commit plane (queue depth, bind coalesce sizes,
+overlap ratio), its failed effects, its quarantined resyncs and the
+submit-to-bind latency, each under the same name and labels; a
+histogram keeps the reference's buckets, its count and its sum.
 
 ``volcano_executor_failures_total{executor,cause}`` counts every failed or
 refused kernel call, a device phase that overran the cycle deadline and
@@ -305,8 +308,55 @@ def update_explain_duration(seconds: float) -> None:
 
 
 def register_commit_failure(kind: str) -> None:
-    """A bind or evict effect that failed (kind ∈ {bind, evict})."""
+    """volcano_commit_failures_total{kind}: commit effects that failed
+    (kind ∈ {bind, evict, status}); binds/evicts take the resync path,
+    status writebacks retry next cycle."""
     registry.inc(f"{_NAMESPACE}_commit_failures_total", {"kind": kind})
+
+
+def update_resync_quarantined(count: int) -> None:
+    """volcano_resync_quarantined_tasks: tasks whose resync exhausted
+    its bounded retries and now sit quarantined awaiting fresh API
+    truth (cache.SchedulerCache poison-task handling)."""
+    registry.set_gauge(f"{_NAMESPACE}_resync_quarantined_tasks", {}, count)
+
+
+# ---- pipelined commit plane (cache/commit_plane.py) ----
+
+#: coalesce sizes are small powers of two up to the per-frame cap
+_COALESCE_BUCKETS = [1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048,
+                     4096, 8192]
+
+
+def update_commit_queue_depth(depth: int) -> None:
+    """volcano_commit_queue_depth: commit-plane items (binds / evicts /
+    status writebacks) enqueued but not yet landed in the store."""
+    registry.set_gauge(f"{_NAMESPACE}_commit_queue_depth", {}, depth)
+
+
+def observe_bind_coalesce(size: int) -> None:
+    """volcano_bind_coalesce_size: how many binds one coalesced commit
+    frame carried."""
+    registry.observe(f"{_NAMESPACE}_bind_coalesce_size", {}, size,
+                     buckets=_COALESCE_BUCKETS)
+
+
+def update_commit_overlap_ratio(ratio: float) -> None:
+    """volcano_commit_overlap_ratio: per commit-barrier, the fraction of
+    the plane's busy time that overlapped other host work instead of
+    blocking the barrier — 1.0 means the whole commit landed behind the
+    next cycle's pack+device phase, 0.0 means the barrier absorbed all
+    of it (no better than synchronous)."""
+    registry.set_gauge(f"{_NAMESPACE}_commit_overlap_ratio", {}, ratio)
+
+
+def observe_submit_to_bind(seconds: float) -> None:
+    """volcano_submit_to_bind_latency_milliseconds: pod creation (store
+    timestamp) → bind effect landed in the store, recorded at the single
+    bind-landing site shared by the synchronous and pipelined commit
+    paths."""
+    registry.observe(f"{_NAMESPACE}_submit_to_bind_latency_milliseconds", {},
+                     seconds * 1e3)
 
 
 _LABEL_CARDINALITY_CAP = 256
