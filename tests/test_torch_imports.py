@@ -296,3 +296,77 @@ def test_trace_module_imports_first_without_jax(module):
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == f"imported {module}"
+
+
+@pytest.mark.parametrize("module", ["volcano_tpu_torch.bus", "volcano_tpu_torch.bus.protocol",
+                                    "volcano_tpu_torch.bus.remote",
+                                    "volcano_tpu_torch.bus.server",
+                                    "volcano_tpu_torch.serving.leader",
+                                    "volcano_tpu_torch.cmd.daemon",
+                                    "volcano_tpu_torch.cmd.scheduler",
+                                    "volcano_tpu_torch.cmd.apiserver"])
+def test_daemon_module_imports_first_without_jax(module):
+    """The bus, the elector, the daemon scaffolding and both binaries
+    each import first in a fresh interpreter with ``jax`` blocked and
+    ``volcano_tpu`` refused."""
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD_FIRST, module], cwd=ROOT, capture_output=True, text=True,
+        timeout=120, env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1"),
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == f"imported {module}"
+
+
+CHILD_BUS = r"""
+import importlib, importlib.abc, sys
+
+sys.modules["jax"] = None
+
+
+class RefuseReference(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "volcano_tpu" or name.startswith("volcano_tpu."):
+            raise ImportError(f"the port imported {name}")
+        return None
+
+
+sys.meta_path.insert(0, RefuseReference())
+import time
+
+import chip_smoke
+from volcano_tpu_torch.bus import connect_bus
+from volcano_tpu_torch.cmd.apiserver import ApiServerDaemon
+from volcano_tpu_torch.cmd.scheduler import SchedulerDaemon, use_device
+from volcano_tpu_torch.ops.synthetic import generate_cluster_objects
+
+use_device("cpu")
+server = ApiServerDaemon(bus_port=0, listen_port=0).start()
+url = f"tcp://127.0.0.1:{server.bus.port}"
+seeder, api = connect_bus(url, wait=10), connect_bus(url, wait=10)
+chip_smoke.seed_store(seeder, generate_cluster_objects(n_tasks=64, n_nodes=16, gang_size=4,
+                                                       seed=1))
+daemon = SchedulerDaemon(api, schedule_period=0.05, leader_elect=True, listen_port=0).start()
+deadline = time.monotonic() + 60
+while sum(1 for p in seeder.list("Pod") if p.spec.node_name) < 64:
+    assert time.monotonic() < deadline and daemon.last_error is None, daemon.last_error
+    time.sleep(0.05)
+daemon.stop()
+daemon.cache.stop_commit_plane()
+for client in (seeder, api):
+    client.close()
+server.stop()
+assert "jax" not in {m.split(".")[0] for m in sys.modules if sys.modules[m] is not None}
+print("bound 64 over the bus")
+"""
+
+
+def test_daemon_over_the_bus_runs_without_jax_or_reference():
+    """The apiserver daemon, the bus and the scheduler daemon stand
+    alone: a fresh interpreter with ``jax`` blocked and ``volcano_tpu``
+    refused binds a small cluster through them on the CPU."""
+    proc = subprocess.run(
+        [sys.executable, "-c", CHILD_BUS], cwd=ROOT, capture_output=True, text=True,
+        timeout=120, env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1"),
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines() == ["bound 64 over the bus"]

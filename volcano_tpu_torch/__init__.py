@@ -19,6 +19,13 @@ Entry points: ``actions.gpu_allocate.GpuAllocateAction`` for a cycle,
 session, and ``python -m volcano_tpu_torch.cmd.compute_plane`` for the
 compute-plane sidecar that serves both kernels to a scheduler process
 over the reference's wire (``serving/compute_plane.py``); a scheduler's
-HTTP port is ``serving.ServingServer``.  They run on ``cuda`` unless the
-caller passes ``device="cpu"``.
+HTTP port is ``serving.ServingServer``.  The deployed binaries are
+``python -m volcano_tpu_torch.cmd.apiserver`` (the API store served over
+the reference's VBUS wire, ``bus/``) and ``python -m
+volcano_tpu_torch.cmd.scheduler`` (the scheduler daemon, on an
+in-process store or on ``--bus tcp://host:port``, with ConfigMap-lock
+leader election, ``serving/leader.py``).  They run on ``cuda`` unless
+the caller passes ``device="cpu"``.
 """
+
+__version__ = "0.1.0"

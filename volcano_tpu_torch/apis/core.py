@@ -1,8 +1,8 @@
 """Core Kubernetes-style objects used by the framework.
 
 A copy of ``volcano_tpu/apis/core.py`` without the objects neither the
-scheduler nor its client reads or writes (ConfigMap, Secret, Service,
-NetworkPolicy).
+scheduler, its client nor its leader elector reads or writes (Secret,
+Service, NetworkPolicy).
 
 Only the fields the reference framework actually reads/writes are modeled
 (e.g. Pod: requests/ports/selector/affinity/tolerations/priority; Node:
@@ -220,6 +220,11 @@ class Node(K8sObject):
 class PriorityClass(K8sObject):
     value: int = 0
     global_default: bool = False
+
+
+@dataclass
+class ConfigMap(K8sObject):
+    data: Dict[str, str] = field(default_factory=dict)
 
 
 @dataclass

@@ -35,10 +35,11 @@ convert through ``apis/scheme.py``.
 Reference: pkg/scheduler/cache/cache.go + event_handlers.go.  Fed by
 event handlers — wired to the store's watch, or called directly (the
 reference's own unit-test pattern, allocate_test.go:155-222); produces
-deep-copied snapshots.  Not present in the port yet: the reference's
-``sync_side_effects`` switch (its thread-pool route for the effects) and
-``scheduler_name``, which wait for the scheduler daemon, and the
-informer sink, which waits for federation.
+deep-copied snapshots.  ``scheduler_name`` is kept as the reference
+keeps it, set by the scheduler daemon and read by nothing in the cache.
+Not present in the port yet: the reference's ``sync_side_effects``
+switch (its thread-pool route for the effects; the daemon never sets
+it), and the informer sink, which waits for federation.
 """
 
 from __future__ import annotations
@@ -186,6 +187,7 @@ class SchedulerCache(Cache):
         binder: Optional[Binder] = None,
         evictor: Optional[Evictor] = None,
         status_updater: Optional[StatusUpdater] = None,
+        scheduler_name: str = "volcano",
         default_queue: str = "default",
         default_priority: int = 0,
         client=None,
@@ -193,6 +195,7 @@ class SchedulerCache(Cache):
         pipelined_commit: bool = False,
     ):
         self._mutex = threading.RLock()
+        self.scheduler_name = scheduler_name
         self.default_queue = default_queue
         self.default_priority = default_priority
 
@@ -350,8 +353,14 @@ class SchedulerCache(Cache):
             self.client.watch(self)
             self._watch_started = True
 
-    def wait_for_cache_sync(self) -> bool:
-        return True
+    def wait_for_cache_sync(self, timeout: Optional[float] = None) -> bool:
+        """The reference scheduler's WaitForCacheSync: True once the
+        informers' first lists are in the cache.  An in-process store
+        delivers them inside ``run()``; a ``RemoteAPIServer`` delivers
+        them on its dispatch thread, so this waits for it
+        (``wait_synced``).  (The JAX package's returns True at once.)"""
+        wait = getattr(getattr(self.client, "api", None), "wait_synced", None)
+        return True if wait is None else wait(timeout)
 
     def flush(self) -> None:
         """Wait for the pipelined effects to land (test/shutdown aid)."""

@@ -1,12 +1,13 @@
 """Typed clients over the in-process API server.
 
 A copy of ``volcano_tpu/client/clients.py`` with the kinds the scheduler
-and its store path read or write: pods, nodes, PVCs, priority classes
-and Events (``KubeClient``), PodGroups and Queues with their v1alpha1
-creates (``VolcanoClient``), the whole ``SchedulerClient`` and the Event
-correlator ``record_event_via``.  Not present in the port yet: the
-methods for Jobs, Commands, Services, ConfigMaps, Secrets and
-NetworkPolicies, which wait for their callers.
+its store path and its leader elector read or write: pods, nodes,
+ConfigMaps, PVCs, priority classes and Events (``KubeClient``),
+PodGroups and Queues with their v1alpha1 creates (``VolcanoClient``),
+the whole ``SchedulerClient`` and the Event correlator
+``record_event_via``.  Not present in the port yet: the methods for
+Jobs, Commands, Services, Secrets and NetworkPolicies, which wait for
+their callers (the controllers).
 
 Reference: the generated clientsets (pkg/client) — here thin typed
 facades, since serde/codegen is unnecessary for in-process dataclasses.
@@ -23,7 +24,8 @@ from volcano_tpu_torch.client.apiserver import ADDED, APIServer, DELETED, MODIFI
 
 
 class KubeClient:
-    """Core-group operations (pods/nodes/pvcs/priority classes/events)."""
+    """Core-group operations (pods/nodes/config maps/pvcs/priority classes/
+    events)."""
 
     def __init__(self, api: APIServer):
         self.api = api
@@ -75,6 +77,15 @@ class KubeClient:
 
     def list_nodes(self) -> List[core.Node]:
         return self.api.list("Node")
+
+    def create_config_map(self, cm: core.ConfigMap) -> core.ConfigMap:
+        return self.api.create(cm)
+
+    def get_config_map(self, namespace: str, name: str) -> Optional[core.ConfigMap]:
+        return self.api.get("ConfigMap", namespace, name)
+
+    def update_config_map(self, cm: core.ConfigMap) -> core.ConfigMap:
+        return self.api.update(cm)
 
     def create_pvc(self, pvc: core.PersistentVolumeClaim) -> core.PersistentVolumeClaim:
         return self.api.create(pvc)

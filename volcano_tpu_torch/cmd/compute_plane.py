@@ -28,10 +28,7 @@ import json
 import signal
 import threading
 
-import torch
-
-from volcano_tpu_torch.cmd.daemon import apply_faults
-from volcano_tpu_torch.ops import preempt_kernel, session_kernel
+from volcano_tpu_torch.cmd.daemon import apply_faults, kernel_status
 from volcano_tpu_torch.serving.compute_plane import (
     ComputePlaneServer,
     recent_requests,
@@ -45,11 +42,7 @@ log = get_logger(__name__)
 def status() -> dict:
     """Kernel launches made in this process, the device memory it
     holds, and its latest requests' timings."""
-    return dict(session=session_kernel.LAUNCHES, session_wide=session_kernel.WIDE_LAUNCHES,
-                preempt=preempt_kernel.LAUNCHES,
-                memory_reserved=(torch.cuda.memory_reserved()
-                                 if torch.cuda.is_initialized() else 0),
-                requests=list(recent_requests))
+    return dict(kernel_status(), requests=list(recent_requests))
 
 
 def main(argv=None) -> int:

@@ -28,7 +28,12 @@ counts the fault plane's firings.  Values live in process memory in
 an operator reads them with :meth:`Registry.counter` and
 :meth:`Registry.gauge`, and ``GET /metrics`` (serving/http.py) prints
 them with :meth:`Registry.render`, the Prometheus text exposition,
-histograms in the reference's buckets.
+histograms in the reference's buckets.  A daemon stamps who it is once
+at start (:func:`set_identity`): its labels are merged into every
+rendered series, and ``volcano_build_info{version}`` is set.  The bus
+(``bus/``) writes the reference's bus series: the client's requests,
+reconnects, relists, watch events and lag, codec fallbacks; the
+server's requests, watchers, codecs, frame bytes and watch-batch sizes.
 """
 
 from __future__ import annotations
@@ -72,6 +77,11 @@ class Registry:
         self._counters: Dict[_Key, float] = defaultdict(float)  # guarded-by: self._lock
         self._gauges: Dict[_Key, float] = {}  # guarded-by: self._lock
         self._hists: Dict[_Key, _Histogram] = {}  # guarded-by: self._lock
+        #: uniform identity labels merged into every rendered series
+        #: (daemon / shard / replica_index / role); empty until
+        #: set_identity(), so tests and library embedders see unchanged
+        #: output
+        self._identity: Tuple[Tuple[str, str], ...] = ()  # guarded-by: self._lock
 
     @staticmethod
     def _key(name: str, labels: Dict[str, str]) -> _Key:
@@ -120,19 +130,32 @@ class Registry:
             h = self._hists.get(self._key(name, labels))
             return (0, 0.0) if h is None else (h.total, h.sum)
 
+    def set_identity(self, **labels: str) -> None:
+        """Install the uniform identity labels (non-empty values only);
+        they merge into every series at render time, so a role flip
+        retags the whole exposition at the next scrape."""
+        with self._lock:
+            self._identity = tuple(sorted((k, v) for k, v in labels.items() if v))
+
     def render(self) -> str:
         """Prometheus text exposition format, line for line the JAX
-        package's ``_Registry.render`` (without identity labels):
-        histograms, then counters, then gauges, each sorted by name and
-        labels."""
+        package's ``_Registry.render``: histograms, then counters, then
+        gauges, each sorted by name and labels, the identity labels
+        merged into each series' own (a series' own label wins)."""
+        identity: Tuple[Tuple[str, str], ...] = ()
 
         def fmt_labels(labels: Tuple[Tuple[str, str], ...]) -> str:
+            if identity:
+                keys = {k for k, _v in labels}
+                labels = tuple(sorted(
+                    labels + tuple((k, v) for k, v in identity if k not in keys)))
             if not labels:
                 return ""
             return "{" + ",".join(f'{k}="{v}"' for k, v in labels) + "}"
 
         lines: List[str] = []
         with self._lock:
+            identity = self._identity
             for (name, labels), h in sorted(self._hists.items()):
                 cumulative = 0
                 for bound, c in zip(h.buckets, h.counts):
@@ -154,9 +177,33 @@ class Registry:
             self._counters.clear()
             self._gauges.clear()
             self._hists.clear()
+            self._identity = ()
 
 
 registry = Registry()
+
+
+# ---- daemon identity + build info ----
+
+#: bounded role vocabulary for the identity label
+_IDENTITY_ROLES = (
+    "scheduler", "controllers", "admission", "apiserver",
+    "compute-plane", "leader", "follower", "standalone", "init",
+    "removed",
+)
+
+
+def set_identity(daemon: str, shard: str = "", replica_index: str = "",
+                 role: str = "") -> None:
+    """Install the uniform identity labels and the ``volcano_build_info``
+    gauge.  role ∈ _IDENTITY_ROLES (anything else renders ``other``);
+    empty labels are omitted rather than rendered blank."""
+    if role and role not in _IDENTITY_ROLES:
+        role = "other"
+    registry.set_identity(daemon=daemon, shard=shard, replica_index=replica_index, role=role)
+    from volcano_tpu_torch import __version__
+
+    registry.set_gauge(f"{_NAMESPACE}_build_info", {"version": __version__}, 1.0)
 
 
 def register_executor_failure(executor: str, cause: str) -> None:
@@ -357,6 +404,72 @@ def observe_submit_to_bind(seconds: float) -> None:
     paths."""
     registry.observe(f"{_NAMESPACE}_submit_to_bind_latency_milliseconds", {},
                      seconds * 1e3)
+
+
+# ---- bus (bus/remote.py client side, bus/server.py server side) ----
+
+#: frame-size buckets (bytes): watch entries are hundreds of bytes,
+#: relist replies and batch frames reach megabytes
+_FRAME_BYTE_BUCKETS = [64, 256, 1024, 4096, 16384, 65536, 262144, 1048576, 4194304]
+
+
+def observe_bus_request(method: str, seconds: float, code: str) -> None:
+    """One client call; code ∈ {ok, error, timeout, disconnected}."""
+    registry.inc(f"{_NAMESPACE}_bus_requests_total", {"method": method, "code": code})
+    registry.observe(f"{_NAMESPACE}_bus_request_latency_milliseconds", {"method": method},
+                     seconds * 1e3)
+
+
+def register_bus_reconnect() -> None:
+    registry.inc(f"{_NAMESPACE}_bus_reconnects_total", {})
+
+
+def register_bus_relist(kind: str) -> None:
+    """A watch that could not resume and relisted (410 Gone)."""
+    registry.inc(f"{_NAMESPACE}_bus_relists_total", {"kind": kind})
+
+
+def register_bus_watch_event(kind: str) -> None:
+    registry.inc(f"{_NAMESPACE}_bus_watch_events_total", {"kind": kind})
+
+
+def update_bus_watch_lag(seconds: float) -> None:
+    """Server stamp → client dispatch of a watch event or bookmark."""
+    registry.observe(f"{_NAMESPACE}_bus_watch_lag_milliseconds", {},
+                     max(seconds, 0.0) * 1e3)
+
+
+def update_bus_codec_connections(codec: str, count: int) -> None:
+    """Live server connections per negotiated body codec."""
+    registry.set_gauge(f"{_NAMESPACE}_bus_codec", {"codec": codec}, count)
+
+
+def observe_bus_frame_bytes(codec: str, nbytes: int) -> None:
+    """Body size of one outbound server frame, by codec."""
+    registry.observe(f"{_NAMESPACE}_bus_frame_bytes", {"codec": codec}, nbytes,
+                     buckets=_FRAME_BYTE_BUCKETS)
+
+
+def register_bus_codec_fallback() -> None:
+    """A client offered binary and the peer declined."""
+    registry.inc(f"{_NAMESPACE}_bus_codec_fallbacks_total", {})
+
+
+def observe_bus_server_request(op: str, seconds: float, code: str) -> None:
+    """One server-side request; code ∈ {ok, error}."""
+    registry.inc(f"{_NAMESPACE}_bus_server_requests_total", {"op": op, "code": code})
+    registry.observe(f"{_NAMESPACE}_bus_server_request_latency_milliseconds", {"op": op},
+                     seconds * 1e3)
+
+
+def update_bus_server_watchers(count: int) -> None:
+    registry.set_gauge(f"{_NAMESPACE}_bus_server_watchers", {}, count)
+
+
+def observe_watch_batch(size: int) -> None:
+    """Watch events one coalesced T_WATCH_BATCH frame carried."""
+    registry.observe(f"{_NAMESPACE}_bus_watch_batch_size", {}, size,
+                     buckets=_COALESCE_BUCKETS)
 
 
 _LABEL_CARDINALITY_CAP = 256
