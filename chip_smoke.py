@@ -3692,6 +3692,148 @@ def identity_checked(body: str, what: str) -> int:
     return len(series)
 
 
+class SegmentTap:
+    """A watch on an API server's ConfigMaps (the port's store or a
+    ``RemoteAPIServer``), registered before any recorder exports: every
+    version of every telemetry segment (``vtpu-spans-*``) the store held,
+    in the order written.  The store itself keeps each recorder's last 16
+    flushes, about 4 s of history while binds land and 16 s of idle
+    cycles after; ``obs.collect_spans(tap)`` reads every span any
+    recorder exported, the store's watch being the collector, while
+    ``obs.collect_spans(api)`` reads what the store still holds."""
+
+    def __init__(self, api):
+        import threading
+
+        from volcano_tpu_torch import obs
+
+        self.api, self.lock, self.versions = api, threading.Lock(), []
+        self._ns, self._prefix = obs.NAMESPACE, obs.SEGMENT_PREFIX
+        api.watch("ConfigMap", self._cm, send_initial=False)
+
+    def _cm(self, event, old, new):
+        from types import SimpleNamespace
+
+        if event == "DELETED" or new.metadata.namespace != self._ns \
+                or not (new.metadata.name or "").startswith(self._prefix):
+            return
+        with self.lock:
+            self.versions.append(SimpleNamespace(
+                metadata=SimpleNamespace(name=new.metadata.name), data=dict(new.data or {})))
+
+    def list(self, kind: str, namespace: Optional[str] = None) -> list:
+        with self.lock:
+            return list(self.versions)
+
+    def close(self) -> None:
+        self.api.unwatch("ConfigMap", self._cm)
+
+
+class LaunchClock:
+    """CUDA events around each launch of the session kernel (the wrapper
+    ``ops/session_kernel._launch``, wrapped from construction to
+    ``close``; the launch and its count are the wrapper's own): the
+    device time of each launch, in launch order."""
+
+    def __init__(self):
+        import torch
+
+        from volcano_tpu_torch.ops import session_kernel
+
+        self._sk, self._real, self.events = session_kernel, session_kernel._launch, []
+
+        def launch(*args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self._real(*args, **kwargs)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        session_kernel._launch = launch
+
+    def ms(self, first: int, n: int) -> list:
+        """The device ms of launches ``first`` .. ``first + n - 1``."""
+        import torch
+
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events[first:first + n]]
+
+    def close(self) -> None:
+        self._sk._launch = self._real
+
+
+#: the share of pod traces ``phase_daemon``'s recorders keep
+#: (``VTPU_TELEMETRY_SAMPLE``; cycles, kernel phases and commit flushes
+#: are process-scope spans, always kept).  At 1.0 a 4,096-bind frame puts
+#: 4,096 ``bind:landed`` spans into the 8,192-span ring at once from each
+#: of two workers, faster than the flusher's 2,048 a quarter second
+#: drains them, and the overflow drops cycle and flush spans with them
+DAEMON_TRACE_SAMPLE = 0.1
+
+#: how far the flight recorder's ``kernel:execute`` span (host clock
+#: around ``execute_allocate``: the task rows' put, the operands built on
+#: the card, the launches, the fetch) may run past the kernel's own
+#: launches (CUDA events): host work under the interpreter lock, which the
+#: recorder's flusher and the elector share; 21.1–45.9 ms apart at 50k x
+#: 10k on an NVIDIA H100 80GB HBM3 at 700 W
+EXECUTE_GAP_MS = 100.0
+
+
+def span_chain(span: dict, by_id: dict) -> list:
+    """``span``'s ancestors by parent id, nearest first."""
+    chain = []
+    while span.get("p") in by_id and len(chain) < 64:
+        span = by_id[span["p"]]
+        chain.append(span)
+    return chain
+
+
+def tree_depth(spans: list) -> int:
+    """The depth of the deepest span of ``obs.build_tree(spans)`` (a root
+    is depth 1)."""
+    from volcano_tpu_torch import obs
+
+    roots, children = obs.build_tree(spans)
+    depth, frontier = 0, list(roots)
+    while frontier:
+        depth += 1
+        frontier = [c for s in frontier for c in children.get(s.get("s"), [])]
+    return depth
+
+
+def waterfall(spans: list, namespace: str, name: str, api=None) -> tuple:
+    """(spans, text) of one pod's waterfall, as ``vtctl trace pod`` selects
+    and renders it (its identities from ``api`` where given)."""
+    import io
+
+    from volcano_tpu_torch import obs
+
+    idents = obs.related_identities(api, namespace, name) if api is not None \
+        else [(namespace, name)]
+    sel = obs.select_union(spans, idents)
+    buf = io.StringIO()
+    obs.render_waterfall(sel, buf)
+    return sel, buf.getvalue()
+
+
+def bus_pairs(spans: list, server: str) -> list:
+    """The (client, server) ``bus:<op>`` span pairs of ``spans`` whose
+    server half the process ``server`` recorded: same name, linked parent
+    → child, two processes."""
+    by_id = {s["s"]: s for s in spans}
+    return [(by_id[s["p"]], s) for s in spans
+            if s.get("daemon") == server and s.get("cat") == "bus" and s.get("p") in by_id
+            and by_id[s["p"]].get("name") == s.get("name")
+            and by_id[s["p"]].get("daemon") != server]
+
+
+def cycle_with_kernels(spans: list, cycle: dict) -> dict:
+    """The names and durations of ``cycle``'s kernel-phase children."""
+    return {s["name"]: s["dur"] / 1e3 for s in spans
+            if s.get("p") == cycle["s"] and s["name"].startswith("kernel:")}
+
+
 def phase_daemon(card: str) -> dict:
     """The scheduler daemon (``cmd/scheduler.SchedulerDaemon``) at full
     width on the port's in-process store, as the binary builds it with
@@ -3716,14 +3858,30 @@ def phase_daemon(card: str) -> dict:
     leads: their creates, back to back under the store lock, would
     starve its elector) and it must bind every arrival once, with
     ARRIVAL_DIGESTS' digest, no pod bound before the crash changing
-    node, the session kernel launched in its cycles.  One
-    ``{"daemon": ...}`` line."""
+    node, the session kernel launched in its cycles.  Both daemons run
+    the flight recorder (``flight_recorder=True``; one exporter a
+    process, so B's start replaces A's and the spans after it carry B's
+    identity, and a crash-stop leaves it running): A's first binding
+    cycle, from every segment its exporter shipped (``SegmentTap``), is a
+    ``cycle:full`` span with ``kernel:pack`` and ``kernel:execute``
+    children, the execute span at most ``EXECUTE_GAP_MS`` past the
+    kernel's own launches (``LaunchClock``), ``commit:flush`` spans
+    adopted into it and a ``bind:landed`` span for the last pod bound
+    whose trace is sampled, under one of those flushes, the store digest
+    unchanged; no ``export-error`` drop (the
+    ring-full drops are counted and printed); and the waterfall of the
+    last arrival bound whose trace is sampled (``DAEMON_TRACE_SAMPLE``),
+    from the store as ``vtctl trace pod`` reads it, holds the
+    standby's cycle after the crash with its kernel phases and the
+    arrival's bind.  One ``{"daemon": ...}`` line, with the recorder's
+    numbers under ``obs``."""
     import gc
+    import os
     import threading
 
     import torch
 
-    from volcano_tpu_torch import metrics
+    from volcano_tpu_torch import metrics, obs
     from volcano_tpu_torch.client import APIServer
     from volcano_tpu_torch.cmd.scheduler import SchedulerDaemon
     from volcano_tpu_torch.ops import session_kernel
@@ -3738,13 +3896,17 @@ def phase_daemon(card: str) -> dict:
     seed_store(api, objects)
     seed_s = time.perf_counter() - t0
     failures0, commit0 = kernel_failures(), commit_failures()
+    errors0 = metrics.registry.counter("volcano_telemetry_dropped_total", reason="export-error")
     out = dict(cell=name, config=config, card=card, seed_ms=seed_s * 1e3)
-    daemons, frozen = [], False
+    daemons, frozen, tap, clock = [], False, SegmentTap(api), LaunchClock()
+    rec = {"trace_sample": DAEMON_TRACE_SAMPLE}
+    sample0 = os.environ.get("VTPU_TELEMETRY_SAMPLE")
+    os.environ["VTPU_TELEMETRY_SAMPLE"] = str(DAEMON_TRACE_SAMPLE)
     with policy_file(CYCLE_TIERS, ("gpu-allocate",)) as path:
         def daemon(identity):
             d = SchedulerDaemon(api, scheduler_conf=path, snapshot_reuse=True,
                                 pipelined_commit=True, leader_elect=True, listen_port=0,
-                                identity=identity)
+                                identity=identity, flight_recorder=True)
             daemons.append(d)
             return d
 
@@ -3755,6 +3917,7 @@ def phase_daemon(card: str) -> dict:
             t0 = time.perf_counter()
             a.start()
             out["a_start_ms"] = (time.perf_counter() - t0) * 1e3
+            exporters = {"daemon-a": a._obs_exporter}
             t_settle = wait_for(lambda: store_settled(api, audit, n_pods), SETTLE_S,
                                 f"{name}: daemon A's binds", failed=lambda: cycle_failure(a),
                                 interval=0.5)
@@ -3782,6 +3945,67 @@ def phase_daemon(card: str) -> dict:
                   f"{a.skipped_turns} loop turns skipped for want of the lease; /healthz 200, "
                   f"{n_series} series with the identity labels; card {card}")
 
+            # the flight recorder: A's first binding cycle as its exporter
+            # shipped it, every segment version the store held (the last
+            # frame's spans flushed now, not at the flusher's next beat)
+            exporters["daemon-a"].flush_all()
+            t0 = time.perf_counter()
+            spans = [s for s in obs.collect_spans(tap) if s.get("daemon") == "daemon-a"]
+            rec["collect_ms"] = (time.perf_counter() - t0) * 1e3
+            by_id = {s["s"]: s for s in spans}
+            cycles = [s for s in spans if s["name"] == "cycle:full"]
+            binding = next((c for c in cycles
+                            if "kernel:execute" in cycle_with_kernels(spans, c)), None)
+            check(binding is not None, f"{name}: no cycle:full span of A with a kernel:execute "
+                                       f"child among {len(cycles)} cycles, {len(spans)} spans")
+            kernels = cycle_with_kernels(spans, binding)
+            check(set(kernels) == {"kernel:pack", "kernel:execute"},
+                  f"{name}: A's binding cycle's kernel children {kernels}")
+            check(len(clock.events) == a_launches, f"{name}: {len(clock.events)} launches timed, "
+                                                   f"{a_launches} counted")
+            launch_ms = clock.ms(0, a_launches)
+            gap_ms = kernels["kernel:execute"] - sum(launch_ms)
+            check(0.0 <= gap_ms <= EXECUTE_GAP_MS,
+                  f"{name}: kernel:execute {kernels['kernel:execute']:.3f} ms against the "
+                  f"kernel's {a_launches} launches {sum(launch_ms):.3f} ms")
+            flushes = [s for s in spans if s["name"] == "commit:flush" and s["p"] == binding["s"]]
+            check(flushes, f"{name}: no commit:flush span adopted into A's binding cycle")
+            landed = {s["args"]["pod"]: s for s in spans if s["name"] == "bind:landed"}
+            # the latest bound pod whose trace the sampling coin keeps
+            late_pod = next(k for k in sorted(audit.bound_at, key=audit.bound_at.get,
+                                              reverse=True)
+                            if exporters["daemon-a"].keep(obs.trace_id_for_pod(*k.split("/"))))
+            check(late_pod in landed, f"{name}: no bind:landed span for {late_pod}, the last pod "
+                                      f"bound whose trace is sampled ({len(landed)} bind spans)")
+            chain = span_chain(landed[late_pod], by_id)
+            check([s["name"] for s in chain] == ["commit:flush", "cycle:full"]
+                  and chain[-1]["s"] == binding["s"],
+                  f"{name}: {late_pod}'s bind under {[s['name'] for s in chain]}, not a flush "
+                  f"of A's binding cycle")
+            check(audit.digest() == digest, f"{name}: the store digest moved under the recorder")
+            sel, text = waterfall(spans, *late_pod.split("/"), api)
+            print(f"{name}: A's waterfall of {late_pod} (every segment A shipped):\n"
+                  + "\n".join(text.splitlines()[:40]))
+            rec.update(a_spans=len(spans), a_cycles=len(cycles), binding_cycle=binding["args"],
+                       binding_cycle_ms=binding["dur"] / 1e3, kernel_spans_ms=kernels,
+                       launch_ms=launch_ms, execute_gap_ms=gap_ms,
+                       adopted_flushes=len(flushes),
+                       adopted_items=sum(f["args"]["items"] for f in flushes),
+                       queue_wait_ms=max(f["args"].get("queue_wait_ms", 0.0) for f in flushes),
+                       bind_spans=len(landed), late_pod=late_pod,
+                       late_chain=[s["name"] for s in chain], late_depth=tree_depth(sel),
+                       a_live_spans=sum(s.get("daemon") == "daemon-a"
+                                        for s in obs.collect_spans(api)))
+            print(f"{name}: the recorder: A's binding cycle {binding['args']} "
+                  f"{rec['binding_cycle_ms']:.3f} ms with kernel:pack "
+                  f"{kernels['kernel:pack']:.3f} ms and kernel:execute "
+                  f"{kernels['kernel:execute']:.3f} ms against its {a_launches} launches' "
+                  f"{sum(launch_ms):.3f} ms on the card ({gap_ms:.3f} ms apart); {len(flushes)} "
+                  f"commit:flush spans adopted into it ({rec['adopted_items']} items); "
+                  f"{len(landed)} bind:landed spans of {n_pods} binds, {late_pod} bound late "
+                  f"under {rec['late_chain']}; {len(spans)} spans of A shipped, "
+                  f"{rec['a_live_spans']} still in the store; card {card}")
+
             # the standby, after A's frames landed.  Its informer sync (the
             # store's initial lists, ~66k objects under the store lock) and
             # the collector's pauses over this process's heap can outlast
@@ -3797,6 +4021,7 @@ def phase_daemon(card: str) -> dict:
             t0 = time.perf_counter()
             b.start()
             out["b_start_ms"] = (time.perf_counter() - t0) * 1e3
+            exporters["daemon-b"] = b._obs_exporter
             gc.collect()
             gc.freeze()
             lease_s = a.elector.lease_duration
@@ -3829,7 +4054,7 @@ def phase_daemon(card: str) -> dict:
             leader.stop(crash=True)
             leader.cache.stop_commit_plane()
             out["crash_stop_ms"] = (time.perf_counter() - t0) * 1e3
-            t_crash = time.monotonic()
+            t_crash, wall_crash = time.monotonic(), time.time() * 1e6
             watcher = threading.Thread(target=watch_standby, daemon=True)
             watcher.start()
             # the arrivals once the standby leads: 2,001 creates under the
@@ -3855,6 +4080,47 @@ def phase_daemon(card: str) -> dict:
                   f"{name}: Scheduled Events {audit.events.get('Scheduled')}, rebinds "
                   f"{audit.rebinds[:3]}")
             check(b_launches > 0, f"{name}: no session kernel launch in the standby's cycles")
+            # the waterfall of the last arrival bound whose trace is sampled,
+            # as `vtctl trace pod` reads it from the store: the standby's
+            # cycle after the crash
+            last = max((k for k, _n in arrival_binds(audit, arrivals)
+                        if exporters["daemon-b"].keep(obs.trace_id_for_pod(*k.split("/")))),
+                       key=audit.bound_at.get)
+            view = {}
+
+            def arrival_traced() -> bool:
+                sel, text = waterfall(obs.collect_spans(api), *last.split("/"), api)
+                by_id = {s["s"]: s for s in sel}
+                cyc = [c for s in sel if s["name"] == "bind:landed"
+                       for c in span_chain(s, by_id)
+                       if c["name"].startswith("cycle:") and c["ts"] >= wall_crash]
+                view.update(sel=sel, text=text, cycles=cyc)
+                return bool(cyc)
+
+            wait_for(arrival_traced, 10.0, f"{name}: {last}'s waterfall with the standby's "
+                                           f"cycle", interval=0.25)
+            kernels = cycle_with_kernels(view["sel"], view["cycles"][0])
+            check(set(kernels) == {"kernel:pack", "kernel:execute"},
+                  f"{name}: the standby's cycle's kernel children {kernels}")
+            print(f"{name}: {last}'s waterfall (the store):\n" + view["text"])
+            errors = metrics.registry.counter("volcano_telemetry_dropped_total",
+                                              reason="export-error") - errors0
+            check(errors == 0, f"{name}: {errors:.0f} spans dropped on export errors")
+            rec.update(arrival=last, arrival_spans=len(view["sel"]),
+                       arrival_depth=tree_depth(view["sel"]),
+                       arrival_cycle=view["cycles"][0]["args"],
+                       arrival_kernel_spans_ms=kernels,
+                       exported={k: e.exported for k, e in exporters.items()},
+                       dropped={k: e.dropped for k, e in exporters.items()},
+                       dropped_by_reason={dict(k)["reason"]: v for k, v in metrics.registry.counters(
+                           "volcano_telemetry_dropped_total").items()},
+                       segments_live={k: sum(1 for cm in api.list("ConfigMap", obs.NAMESPACE)
+                                             if cm.metadata.name.startswith(
+                                                 f"{obs.SEGMENT_PREFIX}{k}-"))
+                                      for k in exporters},
+                       segment_versions=len(tap.versions),
+                       spans_live=len(obs.collect_spans(api)),
+                       spans_shipped=len(obs.collect_spans(tap)))
             for d in (a, b):
                 check(cycle_failure(d) is None and d.last_error is None,
                       f"{name}: {cycle_failure(d)}")
@@ -3880,14 +4146,21 @@ def phase_daemon(card: str) -> dict:
                   f"ARRIVAL_DIGESTS, no rebind, {b_launches} session kernel launches in the "
                   f"standby's cycles; card {card}")
         finally:
+            clock.close()
             for d in daemons:
                 d.stop()
                 d.cache.stop_commit_plane()
+            tap.close()
+            if sample0 is None:
+                os.environ.pop("VTPU_TELEMETRY_SAMPLE", None)
+            else:
+                os.environ["VTPU_TELEMETRY_SAMPLE"] = sample0
             metrics.registry.set_identity()
             if frozen:
                 gc.unfreeze()
     out["phase_ms"] = (time.perf_counter() - t_phase) * 1e3
-    del api, audit, daemons
+    out["obs"] = rec
+    del api, audit, daemons, tap
     gc.collect()
     print(json.dumps({"daemon": out}))
     return out
@@ -3897,9 +4170,10 @@ class Binary:
     """A binary of the port as a child process, ``python -m MODULE
     ARGS``, from this checkout, its output in a log file in
     ``directory`` (a fresh temporary directory where None), removed on
-    ``close``."""
+    ``close``; ``env`` adds to this process's environment."""
 
-    def __init__(self, module: str, args, directory: Optional[str] = None):
+    def __init__(self, module: str, args, directory: Optional[str] = None,
+                 env: Optional[dict] = None):
         import os
         import tempfile
 
@@ -3909,8 +4183,8 @@ class Binary:
         self._log = open(self.log_path, "w")
         self.name = f"{module.rsplit('.', 1)[-1]} {' '.join(args)}"
         self.proc = subprocess.Popen([sys.executable, "-m", module, *args], cwd=root,
-                                     env=dict(os.environ, PYTHONPATH=root), stdout=self._log,
-                                     stderr=subprocess.STDOUT)
+                                     env={**os.environ, "PYTHONPATH": root, **(env or {})},
+                                     stdout=self._log, stderr=subprocess.STDOUT)
 
     def text(self) -> str:
         with open(self.log_path) as f:
@@ -4041,6 +4315,179 @@ def lease_holder(api) -> str:
     return "" if cm is None else json.loads(cm.data.get(LEASE_KEY, "{}")).get("holderIdentity", "")
 
 
+#: the scheduler children's watchdog period (``VTPU_WATCHDOG_PERIOD``, 5 s
+#: in the binaries by default), so that a breach shows within the phase
+WATCHDOG_PERIOD_S = 1.0
+
+
+def recorder_metrics(body: str) -> dict:
+    """A daemon's recorder counters from its /metrics text: spans
+    exported (the batch-size histogram's sum) and dropped, by reason."""
+    return dict(exported=metric_sum(body, "volcano_telemetry_batch_size_sum"),
+                ring_full=metric_sum(body, "volcano_telemetry_dropped_total", reason="ring-full"),
+                export_error=metric_sum(body, "volcano_telemetry_dropped_total",
+                                        reason="export-error"))
+
+
+def watchdog_report(port: int, directory: str, timeout: float) -> dict:
+    """What a scheduler child's watchdog raised: its /healthz body once an
+    ``slo-burn:`` reason shows (or after ``timeout``), its burn gauges,
+    and each bundle in its incident directory (reason, files, errors,
+    bytes; a breach's bundle waited for up to 30 s)."""
+    import os
+
+    from volcano_tpu_torch.metrics import scrape
+
+    deadline = time.monotonic() + timeout
+    while True:
+        _, body = http_get(port, "/healthz")
+        healthz = body.decode()
+        if "slo-burn:" in healthz or time.monotonic() > deadline:
+            break
+        time.sleep(0.1)
+    _, body = http_get(port, "/metrics")
+    burns = {f"{dict(k[1])['slo']}/{dict(k[1])['window']}": v
+             for k, v in scrape.parse_metrics(body.decode()).series.items()
+             if k[0] == "volcano_slo_burn"}
+    deadline = time.monotonic() + 30.0
+    while not incident_bundles(directory) and "slo-burn:" in healthz \
+            and time.monotonic() < deadline:
+        time.sleep(0.25)
+    return dict(healthz=healthz, burns=burns, bundles=incident_bundles(directory))
+
+
+def incident_bundles(directory: str) -> dict:
+    """Each incident bundle in ``directory``: its reason, alerts, files as
+    its ``meta.json`` lists them, errors, spans and each file's bytes."""
+    import os
+
+    out = {}
+    names = sorted(d for d in os.listdir(directory) if d.startswith("incident-")) \
+        if os.path.isdir(directory) else []
+    for d in names:
+        path = os.path.join(directory, d)
+        meta = json.load(open(os.path.join(path, "meta.json")))
+        out[d] = dict(reason=meta["reason"], alerts=meta["alerts"], files=meta["files"],
+                      errors=meta["errors"], spans=meta["spanCount"],
+                      bytes={f: os.path.getsize(os.path.join(path, f))
+                             for f in sorted(os.listdir(path))})
+    return out
+
+
+def bus_recorder(name: str, url: str, client, tap, leader_id: str, standby_id: str,
+                 standby_port: int, arrivals, audit, wall_kill: float) -> dict:
+    """The flight recorder over the wire, after the standby bound the
+    arrivals: the last arrival's waterfall from the store holds the
+    standby's cycle after the kill with its kernel phases, the arrival's
+    bind and ``bus:<op>`` client spans linked to the apiserver's adopted
+    server spans, two processes or more; ``python -m
+    volcano_tpu_torch.cli.vtctl --bus URL trace pod`` prints it; a pod
+    the SIGKILLed leader bound has a waterfall with the leader's cycle,
+    from every segment shipped (``SegmentTap``); ``vtctl incidents
+    capture`` writes a complete bundle, ``incidents list`` shows it and
+    ``top`` prints a row for each target."""
+    import io
+    import os
+    import re
+    import shutil
+    import tempfile
+
+    from volcano_tpu_torch import obs
+    from volcano_tpu_torch.cli import vtctl
+
+    rec = {}
+    last = max((k for k, _n in arrival_binds(audit, arrivals)), key=audit.bound_at.get)
+    ns, pod = last.split("/")
+    view = {}
+
+    def traced() -> bool:
+        sel, text = waterfall(obs.collect_spans(client), ns, pod, client)
+        by_id = {s["s"]: s for s in sel}
+        view.update(sel=sel, text=text, pairs=bus_pairs(sel, "apiserver-0"), cycles=[
+            c for s in sel if s["name"] == "bind:landed" for c in span_chain(s, by_id)
+            if c["name"].startswith("cycle:") and c.get("daemon") == standby_id
+            and c["ts"] >= wall_kill])
+        return bool(view["cycles"] and view["pairs"])
+
+    wait_for(traced, 10.0, f"{name}: {last}'s waterfall with {standby_id}'s cycle and the "
+                           f"bus spans", interval=0.25)
+    kernels = cycle_with_kernels(view["sel"], view["cycles"][0])
+    check(set(kernels) == {"kernel:pack", "kernel:execute"},
+          f"{name}: {standby_id}'s cycle's kernel children {kernels}")
+    procs = sorted({(s.get("daemon"), s.get("pid")) for s in view["sel"]})
+    check(len(procs) >= 2, f"{name}: {last}'s waterfall from {procs}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "volcano_tpu_torch.cli.vtctl", "--bus", url,
+                          "trace", "pod", "-n", ns, "-N", pod], cwd=root, capture_output=True,
+                         text=True, timeout=300, env=dict(os.environ, PYTHONPATH=root))
+    rec["vtctl_trace_ms"] = (time.perf_counter() - t0) * 1e3
+    m = re.search(r"(\d+) span\(s\) across (\d+) daemon\(s\) / (\d+) process\(es\)",
+                  run.stdout)
+    check(run.returncode == 0 and m is not None and int(m.group(3)) >= 2
+          and all(x in run.stdout for x in ("cycle:", "kernel:execute", "bus:", "bind:landed")),
+          f"{name}: vtctl trace pod {last}: rc {run.returncode}\n{run.stdout}\n{run.stderr}")
+    print(f"{name}: python -m volcano_tpu_torch.cli.vtctl --bus {url} trace pod -n {ns} -N "
+          f"{pod}:\n{run.stdout}")
+    rec.update(arrival=last, arrival_spans=len(view["sel"]), arrival_processes=procs,
+               arrival_depth=tree_depth(view["sel"]), arrival_kernel_spans_ms=kernels,
+               arrival_bus_pairs=sorted({c["name"] for c, _s in view["pairs"]}),
+               vtctl_spans=int(m.group(1)), vtctl_processes=int(m.group(3)))
+
+    # the SIGKILLed leader's spans up to its last flush
+    shipped = obs.collect_spans(tap)
+    lead = [s for s in shipped if s.get("daemon") == leader_id]
+    by_id = {s["s"]: s for s in lead}
+    hit = next((s for s in lead if s["name"] == "bind:landed"
+                and any(c["name"].startswith("cycle:") for c in span_chain(s, by_id))), None)
+    check(hit is not None, f"{name}: no bind of {leader_id} under one of its cycles among "
+                           f"{len(lead)} spans it shipped")
+    sel, text = waterfall(shipped, *hit["args"]["pod"].split("/"), client)
+    check(any(s["name"].startswith("cycle:") and s.get("daemon") == leader_id for s in sel),
+          f"{name}: {hit['args']['pod']}'s waterfall without {leader_id}'s cycle")
+    print(f"{name}: {hit['args']['pod']}, bound by the SIGKILLed {leader_id} (every segment "
+          f"shipped):\n" + "\n".join(text.splitlines()[:40]))
+    rec.update(leader_pod=hit["args"]["pod"], leader_spans_shipped=len(lead),
+               leader_spans_live=sum(s.get("daemon") == leader_id
+                                     for s in obs.collect_spans(client)),
+               leader_depth=tree_depth(sel),
+               leader_chain=[s["name"] for s in span_chain(hit, by_id)])
+
+    inc_dir = tempfile.mkdtemp(prefix="vcap")
+    try:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        rc = vtctl.main(["--bus", url, "incidents", "capture", "--dir", inc_dir,
+                         "--settle", "0.5"], out=buf)
+        rec["capture_ms"] = (time.perf_counter() - t0) * 1e3
+        check(rc == 0 and buf.getvalue().startswith("bundle: "),
+              f"{name}: vtctl incidents capture: rc {rc}: {buf.getvalue()}")
+        path = buf.getvalue().split("bundle: ", 1)[1].strip()
+        meta = json.load(open(os.path.join(path, "meta.json")))
+        files = sorted(os.listdir(path))
+        check(sorted(meta["files"]) == files and not meta["errors"] and meta["spanCount"] > 0,
+              f"{name}: the captured bundle {files}: {meta}")
+        rec["capture"] = dict(files=meta["files"], spans=meta["spanCount"],
+                              bytes={f: os.path.getsize(os.path.join(path, f)) for f in files})
+    finally:
+        shutil.rmtree(inc_dir, ignore_errors=True)
+    buf = io.StringIO()
+    rc = vtctl.main(["--bus", url, "incidents", "list"], out=buf)
+    check(rc == 0 and "manual" in buf.getvalue(), f"{name}: vtctl incidents list: rc {rc}:\n"
+                                                   f"{buf.getvalue()}")
+    print(f"{name}: vtctl incidents list:\n{buf.getvalue()}")
+    rec["incidents_listed"] = len(buf.getvalue().splitlines()) - 1
+    target = f"127.0.0.1:{standby_port}"
+    buf = io.StringIO()
+    rc = vtctl.main(["--bus", url, "top", "--metrics", target], out=buf)
+    rows = {ln.split()[0] for ln in buf.getvalue().splitlines()[2:] if ln.startswith("  ")}
+    check(rc == 0 and {"apiserver-0", target, "CLUSTER"} <= rows,
+          f"{name}: vtctl top: rc {rc}:\n{buf.getvalue()}")
+    print(f"{name}: vtctl top:\n{buf.getvalue()}")
+    rec["top_rows"] = sorted(rows)
+    return rec
+
+
 def phase_bus(card: str) -> dict:
     """The deployed topology on the card: ``python -m
     volcano_tpu_torch.cmd.apiserver --port 0 --listen-port 0`` as a child,
@@ -4066,12 +4513,21 @@ def phase_bus(card: str) -> dict:
     period, and then, the arrivals created, bind them with
     ARRIVAL_DIGESTS' digest, no rebind, the session kernel launched in
     it.  The apiserver's /healthz answers 200 throughout; B and the
-    apiserver exit 0 on SIGTERM.  A child that dies fails the run.  One
-    ``{"bus": ...}`` line with the codec, the seed's µs a create, the
-    commit's ms a bind over the wire, the informer syncs and the
-    takeover."""
+    apiserver exit 0 on SIGTERM.  A child that dies fails the run.  The
+    apiserver runs with ``--flight-recorder``, the schedulers with
+    ``--flight-recorder --watchdog --incident-dir DIR`` (the watchdog
+    every ``WATCHDOG_PERIOD_S``): after the arrivals, ``bus_recorder``'s
+    checks; no child drops a span on an export error; what the standby's
+    watchdog raised is printed, and a ``submit-bind-p99`` breach must
+    read ``degraded: slo-burn:submit-bind-p99`` on its /healthz and leave
+    a complete bundle in its directory.  One ``{"bus": ...}`` line with
+    the codec, the seed's µs a create, the commit's ms a bind over the
+    wire, the informer syncs, the takeover and the recorder's numbers
+    under ``obs``."""
     import gc
     import os
+    import shutil
+    import tempfile
 
     import torch
 
@@ -4082,10 +4538,12 @@ def phase_bus(card: str) -> dict:
     objects = loop_objects(config)
     n_pods, n_objects = len(objects[1]), sum(len(objs) for objs in objects)
     out = dict(cell=name, config=config, card=card)
-    children, client, probe = [], None, None
+    children, client, probe, tap = [], None, None, None
+    incident_dirs = {i: tempfile.mkdtemp(prefix=f"vinc-{i}-") for i in ("bus-a", "bus-b")}
     torch.zeros(1, device="cuda")  # this process's context before the listing is read
     try:
-        apiserver = Binary("volcano_tpu_torch.cmd.apiserver", ["--port", "0", "--listen-port", "0"])
+        apiserver = Binary("volcano_tpu_torch.cmd.apiserver",
+                           ["--port", "0", "--listen-port", "0", "--flight-recorder"])
         children.append(apiserver)
         m = apiserver.wait_log(r"apiserver up: bus on :(\d+), metrics on :(\d+)")
         bus_port, api_http = int(m.group(1)), int(m.group(2))
@@ -4093,6 +4551,7 @@ def phase_bus(card: str) -> dict:
         probe = HealthProbe(api_http)
         client = RemoteAPIServer(url, timeout=60.0)
         check(client.wait_ready(30), f"{name}: the apiserver's bus did not answer")
+        tap = SegmentTap(client)
         t0 = time.perf_counter()
         seed_store(client, objects)
         seed_s = time.perf_counter() - t0
@@ -4102,10 +4561,14 @@ def phase_bus(card: str) -> dict:
                    seed_us_per_create=seed_s / n_objects * 1e6)
         with policy_file(CYCLE_TIERS, ("gpu-allocate",)) as path:
             args = ["--bus", url, "--leader-elect", "--snapshot-reuse", "--pipelined-commit",
-                    "--warmup", "--scheduler-conf", path, "--listen-port", "0"]
+                    "--warmup", "--scheduler-conf", path, "--listen-port", "0",
+                    "--flight-recorder", "--watchdog"]
+            env = {"VTPU_WATCHDOG_PERIOD": str(WATCHDOG_PERIOD_S)}
             apps0 = gpu_apps()
             t0 = time.perf_counter()
-            a = Binary("volcano_tpu_torch.cmd.scheduler", args + ["--leader-elect-id", "bus-a"])
+            a = Binary("volcano_tpu_torch.cmd.scheduler",
+                       args + ["--leader-elect-id", "bus-a",
+                               "--incident-dir", incident_dirs["bus-a"]], env=env)
             children.append(a)
             a_port = int(a.wait_log(r"bus-a serving on :(\d+)").group(1))
             a.wait_log(r"bus-a became leader")
@@ -4157,7 +4620,9 @@ def phase_bus(card: str) -> dict:
                   f"bind over the wire; {a_launches} session kernel launches in A's cycles "
                   f"(its status {a_status}); card {card}")
 
-            b = Binary("volcano_tpu_torch.cmd.scheduler", args + ["--leader-elect-id", "bus-b"])
+            b = Binary("volcano_tpu_torch.cmd.scheduler",
+                       args + ["--leader-elect-id", "bus-b",
+                               "--incident-dir", incident_dirs["bus-b"]], env=env)
             children.append(b)
             b_port = int(b.wait_log(r"bus-b serving on :(\d+)").group(1))
             out["b_sync_ms"] = float(b.wait_log(r"bus-b: informers synced in ([\d.]+) ms")
@@ -4180,14 +4645,14 @@ def phase_bus(card: str) -> dict:
             (leader, leader_port), (standby, standby_port) = procs[leader_id], procs[standby_id]
             # both children clean before the kill: the leader's cycles
             # and commits up to here, and the standby's count to start from
-            leader_status, _ = child_checked(leader, leader_port, f"{name}: {leader_id} "
-                                                                  f"before its SIGKILL")
+            leader_status, leader_body = child_checked(leader, leader_port,
+                                                       f"{name}: {leader_id} before its SIGKILL")
             standby_status0, _ = child_checked(standby, standby_port, f"{name}: {standby_id} "
                                                                       f"before the takeover")
             arrivals = arrival_objects()
             leader.proc.kill()
             leader.proc.wait(timeout=60)
-            t_kill = time.monotonic()
+            t_kill, wall_kill = time.monotonic(), time.time() * 1e6
             # the arrivals once the standby holds the lease (see phase_daemon)
             wait_for(lambda: lease_holder(client) == standby_id, 2 * limit,
                      f"{name}: {standby_id} taking the lease", interval=0.02)
@@ -4212,6 +4677,40 @@ def phase_bus(card: str) -> dict:
             b_launches = cycle_launches(standby_status) - cycle_launches(standby_status0)
             check(b_launches > 0, f"{name}: no session kernel launch in {standby_id}'s cycles "
                                   f"after the takeover")
+            rec = bus_recorder(name, url, client, tap, leader_id, standby_id, standby_port,
+                               arrivals, audit, wall_kill)
+            watch = watchdog_report(standby_port, incident_dirs[standby_id],
+                                    2 * WATCHDOG_PERIOD_S + 1.0)
+            print(f"{name}: {standby_id}'s watchdog: /healthz {watch['healthz']!r}, burns "
+                  f"{watch['burns']}, bundles {watch['bundles']}")
+            if "slo-burn:submit-bind-p99" in watch["healthz"]:
+                check(watch["healthz"].startswith("degraded: ") and any(
+                    b["reason"] == "slo-burn:submit-bind-p99" and not b["errors"]
+                    and sorted(b["files"]) == sorted(b["bytes"])
+                    for b in watch["bundles"].values()),
+                    f"{name}: {standby_id} breached submit-bind-p99 without its bundle: {watch}")
+            _, standby_body = http_get(standby_port, "/metrics")
+            _, api_body = http_get(api_http, "/metrics")
+            counts = {leader_id: recorder_metrics(leader_body),
+                      standby_id: recorder_metrics(standby_body.decode()),
+                      "apiserver-0": recorder_metrics(api_body.decode())}
+            check(not any(c["export_error"] for c in counts.values()),
+                  f"{name}: spans dropped on export errors: {counts}")
+            segments = {}
+            for cm in client.list("ConfigMap", "volcano-telemetry"):
+                if cm.metadata.name.startswith("vtpu-spans-"):
+                    who = cm.metadata.name[len("vtpu-spans-"):].rsplit("-", 1)[0]
+                    segments[who] = segments.get(who, 0) + 1
+            from volcano_tpu_torch import obs
+
+            rec.update(recorder=counts, segments_live=segments,
+                       segment_versions=len(tap.versions), standby_watchdog=watch,
+                       leader_bundles=incident_bundles(incident_dirs[leader_id]),
+                       published_incidents=[(r["meta"]["identity"], r["meta"]["reason"],
+                                             [a["name"] for a in r["meta"]["alerts"]])
+                                            for r in obs.list_incidents(client)])
+            print(f"{name}: {leader_id}'s incident bundles {rec['leader_bundles']}; published "
+                  f"{rec['published_incidents']}")
             bad = probe.stop()
             check(not bad and probe.n > 0,
                   f"{name}: the apiserver's /healthz answered {bad[:3]} of {probe.n}")
@@ -4220,7 +4719,7 @@ def phase_bus(card: str) -> dict:
             out.update(leader=leader_id, standby=standby_id, b_launches=b_launches,
                        leader_status=leader_status, standby_status=standby_status,
                        lead_ms=lead_s * 1e3, arrivals_bound_ms=(t_bound - t_kill) * 1e3,
-                       arrival_digest=digest, healthz_probes=probe.n, sigterm_rcs=rcs)
+                       arrival_digest=digest, healthz_probes=probe.n, sigterm_rcs=rcs, obs=rec)
             print(f"{name}: {leader_id} SIGKILLed; {standby_id} took the lease after "
                   f"{out['lead_ms']:.3f} ms (limit {limit * 1e3:.0f}) and bound the {n_new} "
                   f"arrivals at store truth {out['arrivals_bound_ms']:.3f} ms after the kill "
@@ -4231,10 +4730,14 @@ def phase_bus(card: str) -> dict:
     finally:
         if probe is not None:
             probe.stop()
+        if tap is not None:
+            tap.close()
         if client is not None:
             client.close()
         for c in children:
             c.close()
+        for d in incident_dirs.values():
+            shutil.rmtree(d, ignore_errors=True)
     out["phase_ms"] = (time.perf_counter() - t_phase) * 1e3
     gc.collect()
     print(json.dumps({"bus": out}))
@@ -4699,11 +5202,11 @@ class Stopwatch:
 #: it replays through ``native`` (the churn cell's every cycle; the
 #: 50k x 10k cycle, 10.5 s of host C++, gave way to the daemon and bus
 #: phases), and the warm cycles a recorder mode gets in the interleaved
-#: cost run of LOOP_A
+#: cost run of LOOP_A (two a mode, each mode in both halves; four a mode
+#: until the flight recorder's checks took ~30 s of the run's time)
 REPLAY_CELLS = (LOOP_A, LOOP_C, LOOP_B)
 REPLAY_NATIVE = {LOOP_B: (0, 1, 2, 3, 4)}
-RECORDER_COST_ORDER = ("off", "events", "capture", "events", "capture", "off",
-                       "capture", "off", "events", "off", "events", "capture")
+RECORDER_COST_ORDER = ("off", "events", "capture", "capture", "events", "off")
 
 
 def recorded_loop(name: str, journal_dir: str) -> dict:
@@ -5071,6 +5574,21 @@ def phase_failures(card: str) -> None:
           f"card {card}")
 
 
+#: the two phases' seconds in PR 13's runs of its final tree, before the
+#: flight recorder was in them
+PR13_PHASE_S = {"phase_daemon": (71.3, 87.0), "phase_bus": (81.1, 91.5)}
+
+
+def obs_line(card: str, daemon_rec: dict, bus_rec: dict, daemon_s: float,
+             bus_s: float) -> dict:
+    """The ``{"obs": ...}`` line: each phase's recorder numbers beside its
+    seconds (as its ``time:`` line counts them) and PR 13's."""
+    return dict(card=card, **{
+        phase: dict(phase_s=s, pr13_phase_s=PR13_PHASE_S[phase], **rec["obs"])
+        for phase, rec, s in (("phase_daemon", daemon_rec, daemon_s),
+                              ("phase_bus", bus_rec, bus_s))})
+
+
 def timed(phase, *args, **kwargs):
     """Run a phase and print the seconds of wall clock it took, with its
     first argument where it has one (the cell or config)."""
@@ -5127,8 +5645,12 @@ def run_phases(specs: SpecPool) -> int:
     loop_recs = {cell: timed(phase_loop, cell, card) for cell in LOOP_CELLS}
     micro_recs = timed(phase_micro, card)
     store_recs = timed(phase_store, card)
+    t0 = time.perf_counter()
     daemon_rec = timed(phase_daemon, card)
+    t1 = time.perf_counter()
     bus_rec = timed(phase_bus, card)
+    print(json.dumps({"obs": obs_line(card, daemon_rec, bus_rec, t1 - t0,
+                                      time.perf_counter() - t1)}))
     sidecar_rec = timed(phase_sidecar, card, loop_recs)
     replay_rec = timed(phase_replay, card)
     from volcano_tpu_torch import faults

@@ -252,19 +252,17 @@ def test_kept_flags_have_the_reference_defaults(monkeypatch, binary):
             "shards", "shard_identity", "shard_lease_duration", "shard_autoscale",
             "autoscale_min", "autoscale_max", "autoscale_up_p99_ms", "autoscale_up_pending",
             "autoscale_down_p99_ms", "autoscale_down_pending", "autoscale_sustain",
-            "autoscale_cooldown_s", "autoscale_period_s", "gang_broker", "flight_recorder",
-            "watchdog", "incident_dir"}
+            "autoscale_cooldown_s", "autoscale_period_s", "gang_broker"}
     else:
         assert set(ref) - set(port) == {"data_dir", "snapshot_every", "replicas",
-                                        "replica_index", "repl_lease_ttl", "flight_recorder",
-                                        "watchdog", "incident_dir", "shm"}
+                                        "replica_index", "repl_lease_ttl", "shm"}
 
 
 @pytest.mark.parametrize("binary, argv", [
-    ("scheduler", ["--shards", "2"]), ("scheduler", ["--flight-recorder"]),
-    ("scheduler", ["--watchdog"]), ("scheduler", ["--gang-broker", "on"]),
+    ("scheduler", ["--shards", "2"]), ("scheduler", ["--shard-identity", "s0"]),
+    ("scheduler", ["--autoscale-min", "1"]), ("scheduler", ["--gang-broker", "on"]),
     ("apiserver", ["--data-dir", "/tmp/x"]), ("apiserver", ["--replicas", "tcp://a:1"]),
-    ("apiserver", ["--shm"]), ("apiserver", ["--incident-dir", "/tmp/x"]),
+    ("apiserver", ["--shm"]), ("apiserver", ["--snapshot-every", "8"]),
 ])
 def test_left_out_flags_are_refused(binary, argv, capsys):
     import importlib

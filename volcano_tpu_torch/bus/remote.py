@@ -28,10 +28,16 @@ Resilience model (the client-go informer contract):
   client, for the connection's lifetime, to per-object binds, per-object
   watch frames or JSON framing.
 
+With the flight recorder on (``obs``), a request issued inside an open
+span carries the span context (``payload["span"]``) and is recorded as a
+client ``bus:<op>`` span, the parent of the server's adopted one.
+``bus_status`` asks the server for its status (role, persistence, its
+/metrics address); an old server's ``unknown bus op`` degrades it, for
+the connection's lifetime, to ``{"role": "unknown"}``.
+
 Not present in the port yet, each waiting for its caller: the same-host
-shm transport (replication/shm), the flight recorder's span context on
-requests (``obs``), ``cas_bind`` and ``txn_commit`` (federation),
-``register_admission`` and its review loop (admission), ``bus_status``,
+shm transport (replication/shm), ``cas_bind`` and ``txn_commit``
+(federation), ``register_admission`` and its review loop (admission),
 the membership calls, endpoint lists and the leader-redirect and
 failover paths (replication).
 """
@@ -41,11 +47,12 @@ from __future__ import annotations
 import queue
 import random
 import socket
+import sys
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
-from volcano_tpu_torch import metrics, trace
+from volcano_tpu_torch import metrics, obs, trace
 from volcano_tpu_torch.bus import protocol
 from volcano_tpu_torch.bus.protocol import BusError, BusTimeoutError
 from volcano_tpu_torch.client.apiserver import (
@@ -143,6 +150,9 @@ class RemoteAPIServer:
         #: connection (and every reconnect after it) then stays on JSON
         #: framing, exactly the pre-v8 wire format
         self._no_bus_hello = False
+        #: set once a server rejects the v5 ``bus_status`` op — status
+        #: then reads ``role: unknown`` (observability, never correctness)
+        self._no_bus_status = False
         #: negotiated body codec for the CURRENT connection — reset to
         #: JSON on every (re)dial, flipped to binary only when the
         #: server's hello answer says so.  Frames are stamped per frame,
@@ -385,6 +395,7 @@ class RemoteAPIServer:
             raise BusError("bus client closed")
         timeout = timeout if timeout is not None else self.timeout
         method = payload.get("op", "ping")
+        client_span = None
         if mtype == protocol.T_REQ:
             # cross-process correlation: stamp the scheduling-cycle id on
             # the request frame so server-side records can be joined
@@ -393,6 +404,29 @@ class RemoteAPIServer:
             cycle = trace.current_cycle()
             if cycle >= 0 and "cycle" not in payload:
                 payload["cycle"] = cycle
+            # flight-recorder span context rides the same payload slot
+            # discipline (obs/spans.py): old servers ignore the key — no
+            # new op, no version bump.  None when the recorder is off or
+            # no span is open, so the default path stamps nothing.
+            span_ctx = obs.current_wire()
+            if span_ctx is not None and "span" not in payload:
+                # client half of the paired bus span: same name as the
+                # server's adopted ``bus:<op>`` span, linked parent →
+                # child across the wire — the pair obs/collect.py's
+                # clock-skew estimator keys on, and its duration is the
+                # rpc time as the client sees it
+                client_span = obs.span("bus:" + method, cat="bus",
+                                       args={"peer": self.address})
+                client_span.__enter__()
+                payload["span"] = obs.current_wire() or span_ctx
+        try:
+            return self._call_framed(payload, timeout, mtype, method, on_reply)
+        finally:
+            if client_span is not None:
+                client_span.__exit__(*sys.exc_info())
+
+    def _call_framed(self, payload: dict, timeout: float, mtype: int, method: str,
+                     on_reply) -> dict:
         start = time.perf_counter()
         if not self._connected.wait(timeout):
             metrics.observe_bus_request(method, time.perf_counter() - start,
@@ -450,6 +484,25 @@ class RemoteAPIServer:
             return True
         except (BusError, OSError):
             return False
+
+    def bus_status(self) -> dict:
+        """The server's status (protocol v5): the payload ``vtctl top``
+        discovers /metrics addresses from and the incident bundle
+        records.  A pre-v5 server answers ``unknown bus op``; the client
+        then degrades PERMANENTLY (per connection lifetime) to a ``role:
+        unknown`` payload — status is observability, never
+        correctness."""
+        if not self._no_bus_status:
+            try:
+                return self._call({"op": "bus_status"})
+            except BusError:
+                raise  # transport failure — NOT a capability signal
+            except ApiError as e:
+                if "unknown bus op" not in str(e):
+                    raise
+                log.warning("bus %s does not speak bus_status (old peer)", self.address)
+                self._no_bus_status = True
+        return {"role": "unknown", "persistent": False}
 
     def create(self, obj):
         resp = self._call({"op": "create", "object": protocol.encode_obj(obj)})

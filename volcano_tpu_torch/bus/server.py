@@ -27,13 +27,18 @@ decoupled through per-connection outbound queues so a slow or dead peer
 can never stall the store — it overflows its queue and is disconnected,
 after which it resyncs via resume-or-relist.
 
+``bus_status`` answers the wrapped store's status (``{"role":
+"standalone", "persistent": false}`` and its daemon's /metrics
+address).  With the flight recorder on, a request that carries a span
+context (``payload["span"]``) runs inside an adopted ``bus:<op>`` span,
+the child of the client's span in the other process.
+
 An op the server does not have is answered with the reference's typed
 ``unknown bus op`` error, so a client of the reference takes its
 old-peer fallback.  Not present in the port yet, each waiting for its
 caller: remote admission (admission), ``cas_bind`` and ``txn_commit``
-(federation), ``bus_status``, the durable store's resume surface, the
-replication and membership ops and the shm listener (WAL, replication,
-shm), and the flight recorder's server-side spans (``obs``).
+(federation), the durable store's resume surface, the replication and
+membership ops and the shm listener (WAL, replication, shm).
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ import time
 import uuid
 from typing import Dict, List, Optional, Tuple
 
-from volcano_tpu_torch import metrics, trace
+from volcano_tpu_torch import metrics, obs, trace
 from volcano_tpu_torch.bus import protocol
 from volcano_tpu_torch.client.apiserver import ApiError, APIServer
 from volcano_tpu_torch.utils.logging import get_logger
@@ -549,7 +554,18 @@ class BusServer:
             # with its scheduling-cycle id (bus/remote.py)
             rec.event("bus:" + op, "bus", cycle=payload["cycle"], kind=payload.get("kind"))
         try:
-            result = self._execute(conn, req_id, payload, op)
+            # server-side half of the cross-process span: parent is the
+            # REMOTE caller's span (payload["span"], stamped by
+            # bus/remote.py).  Ops without a context — or with the
+            # flight recorder off — cost one enabled() check.
+            if obs.enabled() and "span" in payload:
+                with obs.adopt(
+                    payload["span"], "bus:" + op, cat="bus",
+                    args={"kind": payload.get("kind")} if payload.get("kind") else None,
+                ):
+                    result = self._execute(conn, req_id, payload, op)
+            else:
+                result = self._execute(conn, req_id, payload, op)
             if result is not None:
                 conn.push(protocol.T_RESP, req_id, result)
             metrics.observe_bus_server_request(op, time.perf_counter() - start, "ok")
@@ -575,6 +591,8 @@ class BusServer:
                 conn.codec = protocol.CODEC_JSON
             self._update_codec_gauge()
             return {"codec": conn.codec, "version": protocol.VERSION}
+        if op == "bus_status":
+            return api.bus_status()
         if op == "create":
             obj = protocol.decode_obj(payload["object"])
             return {"object": protocol.encode_obj(api.create(obj))}

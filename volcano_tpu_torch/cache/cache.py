@@ -48,7 +48,7 @@ import threading
 import time
 from typing import Dict, List, Optional
 
-from volcano_tpu_torch import faults, metrics
+from volcano_tpu_torch import faults, metrics, obs
 from volcano_tpu_torch.api import (
     ClusterInfo,
     JobInfo,
@@ -1077,7 +1077,7 @@ class SchedulerCache(Cache):
                 if err is not None:
                     self._fail_bind_item(t, h, RuntimeError(err))
                 else:
-                    self._observe_bind_latency(t)
+                    self._observe_bind_latency(t, h)
             return
         for task, hostname in ok:
             try:
@@ -1086,7 +1086,7 @@ class SchedulerCache(Cache):
             except Exception as e:  # noqa: BLE001
                 self._fail_bind_item(task, hostname, e)
             else:
-                self._observe_bind_latency(task)
+                self._observe_bind_latency(task, hostname)
                 # cache.go:600-610 — the Scheduled audit event
                 self._record_event(
                     task, "Normal", "Scheduled",
@@ -1095,20 +1095,34 @@ class SchedulerCache(Cache):
                 )
 
     @staticmethod
-    def _observe_bind_latency(task: TaskInfo) -> None:
+    def _observe_bind_latency(task: TaskInfo, hostname: str = "") -> None:
         """volcano_submit_to_bind_latency_milliseconds: store creation
         timestamp → bind effect landed — the sustained-load SLO number,
         recorded here so the synchronous and pipelined paths share the
         one landing site.  Synthetic fixtures carry small ordinal
         timestamps, not epochs — only a plausible wall-clock stamp is
         observed (everything else would land in +Inf and poison the
-        percentiles).  The reference's flight-recorder ``bind:landed``
-        span is not present in the port yet (``volcano_tpu/obs``)."""
+        percentiles).  The flight-recorder ``bind:landed`` span rides
+        the same site: one landing, every sink."""
         metrics.update_pod_schedule_status("successes")
         pod = task.pod
         ts = pod.metadata.creation_timestamp if pod is not None else 0
         if ts and ts > 1e9:  # epoch seconds, not an ordinal fixture stamp
             metrics.observe_submit_to_bind(max(time.time() - ts, 0.0))
+        if obs.enabled():
+            args = {"pod": f"{task.namespace}/{task.name}"}
+            if hostname:
+                args["node"] = hostname
+            gang = ""
+            if pod is not None:
+                gang = pod.metadata.annotations.get(scheduling.GROUP_NAME_ANNOTATION_KEY, "")
+            if gang:
+                args["gang"] = f"{task.namespace}/{gang}"
+            obs.complete(
+                "bind:landed", 0.0, cat="bind",
+                trace_id=obs.trace_id_for_pod(task.namespace, task.name),
+                args=args,
+            )
 
     def _fail_bind_item(self, task, hostname, e) -> None:
         log.error("bind of %s/%s failed: %s", task.namespace, task.name, e)

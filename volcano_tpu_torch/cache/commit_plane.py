@@ -32,11 +32,11 @@ time on the scheduling thread, so chaos schedules stay deterministic),
 ``commit.delay`` sleeps a worker before it lands a batch (keeping the
 queue observably non-empty while faults fire).
 
-Not present in the port yet: the flight recorder's handoff (the
-reference's ``_obs_meta`` and the worker-side ``commit:flush`` span, from
-``volcano_tpu/obs``, which needs the bus).  Items carry no recorder
-context.  The worker count and the frame cap are constants: nothing in
-the port sets them (the reference's ``commit_workers=`` and
+With the flight recorder on, each item carries the submitting cycle's
+span context and its enqueue stamp (``_obs_meta``), and a worker lands
+each batch inside a ``commit:flush`` span adopted into that cycle, with
+the batch size and the oldest item's queue wait.  The worker count and
+the frame cap are constants: nothing in the port sets them (the reference's ``commit_workers=`` and
 ``max_coalesce=`` come with the daemon that passes them).
 """
 
@@ -47,7 +47,7 @@ import time
 from collections import deque
 from typing import Dict, List, Optional, Tuple
 
-from volcano_tpu_torch import faults, metrics
+from volcano_tpu_torch import faults, metrics, obs
 from volcano_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -68,8 +68,10 @@ class CommitPlane:
     def __init__(self, cache):
         self.cache = cache
         self._cv = threading.Condition()
-        #: ("bind", task, hostname, doomed) | ("evict", task, reason,
-        #: doomed) | ("status", payload, None, doomed)
+        #: ("bind", task, hostname, doomed, meta) | ("evict", task,
+        #: reason, doomed, meta) | ("status", payload, None, doomed,
+        #: meta) — ``meta`` is the flight-recorder handoff (submitting
+        #: span context + enqueue stamp), None with the recorder off
         self._items: deque = deque()  # guarded-by: self._cv
         self._inflight = 0  # guarded-by: self._cv
         self._stopped = False  # guarded-by: self._cv
@@ -113,25 +115,41 @@ class CommitPlane:
             doom = doom or RuntimeError("fault-injected bind failure")
         return doom
 
+    @staticmethod
+    def _obs_meta():
+        """Flight-recorder handoff captured at SUBMIT time on the
+        scheduling thread: (trace_id, span_id, enqueue_perf) of the
+        submitting cycle's span, so the worker-side flush span parents
+        into the cycle that queued the work and the queue wait is
+        measurable.  None with the recorder off — zero per-item cost."""
+        if not obs.enabled():
+            return None
+        ctx = obs.current()
+        if ctx is None:
+            return ("", "", time.perf_counter())
+        return (ctx[0], ctx[1], time.perf_counter())
+
     def submit_binds(self, pairs: List[Tuple[object, str]]) -> None:
+        meta = self._obs_meta()
         with self._cv:
             for task, hostname in pairs:
                 self._items.append(
-                    ("bind", task, hostname, self._doom("cache.bind_fail"))
+                    ("bind", task, hostname, self._doom("cache.bind_fail"), meta)
                 )
             self._cv.notify_all()
             self._update_depth()
 
     def submit_evicts(self, pairs: List[Tuple[object, str]]) -> None:
+        meta = self._obs_meta()
         with self._cv:
             for task, reason in pairs:
-                self._items.append(("evict", task, reason, self._doom()))
+                self._items.append(("evict", task, reason, self._doom(), meta))
             self._cv.notify_all()
             self._update_depth()
 
     def submit_status(self, payload: dict) -> None:
         with self._cv:
-            self._items.append(("status", payload, None, self._doom()))
+            self._items.append(("status", payload, None, self._doom(), self._obs_meta()))
             self._cv.notify_all()
             self._update_depth()
 
@@ -191,26 +209,46 @@ class CommitPlane:
         # coalesces into one frame.  (inject=False on binds: the fault
         # points were already evaluated at submit time — the worker
         # must not draw a second decision.)
-        i = 0
-        while i < len(batch):
-            kind = batch[i][0]
-            j = i
-            while j < len(batch) and batch[j][0] == kind:
-                j += 1
-            run = batch[i:j]
-            i = j
-            if kind == "bind":
-                self.cache._run_bind_items(
-                    [(t, h, doom) for _k, t, h, doom in run], inject=False,
-                )
-            elif kind == "evict":
-                self.cache._run_evict_items(
-                    [(t, r, doom) for _k, t, r, doom in run]
-                )
-            else:
-                self.cache._run_status_items(
-                    [(p, doom) for _k, p, _x, doom in run]
-                )
+        with self._flush_span(batch):
+            i = 0
+            while i < len(batch):
+                kind = batch[i][0]
+                j = i
+                while j < len(batch) and batch[j][0] == kind:
+                    j += 1
+                run = batch[i:j]
+                i = j
+                if kind == "bind":
+                    self.cache._run_bind_items(
+                        [(t, h, doom) for _k, t, h, doom, _m in run], inject=False,
+                    )
+                elif kind == "evict":
+                    self.cache._run_evict_items(
+                        [(t, r, doom) for _k, t, r, doom, _m in run]
+                    )
+                else:
+                    self.cache._run_status_items(
+                        [(p, doom) for _k, p, _x, doom, _m in run]
+                    )
+
+    @staticmethod
+    def _flush_span(batch):
+        """The worker-side ``commit:flush`` span: parented to the
+        submitting cycle's span (captured at submit — workers have no
+        ambient context of their own), carrying the batch size and the
+        oldest item's queue wait.  Null span with the recorder off."""
+        if not obs.enabled():
+            return obs.span("commit:flush")  # the shared null span
+        now = time.perf_counter()
+        metas = [it[4] for it in batch if it[4] is not None]
+        args = {"items": len(batch)}
+        if metas:
+            args["queue_wait_ms"] = round(max(now - m[2] for m in metas) * 1e3, 3)
+        parent = next((m for m in metas if m[1]), None)
+        if parent is not None:
+            return obs.adopt({"t": parent[0], "s": parent[1]}, "commit:flush", cat="commit",
+                             args=args)
+        return obs.span("commit:flush", cat="commit", args=args)
 
     # ---- the commit barrier ----
 

@@ -9,10 +9,14 @@ conditions and PodGroup statuses land through.
 Reference architecture: Volcano's only bus is the Kubernetes API server;
 every binary talks exclusively to it via list/watch in and REST out.
 
+``bus_status`` is the status surface every backend answers (the bus
+server relays it): this volatile store is standalone and not
+persistent, and names its daemon's /metrics address once the daemon has
+set ``metrics_address``.
+
 Not present in the port yet: admission hooks (``register_admission``;
 with none registered the reference's ``create`` and ``update`` behave as
-these do), the federation primitives ``cas_bind`` and ``txn_commit``,
-and ``bus_status`` (the network bus's status surface).
+these do) and the federation primitives ``cas_bind`` and ``txn_commit``.
 """
 
 from __future__ import annotations
@@ -63,6 +67,9 @@ class APIServer:
         #: (child kind, child key).  Entries are validated lazily at
         #: cascade time, so staleness is harmless.
         self._owned: Dict[Tuple[str, str, str], set] = {}  # guarded-by: self._lock
+        #: the serving daemon's /metrics address ("host:port"), set by
+        #: the apiserver daemon at start; "" until then
+        self.metrics_address = ""
 
     # ---- helpers ----
 
@@ -208,6 +215,17 @@ class APIServer:
             self._register_owners(stored, key)
             self._notify(kind, MODIFIED, old.clone(), stored.clone())
             return obj
+
+    def bus_status(self) -> dict:
+        """Durability/replication status surface (``vtctl top``'s target
+        discovery, the incident bundle's ``bus_status.json``).  The
+        in-process store is neither persistent nor replicated;
+        ``bus.RemoteAPIServer`` fetches the same payload over the
+        wire."""
+        out = {"role": "standalone", "persistent": False}
+        if self.metrics_address:
+            out["metrics_address"] = self.metrics_address
+        return out
 
     def get(self, kind: str, namespace: str, name: str):
         with self._lock:

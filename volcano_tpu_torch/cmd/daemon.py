@@ -1,22 +1,30 @@
 """Shared daemon scaffolding: serving surface + leader election + the
 guarded work loop, and the flag helpers the binaries share.
 
-A copy of ``volcano_tpu/cmd/daemon.py`` without the flight recorder, the
-SLO watchdog and the incident bundles (they wait for ``obs``): a daemon
-of the port takes none of their parameters, and its /healthz reads
-degraded on open breakers, the serving default.
+A copy of ``volcano_tpu/cmd/daemon.py``.  A daemon can run the cluster
+flight recorder (``flight_recorder``, or ``VTPU_FLIGHT_RECORDER=1``: its
+spans export to the bus as telemetry segments), the SLO burn-rate
+watchdog (``watchdog``, or ``VTPU_WATCHDOG=1``) and the incident bundles
+it writes at a breach (``incident_dir``, or ``VTPU_INCIDENT_DIR``; the
+watchdog's windows, period, cooldown, boost TTL and journal come from
+``VTPU_SLO_FAST_WINDOW``, ``VTPU_SLO_SLOW_WINDOW``,
+``VTPU_WATCHDOG_PERIOD``, ``VTPU_INCIDENT_COOLDOWN``, ``VTPU_BOOST_TTL``
+and ``VTPU_TRACE_JOURNAL``).  Its /healthz reads degraded on open
+breakers and on each active ``slo-burn:<name>`` breach.
 """
 
 from __future__ import annotations
 
+import os
 import signal
 import threading
 import uuid
 from typing import Optional
 
-from volcano_tpu_torch import faults
+from volcano_tpu_torch import faults, obs
 from volcano_tpu_torch.client import APIServer
 from volcano_tpu_torch.serving import LeaderElector, ServingServer
+from volcano_tpu_torch.serving.http import _degraded as _default_degraded
 from volcano_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -49,19 +57,49 @@ class BaseDaemon:
         retry_period: float = 0.2,
         debug_enabled: bool = False,
         explain_source=None,
+        flight_recorder: Optional[bool] = None,
+        watchdog: Optional[bool] = None,
+        incident_dir: Optional[str] = None,
     ):
         self.api = api
         self.period = period
         self.identity = identity or f"{self.NAME}-{uuid.uuid4().hex[:8]}"
+        #: cluster-wide flight recorder (obs/): span batches export to
+        #: the bus as telemetry segments.  None = follow
+        #: VTPU_FLIGHT_RECORDER
+        if flight_recorder is None:
+            flight_recorder = env_on("VTPU_FLIGHT_RECORDER")
+        self.flight_recorder = flight_recorder
+        self._obs_exporter = None
+        #: SLO burn-rate watchdog (obs/slo.py) + incident bundles
+        #: (obs/incident.py).  None = follow VTPU_WATCHDOG /
+        #: VTPU_INCIDENT_DIR, the same shape as the flight recorder flag
+        if watchdog is None:
+            watchdog = env_on("VTPU_WATCHDOG")
+        if incident_dir is None:
+            incident_dir = os.environ.get("VTPU_INCIDENT_DIR", "")
+        self.watchdog_enabled = watchdog
+        self.incident_dir = incident_dir
+        self.watchdog = None
+        self.incidents = None
         #: uniform identity labels merged into every /metrics series;
         #: subclasses refine
         self.identity_labels = {
             "daemon": self.NAME.replace("vtpu-", ""),
             "role": self.NAME.replace("vtpu-", ""),
         }
+        if self.watchdog_enabled:
+            # the bundle's explain.json: every job's explanation (the
+            # serving source answers (namespace, job); "" is all of them)
+            self.incidents, self.watchdog = watchdog_pair(
+                api, self.identity, self.incident_dir,
+                journal_dir=os.environ.get("VTPU_TRACE_JOURNAL", ""),
+                explain_source=(lambda: explain_source("", "")) if explain_source else None,
+            )
         self.serving = ServingServer(
             host=listen_host, port=listen_port, health_check=self.healthy,
             debug_enabled=debug_enabled, explain_source=explain_source,
+            degraded_source=self._degraded,
         )
         self.elector: Optional[LeaderElector] = None
         if leader_elect:
@@ -119,6 +157,17 @@ class BaseDaemon:
                        max_renew_gap_ms=self.elector.max_renew_gap * 1e3)
         return out
 
+    def _degraded(self) -> Optional[str]:
+        """/healthz degraded body: open breakers (the serving default)
+        plus the watchdog's active ``slo-burn:<name>`` breaches."""
+        reasons = []
+        breakers = _default_degraded()
+        if breakers:
+            reasons.append(breakers)
+        if self.watchdog is not None:
+            reasons.extend(self.watchdog.degraded_reasons())
+        return "; ".join(reasons) if reasons else None
+
     def healthy(self) -> bool:
         """Liveness for /healthz: the loop thread must be running (or
         not yet started)."""
@@ -128,6 +177,10 @@ class BaseDaemon:
         from volcano_tpu_torch import metrics
 
         metrics.set_identity(**self.identity_labels)
+        if self.flight_recorder:
+            self._obs_exporter = obs.enable(self.api, identity=self.identity)
+        if self.watchdog is not None:
+            self.watchdog.start()
         self.serving.start()
         self._on_start()
         if self.elector is not None:
@@ -141,13 +194,68 @@ class BaseDaemon:
 
     def stop(self, crash: bool = False) -> None:
         """Stop the daemon.  ``crash=True`` skips the graceful lease
-        release, leaving standbys to take over after expiry."""
+        release, leaving standbys to take over after expiry, and leaves
+        the flight recorder as it is: the exporter is the process's, and
+        a daemon that crashes takes it down only with its process (a
+        later graceful ``stop`` flushes and uninstalls it)."""
         self._stop.set()
         if self._thread:
             self._thread.join(timeout=10)
         if self.elector is not None:
             self.elector.stop(release=not crash)
+        if self.watchdog is not None:
+            self.watchdog.stop()
+        if not crash and self._obs_exporter is not None:
+            stop_recorder(self._obs_exporter)
+            self._obs_exporter = None
         self.serving.stop()
+
+
+def env_on(name: str) -> bool:
+    """A ``VTPU_*`` switch of the daemons: on unless unset, "" or "0"."""
+    return os.environ.get(name, "") not in ("", "0")
+
+
+def stop_recorder(exporter) -> None:
+    """Stop a daemon's exporter after its final flush; the process-global
+    recorder is uninstalled only if it is still that one (a later
+    ``obs.enable`` replaced and stopped it)."""
+    if obs.get_exporter() is exporter:
+        obs.disable()  # the final flush rides the exporter stop
+    else:
+        exporter.stop()
+
+
+def watchdog_pair(api, identity: str, incident_dir: str, journal_dir: str = "",
+                  explain_source=None):
+    """The incident manager and the burn-rate watchdog that feeds it, on
+    one metrics ring, configured from the ``VTPU_*`` environment as the
+    reference daemons configure theirs; the bundles go to
+    ``incident_dir`` (``<tmp>/vtpu-incidents-<identity>`` where empty)."""
+    import tempfile
+
+    from volcano_tpu_torch.metrics.timeseries import TimeSeriesRing
+    from volcano_tpu_torch.obs.incident import IncidentManager
+    from volcano_tpu_torch.obs.slo import BurnRateWatchdog
+
+    ring = TimeSeriesRing()
+    incidents = IncidentManager(
+        api, identity,
+        incident_dir or os.path.join(tempfile.gettempdir(), f"vtpu-incidents-{identity}"),
+        cooldown_s=float(os.environ.get("VTPU_INCIDENT_COOLDOWN", "60")),
+        boost_ttl_s=float(os.environ.get("VTPU_BOOST_TTL", "30")),
+        metrics_ring=ring,
+        journal_dir=journal_dir,
+        explain_source=explain_source,
+    )
+    watchdog = BurnRateWatchdog(
+        ring=ring,
+        fast_window_s=float(os.environ.get("VTPU_SLO_FAST_WINDOW", "60")),
+        slow_window_s=float(os.environ.get("VTPU_SLO_SLOW_WINDOW", "300")),
+        period=float(os.environ.get("VTPU_WATCHDOG_PERIOD", "5")),
+        on_breach=incidents.on_alert,
+    )
+    return incidents, watchdog
 
 
 def apply_faults(spec: str) -> None:

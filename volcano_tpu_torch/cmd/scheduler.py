@@ -9,6 +9,7 @@ cmd/scheduler/app/options/options.go:44-66.
 Usage: python -m volcano_tpu_torch.cmd.scheduler [--bus tcp://host:port]
        [--leader-elect --leader-elect-id ID] [--scheduler-conf FILE]
        [--pipelined-commit] [--snapshot-reuse] [--warmup] [--device cuda|cpu]
+       [--flight-recorder] [--watchdog] [--incident-dir DIR]
 
 ``--device`` defaults to ``cuda``, where gpu-allocate, gpu-preempt and
 gpu-reclaim run their kernels, and the process exits at start when
@@ -20,9 +21,14 @@ JSON object: the kernel launches made in this process (``session``,
 started (``warmup``, by ``--warmup``), the device memory it holds, and,
 once the daemon is built, ``SchedulerDaemon.status()`` (cycles, cycles
 that raised, skipped turns, renews and the longest gap between them,
-resync entries, quarantined tasks).  Not present in the port yet: the federation flags
-(``--shards`` … ``--gang-broker``, federation) and the flight recorder,
-watchdog and incident flags (``obs``); the parser refuses them.
+resync entries, quarantined tasks).  ``--flight-recorder`` exports the
+daemon's spans (cycles, kernel phases, commit flushes, bus requests,
+landed binds) to the bus, where ``python -m volcano_tpu_torch.cli.vtctl
+--bus URL trace pod -N NAME`` renders them; ``--watchdog`` runs the SLO
+burn-rate watchdog, whose breaches degrade /healthz and write incident
+bundles under ``--incident-dir``.  Not present in the port yet: the
+federation flags (``--shards`` … ``--gang-broker``, federation); the
+parser refuses them.
 """
 
 from __future__ import annotations
@@ -149,6 +155,29 @@ def add_common_args(parser: argparse.ArgumentParser) -> None:
         "'seed=42;bus.disconnect=0.05;compute.crash=0.1:count=2' "
         "(volcano_tpu_torch.faults; same grammar as VTPU_FAULTS — chaos "
         "testing only, never set in production)",
+    )
+    parser.add_argument(
+        "--flight-recorder", action="store_true",
+        help="cluster-wide flight recorder (volcano_tpu_torch/obs): record "
+        "cross-process spans and export them to the bus as telemetry "
+        "segments for `vtctl trace pod/gang` (drop-not-block; also "
+        "VTPU_FLIGHT_RECORDER=1; sampling via VTPU_TELEMETRY_SAMPLE)",
+    )
+    parser.add_argument(
+        "--watchdog", action="store_true",
+        help="SLO burn-rate watchdog (volcano_tpu_torch/obs/slo.py): "
+        "continuously evaluate declared SLOs over fast/slow windows "
+        "of this process's own metrics; breaches surface on /healthz "
+        "as degraded 'slo-burn:<name>', as volcano_slo_burn gauges, "
+        "and trigger incident bundles (also VTPU_WATCHDOG=1; "
+        "objectives overridable via VTPU_SLO_OBJECTIVES)",
+    )
+    parser.add_argument(
+        "--incident-dir", default=None,
+        help="directory for the bounded on-disk incident-bundle ring "
+        "written when the watchdog breaches or `vtctl incidents "
+        "capture` asks (default <tmp>/vtpu-incidents-<identity>; also "
+        "VTPU_INCIDENT_DIR)",
     )
 
 
@@ -317,6 +346,9 @@ def main(argv=None) -> int:
         leader_elect=args.leader_elect,
         identity=args.leader_elect_id,
         debug_enabled=args.enable_debug_stacks,
+        flight_recorder=True if args.flight_recorder else None,
+        watchdog=True if args.watchdog else None,
+        incident_dir=args.incident_dir,
     )
     return serve_forever(daemon)
 

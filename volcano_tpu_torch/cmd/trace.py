@@ -17,6 +17,9 @@ Executors: ``cuda`` (the session kernel), ``torch-scan``, ``blocked``,
 ``native`` runs on the card unless ``--device`` names another device.
 
 Usage: python -m volcano_tpu_torch.cmd.trace replay --dir D [--executor cuda]
+
+The port's ``vtctl`` (``cli/vtctl.py``) carries the same four commands
+under ``vtctl trace``, beside the flight recorder's ``trace pod|gang``.
 """
 
 from __future__ import annotations
@@ -138,11 +141,12 @@ def _export(args, out) -> int:
     return 0
 
 
-def parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(
-        prog="vtpu-trace", description="cycle journal: record, replay, diff, export")
-    sub = p.add_subparsers(dest="cmd", required=True)
+#: the journal commands by name, for this entry point and vtctl's
+COMMANDS = {"record": _record, "replay": _replay, "diff": _diff, "export": _export}
 
+
+def add_commands(sub) -> None:
+    """Add the journal commands' parsers to the subparsers ``sub``."""
     tr = sub.add_parser("record", description="record synthetic cycles")
     tr.add_argument("--dir", "-d", required=True, help="journal directory")
     tr.add_argument("--tasks", type=int, default=1024)
@@ -178,13 +182,18 @@ def parser() -> argparse.ArgumentParser:
     )
     te.add_argument("--cycle", type=int, default=None)
     te.add_argument("--out", "-o", default="", help="output file (default stdout)")
+
+
+def parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="vtpu-trace", description="cycle journal: record, replay, diff, export")
+    add_commands(p.add_subparsers(dest="cmd", required=True))
     return p
 
 
 def main(argv=None, out=None) -> int:
     args = parser().parse_args(argv)
-    run = {"record": _record, "replay": _replay, "diff": _diff, "export": _export}[args.cmd]
-    return run(args, out if out is not None else sys.stdout)
+    return COMMANDS[args.cmd](args, out if out is not None else sys.stdout)
 
 
 if __name__ == "__main__":

@@ -14,7 +14,7 @@ failure latency) every cycle:
                 failure re-opens and restarts the cooldown
 
 State transitions update the ``volcano_circuit_breaker_open{executor}``
-gauge (volcano_tpu_torch/metrics.py).  The JAX package also journals
+gauge (volcano_tpu_torch/metrics/__init__.py).  The JAX package also journals
 them in its trace recorder; the port has no trace recorder yet.
 
 Breakers are process-global singletons by name (the executor ladder is

@@ -29,7 +29,7 @@ semicolon-separated clauses; ``seed=<int>`` seeds the streams (default
     ms=F      payload for delay/slow points (milliseconds)
 
 Every firing counts in ``volcano_faults_injected_total{point}``
-(volcano_tpu_torch/metrics.py).  The JAX package also journals each
+(volcano_tpu_torch/metrics/__init__.py).  The JAX package also journals each
 firing in its trace recorder; the port has no trace recorder yet.
 """
 

@@ -34,6 +34,15 @@ rendered series, and ``volcano_build_info{version}`` is set.  The bus
 (``bus/``) writes the reference's bus series: the client's requests,
 reconnects, relists, watch events and lag, codec fallbacks; the
 server's requests, watchers, codecs, frame bytes and watch-batch sizes.
+The flight recorder (``obs/``) writes the reference's telemetry series:
+spans dropped by reason, exported batch sizes, tail-sampler evictions and
+decisions, the SLO burn gauges, incident bundles captured and the capture
+boost; the kernel phase and explain timings also land as spans in its
+waterfall when it is on.
+
+The package holds the sink here, and beside it ``scrape.py`` (the read
+side of ``/metrics``) and ``timeseries.py`` (the watchdog's ring of
+samples).
 """
 
 from __future__ import annotations
@@ -242,6 +251,12 @@ def update_kernel_duration(phase: str, seconds: float) -> None:
         rec.complete(
             f"kernel:{phase}", "kernel", time.perf_counter() - seconds, seconds
         )
+    from volcano_tpu_torch import obs
+
+    if obs.enabled():
+        # third sink: the flight recorder — kernel phases land in the
+        # cross-process waterfall parented to the cycle span
+        obs.complete(f"kernel:{phase}", seconds, cat="kernel")
 
 
 def update_action_duration(action_name: str, seconds: float) -> None:
@@ -352,6 +367,10 @@ def update_explain_duration(seconds: float) -> None:
     """The reason-count reduction behind a cycle's explanations
     (``ops/explain.run_explain``)."""
     registry.observe(f"{_NAMESPACE}_explain_latency_milliseconds", {}, seconds * 1e3)
+    from volcano_tpu_torch import obs
+
+    if obs.enabled():
+        obs.complete("explain", seconds, cat="explain")
 
 
 def register_commit_failure(kind: str) -> None:
@@ -470,6 +489,61 @@ def observe_watch_batch(size: int) -> None:
     """Watch events one coalesced T_WATCH_BATCH frame carried."""
     registry.observe(f"{_NAMESPACE}_bus_watch_batch_size", {}, size,
                      buckets=_COALESCE_BUCKETS)
+
+
+# ---- the flight recorder's telemetry channel (obs/) ----
+# The channel's one invariant is drop-not-block, so the drop counter is
+# the health signal: a non-zero rate under steady load means the ring is
+# undersized or the bus is refusing segments.
+
+
+def register_telemetry_dropped(reason: str, count: int = 1) -> None:
+    """volcano_telemetry_dropped_total{reason}: spans the telemetry
+    channel dropped instead of blocking a cycle.  reason ∈ {ring-full,
+    export-error}."""
+    registry.inc(f"{_NAMESPACE}_telemetry_dropped_total", {"reason": reason}, count)
+
+
+def observe_telemetry_batch(size: int) -> None:
+    """volcano_telemetry_batch_size: spans per exported segment batch."""
+    registry.observe(f"{_NAMESPACE}_telemetry_batch_size", {}, size,
+                     buckets=_COALESCE_BUCKETS)
+
+
+def register_telemetry_tail_eviction(reason: str) -> None:
+    """volcano_telemetry_tail_evictions_total{reason}: pending-pool
+    traces that fell back to the head coin.  reason ∈ {pool-full,
+    timeout}."""
+    registry.inc(f"{_NAMESPACE}_telemetry_tail_evictions_total", {"reason": reason})
+
+
+def register_telemetry_tail_decision(result: str) -> None:
+    """volcano_telemetry_tail_decisions_total{result}: completion-time
+    keep/drop decisions.  result ∈ {keep, drop}."""
+    registry.inc(f"{_NAMESPACE}_telemetry_tail_decisions_total", {"result": result})
+
+
+def update_slo_burn(slo: str, window: str, value: float) -> None:
+    """volcano_slo_burn{slo,window}: the burn-rate watchdog's consumption
+    ratio per declared SLO and window (>= 1.0 in both = breach).
+    window ∈ {fast, slow}."""
+    registry.set_gauge(f"{_NAMESPACE}_slo_burn", {"slo": slo, "window": window}, value)
+
+
+def register_incident_captured(trigger: str) -> None:
+    """volcano_incidents_captured_total{trigger}: incident bundles this
+    daemon wrote; the trigger vocabulary is capped by bounded_label."""
+    registry.inc(
+        f"{_NAMESPACE}_incidents_captured_total",
+        {"trigger": bounded_label(f"{_NAMESPACE}_incidents_captured_total", "trigger",
+                                  trigger)},
+    )
+
+
+def update_capture_boost(active: float) -> None:
+    """volcano_capture_boost_active: 1 while this daemon's exporter is
+    inside a cluster capture-boost window, else 0."""
+    registry.set_gauge(f"{_NAMESPACE}_capture_boost_active", {}, active)
 
 
 _LABEL_CARDINALITY_CAP = 256

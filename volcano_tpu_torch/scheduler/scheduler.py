@@ -62,8 +62,9 @@ raised.
 Either mode, the inter-cycle sleep is a condition wait: :meth:`stop`
 (and, in event mode, an event) ends it at once.
 
-Not present in the port yet: the flight recorder's span around the cycle
-(``volcano_tpu/obs``, which needs the bus).
+With the flight recorder on (``obs.enable``), each cycle is a
+``cycle:<trigger|full>`` span, the parent of the cycle's kernel phases,
+commit flushes and bus requests.
 """
 
 from __future__ import annotations
@@ -75,6 +76,7 @@ from typing import Callable, Dict, List, Optional
 
 from volcano_tpu_torch import actions as _actions  # noqa: F401 — registers actions
 from volcano_tpu_torch import metrics
+from volcano_tpu_torch import obs
 from volcano_tpu_torch import plugins as _plugins  # noqa: F401 — registers plugin builders
 from volcano_tpu_torch import trace
 from volcano_tpu_torch.cache.interface import Cache
@@ -324,7 +326,16 @@ class Scheduler:
         # cycle correlation id: the recorder's cycle id when tracing,
         # else a local sequence
         self._cycle_seq += 1
-        trace.set_current_cycle(cid if cid >= 0 else self._cycle_seq)
+        cycle_no = cid if cid >= 0 else self._cycle_seq
+        trace.set_current_cycle(cycle_no)
+        # flight-recorder cycle span: a process-scope span that per-pod
+        # bind/commit spans parent to, and the ambient context every
+        # bus request this cycle issues propagates.  Entered by hand so
+        # the try/finally below stays as it is; with the recorder off
+        # this is the shared null span
+        obs_span = obs.span(f"cycle:{trigger if micro else 'full'}", cat="scheduler",
+                            args={"cycle": cycle_no})
+        obs_span.__enter__()
         start = time.perf_counter()
         ssn = None
         rec_cache = None
@@ -444,6 +455,7 @@ class Scheduler:
                 # session open, an action, OR session close is exactly
                 # the one the forensics journal must not drop
                 rec.end_cycle(duration_s=elapsed)
+                obs_span.__exit__(None, None, None)
                 self.cache.in_micro_cycle = False
         metrics.update_e2e_duration(elapsed)
         counts = getattr(self.cache, "ledger_counts", None)

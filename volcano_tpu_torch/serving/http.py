@@ -8,8 +8,10 @@ server carries:
 
   GET /healthz     → 200 "ok" (liveness); 503 "unhealthy" when the
                      ``health_check`` says so; 200 "degraded: <reason>"
-                     while a circuit breaker is open (an executor's, or
-                     the compute-plane sidecar's)
+                     while the ``degraded_source`` names a reason: by
+                     default an open circuit breaker (an executor's, or
+                     the compute-plane sidecar's); a daemon with the SLO
+                     watchdog adds ``slo-burn:<name>`` per breach
   GET /metrics     → Prometheus text exposition of metrics.registry
   GET /explain     → JSON "why is my job pending": unschedulable jobs,
                      their per-task fit-error messages and reason
@@ -73,7 +75,7 @@ class _Handler(BaseHTTPRequestHandler):
             # but a breaker is open (a kernel executor, an unreachable
             # compute-plane sidecar).  200 so liveness probes don't
             # restart a working pod; the body names the reason.
-            reason = _degraded()
+            reason = self.server.degraded_source()
             body = f"degraded: {reason}".encode() if reason else b"ok"
             ctype = "text/plain"
         elif self.path == "/metrics":
@@ -161,6 +163,7 @@ class ServingServer:
         health_check=None,
         debug_enabled: bool = False,
         explain_source=None,
+        degraded_source=None,
     ):
         self._host = host
         self._port = port
@@ -171,6 +174,10 @@ class ServingServer:
         #: optional (namespace, job) -> dict|None backing /explain — a
         #: scheduler wires serving/explain.explain_jobs here
         self._explain_source = explain_source
+        #: optional () -> Optional[str]; a non-empty reason turns
+        #: /healthz's 200 body into "degraded: <reason>".  None = the
+        #: process-global breaker registry (``_degraded``)
+        self._degraded_source = degraded_source if degraded_source is not None else _degraded
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
 
@@ -179,11 +186,16 @@ class ServingServer:
         assert self._httpd is not None, "server not started"
         return self._httpd.server_address[1]
 
+    @property
+    def host(self) -> str:
+        return self._host
+
     def start(self) -> "ServingServer":
         self._httpd = ThreadingHTTPServer((self._host, self._port), _Handler)
         self._httpd.health_check = self._health_check
         self._httpd.debug_enabled = self._debug_enabled
         self._httpd.explain_source = self._explain_source
+        self._httpd.degraded_source = self._degraded_source
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, name="vtpu-serving", daemon=True
         )
