@@ -6,9 +6,9 @@ A ``RemoteAPIServer`` against a ``BusServer`` behaves as the in-process
 store: CRUD, list and CAS semantics, watch streams with and without the
 initial list, the owner-reference cascade, and the coalesced commit
 frame, whichever package is at either end of the wire.  Objects are
-compared field for field, tolerance 0.  (The admission case waits for
-the port's admission.)  Every server binds port 0 and is stopped, and
-every client closed, in the ``pair`` fixture.
+compared field for field, tolerance 0.  (The admission case is in
+``tests/test_torch_bus_admission.py``.)  Every server binds port 0 and
+is stopped, and every client closed, in the ``pair`` fixture.
 """
 
 from __future__ import annotations

@@ -36,8 +36,12 @@ def exemplar(p, kind: str):
     from volcano_tpu.apis import scheme as jax_scheme
     from volcano_tpu_torch.apis import scheme as port_scheme
 
+    from importlib import import_module
+
     core, sched = p.core, p.scheduling
     scheme = port_scheme if p.name == "port" else jax_scheme
+    root = "volcano_tpu_torch" if p.name == "port" else "volcano_tpu"
+    batch, apis_bus = import_module(root + ".apis.batch"), import_module(root + ".apis.bus")
     m = core.ObjectMeta(**_meta(p, f"{kind.lower()}0"))
     if kind == "Pod":
         return core.Pod(metadata=m, spec=core.PodSpec(
@@ -79,19 +83,37 @@ def exemplar(p, kind: str):
         return scheme.QueueV1alpha1(metadata=m, spec=scheme.QueueSpecV1alpha1(
             weight=2, capability={"cpu": "4"}), status=scheme.QueueStatusV1alpha1(
             pending=2, running=1))
+    if kind == "Secret":
+        return core.Secret(metadata=m, data={"token": "c2VjcmV0"}, type="kubernetes.io/ssh-auth")
+    if kind == "Service":
+        return core.Service(metadata=m, spec=core.ServiceSpec(
+            selector={"app": "svc0"}, cluster_ip="None",
+            ports=[core.ServicePort(name="ssh", port=22)]))
+    if kind == "NetworkPolicy":
+        return core.NetworkPolicy(metadata=m, spec={"podSelector": {"app": "web"}})
+    if kind == "Job":
+        return batch.Job(metadata=m, spec=batch.JobSpec(
+            min_available=2, queue="q0", max_retry=5, priority_class_name="high",
+            plugins={"ssh": [], "env": []}, tasks=[batch.TaskSpec(name="worker", replicas=2)]),
+            status=batch.JobStatus(running=1, pending=1, version=4))
+    if kind == "Command":
+        return apis_bus.Command(metadata=m, action="AbortJob", target_object=core.OwnerReference(
+            kind="Job", name="job0", uid="uid-job0", controller=True),
+            reason="UserRequest", message="abort requested")
     raise AssertionError(kind)
 
 
 def test_kinds_are_the_references_the_port_has():
-    """The port's decode registry: the reference's kinds that the port
-    has, in the reference's order; the rest wait for the controllers."""
-    assert list(PORT.protocol.KINDS) == [k for k in JAX.protocol.KINDS if k in PORT.protocol.KINDS]
+    """The port's decode registry: every kind of the reference's, in the
+    reference's order (the Job path's kinds since the controllers came);
+    a kind neither has raises."""
+    assert list(PORT.protocol.KINDS) == list(JAX.protocol.KINDS)
     assert set(PORT.protocol.KINDS) == {
-        "Pod", "Node", "PriorityClass", "ConfigMap", "PersistentVolumeClaim", "Event",
-        "PodGroup", "Queue", "PodGroupV1alpha1", "QueueV1alpha1"}
-    for kind in set(JAX.protocol.KINDS) - set(PORT.protocol.KINDS):
-        with pytest.raises(PORT.BusError, match="unknown kind"):
-            PORT.protocol.decode_obj({"kind": kind, "metadata": {"name": "x"}})
+        "Pod", "Node", "PriorityClass", "ConfigMap", "Secret", "Service",
+        "PersistentVolumeClaim", "NetworkPolicy", "Event", "Job", "PodGroup", "Queue",
+        "PodGroupV1alpha1", "QueueV1alpha1", "Command"}
+    with pytest.raises(PORT.BusError, match="unknown kind"):
+        PORT.protocol.decode_obj({"kind": "Deployment", "metadata": {"name": "x"}})
 
 
 @pytest.mark.parametrize("kind", sorted(pkg("port").protocol.KINDS))
@@ -121,8 +143,8 @@ def test_tables_equal_where_the_port_keeps_an_entry():
     assert pp._HEADER.format == jp._HEADER.format
     assert pp.OP_VERSIONS == {op: jp.OP_VERSIONS[op] for op in pp.OP_VERSIONS}
     assert set(pp.OP_VERSIONS) == {"create", "update", "update_status", "get", "list",
-                                   "delete", "watch", "unwatch", "commit_batch",
-                                   "watch_batch", "bus_hello"}
+                                   "delete", "watch", "unwatch", "register_admission",
+                                   "commit_batch", "watch_batch", "bus_hello"}
     assert set(pp.ERRORS) == set(jp.ERRORS)
     assert pp.HAS_BINARY == jp.HAS_BINARY
 

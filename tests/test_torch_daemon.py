@@ -235,27 +235,36 @@ def _parsed(monkeypatch, main, argv) -> dict:
     return seen
 
 
-@pytest.mark.parametrize("binary", ["scheduler", "apiserver"])
+#: each binary's flags the port has and the reference lacks, and those the
+#: reference has and the port leaves out
+PORT_ONLY_FLAGS = {"scheduler": {"device"}, "local_up": {"device", "log_dir"}}
+LEFT_OUT_FLAGS = {
+    "scheduler": {"shards", "shard_identity", "shard_lease_duration", "shard_autoscale",
+                  "autoscale_min", "autoscale_max", "autoscale_up_p99_ms",
+                  "autoscale_up_pending", "autoscale_down_p99_ms", "autoscale_down_pending",
+                  "autoscale_sustain", "autoscale_cooldown_s", "autoscale_period_s",
+                  "gang_broker"},
+    "apiserver": {"data_dir", "snapshot_every", "replicas", "replica_index", "repl_lease_ttl",
+                  "shm"},
+    "local_up": {"apiserver_replicas", "apiserver_data_dir", "repl_lease_ttl"},
+}
+
+
+@pytest.mark.parametrize("binary", ["scheduler", "apiserver", "controllers", "admission",
+                                    "local_up"])
 def test_kept_flags_have_the_reference_defaults(monkeypatch, binary):
     import importlib
 
     port_main = importlib.import_module(f"volcano_tpu_torch.cmd.{binary}").main
     jax_main = importlib.import_module(f"volcano_tpu.cmd.{binary}").main
     port, ref = _parsed(monkeypatch, port_main, []), _parsed(monkeypatch, jax_main, [])
-    port_only = {"device"} if binary == "scheduler" else set()
+    port_only = PORT_ONLY_FLAGS.get(binary, set())
     assert set(port) - set(ref) == port_only
     assert {k: v for k, v in port.items() if k not in port_only} == {k: ref[k] for k in port
                                                                        if k not in port_only}
-    if binary == "scheduler":
+    if "device" in port_only:
         assert port["device"] == "cuda"
-        assert set(ref) - set(port) == {
-            "shards", "shard_identity", "shard_lease_duration", "shard_autoscale",
-            "autoscale_min", "autoscale_max", "autoscale_up_p99_ms", "autoscale_up_pending",
-            "autoscale_down_p99_ms", "autoscale_down_pending", "autoscale_sustain",
-            "autoscale_cooldown_s", "autoscale_period_s", "gang_broker"}
-    else:
-        assert set(ref) - set(port) == {"data_dir", "snapshot_every", "replicas",
-                                        "replica_index", "repl_lease_ttl", "shm"}
+    assert set(ref) - set(port) == LEFT_OUT_FLAGS.get(binary, set())
 
 
 @pytest.mark.parametrize("binary, argv", [
@@ -263,6 +272,7 @@ def test_kept_flags_have_the_reference_defaults(monkeypatch, binary):
     ("scheduler", ["--autoscale-min", "1"]), ("scheduler", ["--gang-broker", "on"]),
     ("apiserver", ["--data-dir", "/tmp/x"]), ("apiserver", ["--replicas", "tcp://a:1"]),
     ("apiserver", ["--shm"]), ("apiserver", ["--snapshot-every", "8"]),
+    ("local_up", ["--apiserver-replicas", "3"]), ("local_up", ["--repl-lease-ttl", "1"]),
 ])
 def test_left_out_flags_are_refused(binary, argv, capsys):
     import importlib

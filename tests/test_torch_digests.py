@@ -36,6 +36,14 @@ the same at 10k pods x 1k nodes on the CPU.  The JAX package's
 50k x 10k cell takes 88 s (full sessions) and 115 s (restricted, a
 shadow full session every window) under pytest on one CPU, so both are
 marked ``slow``.
+
+And for the Job path's cell: the JAX package's admission, controllers
+and ``SchedulerDaemon`` with ``jax-allocate``, stepped through
+``chip_smoke.run_job_cell`` at full size (``chip_smoke.JOB_CONFIG``: 100
++ 50 Jobs x 50 tasks on 1,000 nodes), give ``chip_smoke.JOB_DIGESTS``.
+The run takes about 77 s under pytest on one CPU, so it is marked ``slow``;
+``tests/test_torch_e2e.py`` holds the port's cell against the JAX
+package's at a tenth of its jobs in tier-1.
 """
 
 from __future__ import annotations
@@ -287,3 +295,11 @@ def test_port_micro_digests_on_cpu(cpu_actions, mode):
                                           "mixed"]
     assert scheduler.micro_cycles_run == 5 and scheduler.full_cycles_run == 2
     assert scheduler.shadow_divergences == 0
+
+
+@pytest.mark.slow
+def test_jax_job_digest_is_chip_smokes(tmp_path):
+    from tests.test_torch_e2e import job_cell
+
+    out = job_cell("jax", chip_smoke.JOB_CONFIG, tmp_path)
+    assert out["digest"] == chip_smoke.JOB_DIGESTS[chip_smoke.JOB_CELL]

@@ -148,22 +148,44 @@ def port_store_cycles(objects, tiers, actions, cycles, mode, between=None):
 
 
 def store_dump(api) -> dict:
-    """Every user-visible field the commit path writes: each pod's node,
-    phase and conditions, each Event's count and message by (object,
-    type, reason), each PodGroup's status — without resource versions,
-    timestamps and a condition's transition id, which differ between any
-    two runs."""
-    pods = {f"{p.metadata.namespace}/{p.metadata.name}": (
+    """Every user-visible field the commit path and the controllers
+    write: each pod's node, phase and conditions, each Event's count and
+    message by (object, type, reason), each PodGroup's status, and,
+    where the store holds any, each Job's phase and counters, each
+    Service's, Secret's and NetworkPolicy's content and each Command's
+    action and target — without resource versions, timestamps, a
+    condition's transition id and the names the CLI stamps with the wall
+    clock, which differ between any two runs."""
+    def key(o):
+        return f"{o.metadata.namespace}/{o.metadata.name}"
+
+    pods = {key(p): (
         p.spec.node_name, p.status.phase,
         tuple(sorted((c.type, c.status, c.reason, c.message) for c in p.status.conditions)))
         for p in api.list("Pod")}
     events = {(e.metadata.namespace, e.involved_object.get("name"), e.type, e.reason):
               (e.count, e.message) for e in api.list("Event")}
-    pod_groups = {f"{g.metadata.namespace}/{g.metadata.name}": (
+    pod_groups = {key(g): (
         g.status.phase, g.status.running, g.status.succeeded, g.status.failed,
         tuple(sorted((c.type, c.status, c.reason, c.message) for c in g.status.conditions)))
         for g in api.list("PodGroup")}
-    return {"pods": pods, "events": events, "pod_groups": pod_groups}
+    out = {"pods": pods, "events": events, "pod_groups": pod_groups}
+    jobs = {key(j): (
+        j.status.state.phase, j.status.state.reason, j.status.state.message,
+        j.status.min_available, j.status.pending, j.status.running, j.status.succeeded,
+        j.status.failed, j.status.terminating, j.status.unknown, j.status.version,
+        j.status.retry_count, tuple(sorted(j.status.controlled_resources.items())))
+        for j in api.list("Job")}
+    services = {key(s): repr(s.spec) for s in api.list("Service")}
+    secrets = {key(s): (s.type, tuple(sorted(s.data.items()))) for s in api.list("Secret")}
+    policies = {key(n): repr(n.spec) for n in api.list("NetworkPolicy")}
+    commands = {(c.metadata.namespace, c.action, c.target_object.kind, c.target_object.name):
+                c.reason for c in api.list("Command")}
+    for name, section in (("jobs", jobs), ("services", services), ("secrets", secrets),
+                          ("network_policies", policies), ("commands", commands)):
+        if section:  # absent from the stores of the scheduler's cells
+            out[name] = section
+    return out
 
 
 def dump_digest(dump: dict) -> str:

@@ -54,7 +54,7 @@ def pkg(name: str) -> SimpleNamespace:
         BusError=BusError, BusServer=BusServer, RemoteAPIServer=RemoteAPIServer,
         APIServer=apiserver.APIServer, ApiError=apiserver.ApiError,
         NotFoundError=apiserver.NotFoundError, ConflictError=apiserver.ConflictError,
-        AlreadyExistsError=apiserver.AlreadyExistsError,
+        AlreadyExistsError=apiserver.AlreadyExistsError, AdmissionError=apiserver.AdmissionError,
         LeaderElector=leader.LeaderElector, LEASE_KEY=leader.LEASE_KEY, registry=registry)
 
 

@@ -1,8 +1,6 @@
 """Core Kubernetes-style objects used by the framework.
 
-A copy of ``volcano_tpu/apis/core.py`` without the objects neither the
-scheduler, its client nor its leader elector reads or writes (Secret,
-Service, NetworkPolicy).
+A copy of ``volcano_tpu/apis/core.py``.
 
 Only the fields the reference framework actually reads/writes are modeled
 (e.g. Pod: requests/ports/selector/affinity/tolerations/priority; Node:
@@ -191,6 +189,12 @@ class Pod(K8sObject):
 
 
 @dataclass
+class PodTemplateSpec:
+    metadata: ObjectMeta = field(default_factory=ObjectMeta)
+    spec: PodSpec = field(default_factory=PodSpec)
+
+
+@dataclass
 class NodeCondition:
     type: str = "Ready"
     status: str = "True"
@@ -228,9 +232,39 @@ class ConfigMap(K8sObject):
 
 
 @dataclass
+class Secret(K8sObject):
+    data: Dict[str, str] = field(default_factory=dict)
+    type: str = "Opaque"
+
+
+@dataclass
+class ServicePort:
+    name: str = ""
+    port: int = 0
+    protocol: str = "TCP"
+
+
+@dataclass
+class ServiceSpec:
+    selector: Dict[str, str] = field(default_factory=dict)
+    cluster_ip: str = ""
+    ports: List[ServicePort] = field(default_factory=list)
+
+
+@dataclass
+class Service(K8sObject):
+    spec: ServiceSpec = field(default_factory=ServiceSpec)
+
+
+@dataclass
 class PersistentVolumeClaim(K8sObject):
     spec: Dict[str, object] = field(default_factory=dict)
     status: Dict[str, object] = field(default_factory=dict)
+
+
+@dataclass
+class NetworkPolicy(K8sObject):
+    spec: Dict[str, object] = field(default_factory=dict)
 
 
 @dataclass

@@ -2,13 +2,10 @@
 
 A copy of ``volcano_tpu/bus/protocol.py``: the same header, versions,
 message types, codecs and error names, so a port peer and a JAX peer
-speak to each other byte for byte.  ``KINDS`` holds the reference's
-kinds that the port has (the rest — Job, Command, Secret, Service,
-NetworkPolicy — wait for their callers, the controllers; a frame of
-such a kind raises as an unknown kind does), and ``OP_VERSIONS`` the
-ops the port's client and server keep (``cas_bind``, ``txn_commit``,
-``register_admission``, ``bus_status`` and the replication and
-membership ops wait for federation, admission and replication).
+speak to each other byte for byte.  ``KINDS`` holds every kind of the
+reference, in its order, and ``OP_VERSIONS`` the ops the port's client
+and server keep (``cas_bind``, ``txn_commit``, and the replication and
+membership ops wait for federation and replication).
 
 The out-of-process bus generalizes the compute-plane boundary
 (serving/compute_plane.py) from "ship one packed snapshot" to "be the
@@ -52,7 +49,8 @@ except ImportError:  # pragma: no cover - environment without msgpack
 #: error path.
 HAS_BINARY = msgpack is not None
 
-from volcano_tpu_torch.apis import core, scheduling, scheme
+from volcano_tpu_torch.apis import batch, core, scheduling, scheme
+from volcano_tpu_torch.apis import bus as apis_bus
 from volcano_tpu_torch.client.apiserver import (
     AdmissionError,
     AlreadyExistsError,
@@ -152,16 +150,18 @@ T_WATCH_BATCH = 11
 
 _HEADER = struct.Struct("<4sHHII")
 
-#: decode registry — the reference's kinds the port's store holds, in
-#: the reference's order.  Kind names are class names (K8sObject.kind),
-#: so registration is mechanical.
+#: decode registry — every kind the in-process store can hold.  Kind
+#: names are class names (K8sObject.kind), so registration is mechanical.
 KINDS: Dict[str, type] = {
     cls.__name__: cls
     for cls in (
         core.Pod, core.Node, core.PriorityClass, core.ConfigMap,
-        core.PersistentVolumeClaim, core.Event,
+        core.Secret, core.Service, core.PersistentVolumeClaim,
+        core.NetworkPolicy, core.Event,
+        batch.Job,
         scheduling.PodGroup, scheduling.Queue,
         scheme.PodGroupV1alpha1, scheme.QueueV1alpha1,
+        apis_bus.Command,
     )
 }
 
@@ -178,6 +178,7 @@ OP_VERSIONS: Dict[str, int] = {
     "delete": 1,
     "watch": 1,
     "unwatch": 1,
+    "register_admission": 1,
     "commit_batch": 2,
     "watch_batch": 3,
     "bus_hello": 8,

@@ -35,11 +35,18 @@ client ``bus:<op>`` span, the parent of the server's adopted one.
 /metrics address); an old server's ``unknown bus op`` degrades it, for
 the connection's lifetime, to ``{"role": "unknown"}``.
 
+Remote admission: ``register_admission`` makes this connection the
+webhook endpoint for (kind, operation).  The server forwards each review
+as a T_ADMIT_REQ frame; the hooks run on a thread of their own (never on
+the reader, so a hook may call back into this client), inside an
+``admission:review`` span adopted from the server's, and the verdict
+goes back as T_ADMIT_RESP.  The registration is replayed after every
+reconnect.
+
 Not present in the port yet, each waiting for its caller: the same-host
 shm transport (replication/shm), ``cas_bind`` and ``txn_commit``
-(federation), ``register_admission`` and its review loop (admission),
-the membership calls, endpoint lists and the leader-redirect and
-failover paths (replication).
+(federation), the membership calls, endpoint lists and the
+leader-redirect and failover paths (replication).
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from volcano_tpu_torch.bus import protocol
 from volcano_tpu_torch.bus.protocol import BusError, BusTimeoutError
 from volcano_tpu_torch.client.apiserver import (
     ADDED,
+    AdmissionError,
     ApiError,
     DELETED,
     MODIFIED,
@@ -138,6 +146,8 @@ class RemoteAPIServer:
         self._watch_lock = threading.Lock()
         self._watches: Dict[str, _WatchState] = {}  # guarded-by: self._watch_lock
         self._by_watch_id: Dict[int, _WatchState] = {}  # guarded-by: self._watch_lock
+        #: (kind, operation) → local webhook hooks (register_admission)
+        self._admission: Dict[Tuple[str, str], List] = {}
 
         #: set once a server rejects the v2 ``commit_batch`` op — the
         #: old-peer fallback (per-object binds) for skewed apiservers
@@ -161,6 +171,9 @@ class RemoteAPIServer:
 
         self._ctl: "queue.Queue[tuple]" = queue.Queue()
         self._dispatch_q: "queue.Queue[Optional[tuple]]" = queue.Queue()
+        #: forwarded admission reviews, run off the reader thread (a
+        #: hook may call back into this client)
+        self._admit_q: "queue.Queue[Optional[tuple]]" = queue.Queue()
 
         self._conn_thread = threading.Thread(
             target=self._conn_loop, name="vtpu-bus-conn", daemon=True
@@ -168,8 +181,12 @@ class RemoteAPIServer:
         self._dispatch_thread = threading.Thread(
             target=self._dispatch_loop, name="vtpu-bus-dispatch", daemon=True
         )
+        self._admit_thread = threading.Thread(
+            target=self._admit_loop, name="vtpu-bus-admit", daemon=True
+        )
         self._conn_thread.start()
         self._dispatch_thread.start()
+        self._admit_thread.start()
 
     # ---- connection management ----
 
@@ -282,13 +299,22 @@ class RemoteAPIServer:
             metrics.register_bus_codec_fallback()
 
     def _resync_session(self) -> None:
-        """After (re)connect: re-establish every watch with
-        resume-or-relist.  Each watch is attempted independently, and
-        ANY failure schedules a full retry — the resync is idempotent (a
-        re-established watch resumes from last_seq and replayed events
-        dedup by sequence number), and a watch left un-established
-        would freeze its informer cache silently."""
+        """After (re)connect: re-register admission endpoints, then
+        re-establish every watch with resume-or-relist.  Each item is
+        attempted independently, and ANY failure schedules a full retry
+        — the whole resync is idempotent (re-registration dedups
+        server-side; a re-established watch resumes from last_seq and
+        replayed events dedup by sequence number), and a watch left
+        un-established would freeze its informer cache silently."""
         failed = False
+        for kind, operation in list(self._admission):
+            try:
+                self._call({"op": "register_admission", "kind": kind,
+                            "operation": operation})
+            except (ApiError, OSError) as e:
+                log.error("bus admission re-register %s/%s failed: %s",
+                          kind, operation, e)
+                failed = True
         with self._watch_lock:
             states = list(self._watches.values())
         for state in states:
@@ -356,6 +382,8 @@ class RemoteAPIServer:
                 state = self._watch_state(corr_id)
                 if state is not None:
                     self._dispatch_q.put(("bookmark", state, payload))
+            elif mtype == protocol.T_ADMIT_REQ:
+                self._admit_q.put((corr_id, payload))
 
     def _watch_state(self, watch_id: int) -> Optional[_WatchState]:
         # the reader thread races watch()/unwatch teardown on other
@@ -593,6 +621,26 @@ class RemoteAPIServer:
         return record_event_via(self, namespace, involved, type_,
                                 reason, message)
 
+    def register_admission(self, kind: str, operation: str, hook) -> None:
+        """Make this client the webhook endpoint for (kind, operation).
+        Hooks run locally when the server forwards a review; the
+        registration survives reconnects."""
+        key = (kind, operation)
+        first = key not in self._admission
+        self._admission.setdefault(key, []).append(hook)
+        if first and self._connected.is_set():
+            try:
+                self._call({"op": "register_admission", "kind": kind,
+                            "operation": operation})
+            except (ApiError, OSError) as e:
+                # the connection may survive the failed call (a stalled
+                # server times the request out without dropping TCP), so
+                # waiting for the connect-time resync is not enough —
+                # an unregistered webhook fails OPEN on the server side
+                log.error("bus admission register %s/%s failed: %s",
+                          kind, operation, e)
+                self._ctl.put(("resync",))
+
     def watch(self, kind: str, handler: WatchHandler,
               send_initial: bool = True) -> None:
         """Same contract as the in-process ``APIServer.watch``: register
@@ -638,6 +686,7 @@ class RemoteAPIServer:
             self._teardown_socket(sock)
         self._fail_pending(BusError("bus client closed"))
         self._dispatch_q.put(None)
+        self._admit_q.put(None)
 
     # ---- watch internals ----
 
@@ -792,3 +841,45 @@ class RemoteAPIServer:
                 # kill the shared dispatch thread
                 log.error("watch handler for %s failed on %s: %s",
                           state.kind, event, e)
+
+    # ---- remote admission reviews ----
+
+    def _send_noreply(self, mtype: int, corr_id: int, payload: dict) -> None:
+        sock = self._sock
+        if sock is None:
+            return
+        try:
+            with self._send_lock:
+                protocol.send_frame(sock, mtype, corr_id, payload,
+                                    codec=self.codec)
+        except OSError:
+            pass
+
+    def _admit_loop(self) -> None:
+        while True:
+            item = self._admit_q.get()
+            if item is None:
+                return
+            review_id, payload = item
+            kind, operation = payload["kind"], payload["operation"]
+            hooks = list(self._admission.get((kind, operation), []))
+            try:
+                obj = protocol.decode_obj(payload["object"])
+                meta = getattr(obj, "metadata", None)
+                with obs.adopt(
+                    payload.get("span"), "admission:review", cat="admission",
+                    args={
+                        "kind": kind, "operation": operation,
+                        **({"pod": f"{meta.namespace}/{meta.name}"}
+                           if kind == "Pod" and meta is not None else {}),
+                    },
+                ):
+                    for hook in hooks:
+                        obj = hook(operation, obj) or obj
+                resp = {"allowed": True, "object": protocol.encode_obj(obj)}
+            except AdmissionError as e:
+                resp = {"allowed": False, "message": str(e)}
+            except Exception as e:  # noqa: BLE001 — deny, don't crash
+                log.error("admission hook %s/%s crashed: %s", kind, operation, e)
+                resp = {"allowed": False, "message": f"webhook error: {e}"}
+            self._send_noreply(protocol.T_ADMIT_RESP, review_id, resp)

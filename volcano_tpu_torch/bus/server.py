@@ -33,12 +33,19 @@ address).  With the flight recorder on, a request that carries a span
 context (``payload["span"]``) runs inside an adopted ``bus:<op>`` span,
 the child of the client's span in the other process.
 
+* **Remote admission**: a connection may register as the webhook for a
+  (kind, operation) (``register_admission``); creates and updates of
+  that kind are forwarded to it as admission-review frames, and the
+  server waits up to ``admission_timeout`` for the verdict before
+  touching the store (a reviewer that disconnects mid-review fails
+  open).  A closed connection's registrations are dropped.
+
 An op the server does not have is answered with the reference's typed
 ``unknown bus op`` error, so a client of the reference takes its
 old-peer fallback.  Not present in the port yet, each waiting for its
-caller: remote admission (admission), ``cas_bind`` and ``txn_commit``
-(federation), the durable store's resume surface, the replication and
-membership ops and the shm listener (WAL, replication, shm).
+caller: ``cas_bind`` and ``txn_commit`` (federation), the durable
+store's resume surface, the replication and membership ops and the shm
+listener (WAL, replication, shm).
 """
 
 from __future__ import annotations
@@ -52,7 +59,7 @@ from typing import Dict, List, Optional, Tuple
 
 from volcano_tpu_torch import metrics, obs, trace
 from volcano_tpu_torch.bus import protocol
-from volcano_tpu_torch.client.apiserver import ApiError, APIServer
+from volcano_tpu_torch.client.apiserver import AdmissionError, ApiError, APIServer
 from volcano_tpu_torch.utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -142,8 +149,8 @@ def _batch_body_bin(parts: List[bytes]) -> bytes:
 
 class _Conn:
     """One accepted connection: a reader (request handler) thread plus a
-    writer thread draining the outbound queue, so watch pushes never
-    block the store-side notifier."""
+    writer thread draining the outbound queue, so watch pushes and
+    admission reviews never block the store-side notifier."""
 
     def __init__(self, sock: socket.socket, peer):
         self.sock = sock
@@ -165,6 +172,8 @@ class _Conn:
         self.codec = protocol.CODEC_JSON
         #: watch_id → kind, for cleanup on close
         self.watches: Dict[int, str] = {}
+        #: review_id → waiter, resolved by T_ADMIT_RESP frames
+        self.reviews: Dict[int, dict] = {}
         self._lock = threading.Lock()
 
     def push(self, mtype: int, corr_id: int, payload) -> bool:
@@ -193,11 +202,15 @@ class _Conn:
             self.sock.close()
         except OSError:
             pass
-        # unblock the writer thread
+        # unblock the writer thread and fail pending admission reviews
         try:
             self.outbound.put_nowait(None)
         except queue.Full:
             pass
+        for waiter in list(self.reviews.values()):
+            waiter["result"] = None
+            waiter["event"].set()
+        self.reviews.clear()
 
     def _send(self, mtype: int, corr_id: int, payload) -> bool:
         """Send one wire frame (with the bus.delay injection point);
@@ -313,12 +326,14 @@ class BusServer:
         port: int = 0,
         backlog_size: int = 4096,
         bookmark_interval: float = 2.0,
+        admission_timeout: float = 10.0,
     ):
         self.api = api
         self.host = host
         self._port = port
         self.backlog_size = backlog_size
         self.bookmark_interval = bookmark_interval
+        self.admission_timeout = admission_timeout
         #: epoch: identifies the resume-token space.  A volatile store
         #: mints a fresh one per incarnation, so a resume token from
         #: another incarnation can never be judged against our sequence
@@ -330,6 +345,14 @@ class BusServer:
         self._backlog: List[_CachedPayload] = []  # guarded-by: self.api.locked()
         #: kind → [(conn, watch_id)] live subscriptions
         self._subs: Dict[str, List[Tuple[_Conn, int]]] = {}  # guarded-by: self.api.locked()
+        #: (kind, operation) → [conn] remote admission registrations;
+        #: guarded by _admission_lock — a reconnecting webhook races its
+        #: old connection's cleanup, and an unguarded prune-empty-key
+        #: could strand the fresh registration on an orphaned list
+        self._admission: Dict[Tuple[str, str], List[_Conn]] = {}  # guarded-by: self._admission_lock
+        self._admission_lock = threading.Lock()
+        self._review_id = 0  # guarded-by: self._review_lock
+        self._review_lock = threading.Lock()
         self._central_watchers: List[Tuple[str, object]] = []
         self._listener: Optional[socket.socket] = None
         self._conns: List[_Conn] = []  # guarded-by: self._conns_lock
@@ -495,10 +518,19 @@ class BusServer:
                     return
                 if mtype == protocol.T_PING:
                     conn.push(protocol.T_PONG, corr_id, {})
+                elif mtype == protocol.T_ADMIT_RESP:
+                    waiter = conn.reviews.pop(corr_id, None)
+                    if waiter is not None:
+                        waiter["result"] = payload
+                        waiter["event"].set()
                 elif mtype == protocol.T_REQ:
-                    # one thread per request, as the reference's server:
-                    # each RemoteAPIServer caller thread is synchronous,
-                    # so its requests never overlap
+                    # one thread per request, NOT inline: a create whose
+                    # admission reviewer lives on THIS connection blocks
+                    # waiting for a T_ADMIT_RESP that only this reader
+                    # can receive — and a reviewer's own read-back calls
+                    # must be servable while another request is parked
+                    # in a review.  Each RemoteAPIServer caller thread is
+                    # synchronous, so its requests never overlap
                     threading.Thread(
                         target=self._handle_request,
                         args=(conn, corr_id, payload),
@@ -521,6 +553,12 @@ class BusServer:
                     subs.remove((conn, watch_id))
             conn.watches.clear()
             self._update_watcher_gauge()
+        with self._admission_lock:
+            for key, conns in list(self._admission.items()):
+                if conn in conns:
+                    conns.remove(conn)
+                if not conns:
+                    self._admission.pop(key, None)
 
     def _update_watcher_gauge(self) -> None:
         # requires-lock: self.api.locked()
@@ -595,9 +633,11 @@ class BusServer:
             return api.bus_status()
         if op == "create":
             obj = protocol.decode_obj(payload["object"])
+            obj = self._remote_admission(obj.kind, "CREATE", obj)
             return {"object": protocol.encode_obj(api.create(obj))}
         if op == "update":
             obj = protocol.decode_obj(payload["object"])
+            obj = self._remote_admission(obj.kind, "UPDATE", obj)
             return {"object": protocol.encode_obj(
                 api.update(obj, expected_rv=payload.get("expected_rv")))}
         if op == "update_status":
@@ -646,7 +686,61 @@ class BusServer:
                     subs[:] = [s for s in subs if s != (conn, watch_id)]
                     self._update_watcher_gauge()
             return {"unwatched": kind is not None}
+        if op == "register_admission":
+            key = (payload["kind"], payload["operation"])
+            with self._admission_lock:
+                conns = self._admission.setdefault(key, [])
+                if conn not in conns:
+                    conns.append(conn)
+            return {"registered": True}
         raise ApiError(f"unknown bus op {op!r}")
+
+    # ---- remote admission ----
+
+    def _remote_admission(self, kind: str, operation: str, obj):
+        """Run registered remote reviews in order, mutating as we go.
+        Runs BEFORE the store transaction (k8s webhook ordering) so a
+        webhook that reads back through the bus cannot deadlock."""
+        with self._admission_lock:
+            conns = list(self._admission.get((kind, operation), ()))
+        if not conns:
+            return obj
+        data = protocol.encode_obj(obj)
+        # the review runs in the WEBHOOK daemon's process — forward the
+        # span context so its admission:review span parents into this
+        # request's trace (old webhook clients ignore the key)
+        span_ctx = obs.current_wire()
+        for conn in conns:
+            if conn.closed:
+                continue
+            with self._review_lock:
+                self._review_id += 1
+                review_id = self._review_id
+            waiter = {"event": threading.Event(), "result": None}
+            conn.reviews[review_id] = waiter
+            review = {"kind": kind, "operation": operation, "object": data}
+            if span_ctx is not None:
+                review["span"] = span_ctx
+            if not conn.push(protocol.T_ADMIT_REQ, review_id, review):
+                continue
+            if not waiter["event"].wait(self.admission_timeout):
+                conn.reviews.pop(review_id, None)
+                raise AdmissionError(
+                    f"admission review for {kind}/{operation} timed out"
+                )
+            result = waiter["result"]
+            if result is None:
+                # reviewer died mid-flight — failure-open, like a webhook
+                # with failurePolicy: Ignore whose endpoint vanished
+                log.error("admission reviewer for %s/%s disconnected mid-review",
+                          kind, operation)
+                continue
+            if not result.get("allowed", False):
+                raise AdmissionError(result.get("message") or
+                                     "denied by admission webhook")
+            if result.get("object") is not None:
+                data = result["object"]
+        return protocol.decode_obj(data)
 
     # ---- watch ----
 

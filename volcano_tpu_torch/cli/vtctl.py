@@ -3,6 +3,10 @@
 The port of ``volcano_tpu/cli/vtctl.py``, for the commands whose callers
 the port has:
 
+  vtctl job run|list|view|suspend|resume|delete
+  vtctl queue create|get|list|operate|delete
+  vtctl describe job|podgroup   (conditions + Events + the
+                                 unschedulable-reason histogram)
   vtctl trace pod|gang    the flight recorder's cross-process submit→bind
                           waterfall of one pod or gang (``--chrome`` also
                           writes the merged multi-process Chrome JSON)
@@ -18,11 +22,14 @@ Commands run against an API server: an empty in-process one by default
 or of the JAX package with ``--bus tcp://host:port``.  The text of each
 command is the JAX ``vtctl``'s for the same store.
 
-Usage: python -m volcano_tpu_torch.cli.vtctl [--bus URL] trace pod -N NAME
+suspend/resume emit Command CRs consumed by the job controller
+(pkg/cli/job/suspend.go, resume.go).
 
-Not present in the port yet, each waiting for its caller: ``job``,
-``queue`` and ``describe`` (the Job kind and the controllers),
-``shards`` (federation), ``bus status|add-replica|remove-replica``
+Usage: python -m volcano_tpu_torch.cli.vtctl [--bus URL] job run -N NAME
+       python -m volcano_tpu_torch.cli.vtctl [--bus URL] trace pod -N NAME
+
+Not present in the port yet, each waiting for its caller: ``shards``
+(federation), ``bus status|add-replica|remove-replica``
 (WAL and replication), ``faults validate``, ``lint`` and ``explore``
 (``analysis/``).
 """
@@ -37,10 +44,375 @@ import time
 from typing import Dict, List, Optional
 
 from volcano_tpu_torch import obs
+from volcano_tpu_torch.apis import batch, bus, core, scheduling
 from volcano_tpu_torch.client import ApiError, APIServer, VolcanoClient
 from volcano_tpu_torch.cmd import trace as trace_cmd
 from volcano_tpu_torch.metrics import scrape as _scrape
 from volcano_tpu_torch.obs.shard_map import read_shard_map
+
+
+def _parse_resource_list(text: str) -> Dict[str, str]:
+    """"cpu=1000m,memory=100Mi" → dict (cli/util.go populateResourceListV1)."""
+    out: Dict[str, str] = {}
+    for part in (text or "").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" not in part:
+            raise ValueError(f"invalid resource {part!r}, expected name=quantity")
+        name, quantity = part.split("=", 1)
+        out[name.strip()] = quantity.strip()
+    return out
+
+
+def _construct_job(args) -> batch.Job:
+    """pkg/cli/job/util.go constructLaunchJobFlagsJob."""
+    requests = _parse_resource_list(args.requests)
+    limits = _parse_resource_list(args.limits)
+    task = batch.TaskSpec(
+        name=args.taskname,
+        replicas=args.replicas,
+        template=core.PodTemplateSpec(
+            metadata=core.ObjectMeta(name=args.name),
+            spec=core.PodSpec(
+                containers=[
+                    core.Container(
+                        name=args.name,
+                        image=args.image,
+                        resources={"requests": requests, "limits": limits},
+                    )
+                ]
+            ),
+        ),
+    )
+    return batch.Job(
+        metadata=core.ObjectMeta(name=args.name, namespace=args.namespace),
+        spec=batch.JobSpec(
+            min_available=args.min_available,
+            queue=args.queue,
+            scheduler_name=args.scheduler,
+            tasks=[task],
+        ),
+    )
+
+
+def _load_job_file(path: str) -> batch.Job:
+    import yaml
+
+    if not (path.endswith(".yaml") or path.endswith(".yml")):
+        raise ValueError("only support yaml file")
+    with open(path) as f:
+        data = yaml.safe_load(f)
+    return batch.Job.from_dict(data)
+
+
+def _issue_command(vc: VolcanoClient, namespace: str, job_name: str, action: str) -> None:
+    """suspend/resume create a Command CR targeted at the job."""
+    vc.create_command(
+        bus.Command(
+            metadata=core.ObjectMeta(
+                name=f"{job_name}-{action.lower()}-{int(time.time() * 1000)}",
+                namespace=namespace,
+            ),
+            action=action,
+            target_object=core.OwnerReference(kind="Job", name=job_name),
+        )
+    )
+
+
+# ---- job subcommands ----
+
+def _job_run(vc: VolcanoClient, args, out) -> int:
+    if not args.name and not args.filename:
+        print("job name cannot be left blank", file=out)
+        return 1
+    job = _load_job_file(args.filename) if args.filename else _construct_job(args)
+    if args.filename and args.namespace != "default":
+        job.metadata.namespace = args.namespace
+    created = vc.create_job(job)
+    print(f"run job {created.metadata.name} successfully", file=out)
+    return 0
+
+
+def _job_list(vc: VolcanoClient, args, out) -> int:
+    jobs = vc.list_jobs(args.namespace if args.namespace != "" else None)
+    print(
+        f"{'Name':<25}{'Creation':<21}{'Phase':<12}{'Replicas':<10}"
+        f"{'Min':<6}{'Pending':<9}{'Running':<9}{'Succeeded':<11}{'Failed':<8}",
+        file=out,
+    )
+    for job in jobs:
+        replicas = sum(t.replicas for t in job.spec.tasks)
+        created = time.strftime(
+            "%Y-%m-%d %H:%M:%S", time.localtime(job.metadata.creation_timestamp)
+        )
+        s = job.status
+        print(
+            f"{job.metadata.name:<25}{created:<21}{s.state.phase:<12}{replicas:<10}"
+            f"{s.min_available:<6}{s.pending:<9}{s.running:<9}{s.succeeded:<11}{s.failed:<8}",
+            file=out,
+        )
+    return 0
+
+
+def _job_view(vc: VolcanoClient, args, out) -> int:
+    job = vc.get_job(args.namespace, args.name)
+    if job is None:
+        print(f"job {args.namespace}/{args.name} not found", file=out)
+        return 1
+    import yaml
+
+    print(yaml.safe_dump(job.to_dict(), sort_keys=False), file=out)
+
+    # Events section (kubectl-describe style): the audit trail for the
+    # job's pods and its podgroup (cache.go:600-610, 832-867 recorders).
+    # Pod names follow <job>-<task>-<idx> — match exactly that shape per
+    # task spec (a bare "<job>-" prefix would also swallow events of a
+    # sibling job named "<job>-something").
+    import re
+
+    jn = re.escape(job.metadata.name)
+    patterns = [
+        re.compile(rf"^{jn}-{re.escape(t.name)}-\d+$") for t in job.spec.tasks
+    ]
+    def _belongs(name: str) -> bool:
+        return name == job.metadata.name or any(p.match(name) for p in patterns)
+
+    events = _collect_events(vc, args.namespace, _belongs)
+    if events:
+        _print_events(events, out)
+    return 0
+
+
+def _job_suspend(vc: VolcanoClient, args, out) -> int:
+    _issue_command(vc, args.namespace, args.name, batch.ABORT_JOB_ACTION)
+    print(f"suspend job {args.name} successfully", file=out)
+    return 0
+
+
+def _job_resume(vc: VolcanoClient, args, out) -> int:
+    _issue_command(vc, args.namespace, args.name, batch.RESUME_JOB_ACTION)
+    print(f"resume job {args.name} successfully", file=out)
+    return 0
+
+
+def _job_delete(vc: VolcanoClient, args, out) -> int:
+    vc.delete_job(args.namespace, args.name)
+    print(f"delete job {args.name} successfully", file=out)
+    return 0
+
+
+# ---- queue subcommands ----
+
+def _queue_create(vc: VolcanoClient, args, out) -> int:
+    vc.create_queue(
+        scheduling.Queue(
+            metadata=core.ObjectMeta(name=args.name, namespace=""),
+            spec=scheduling.QueueSpec(weight=args.weight),
+        )
+    )
+    print(f"create queue {args.name} successfully", file=out)
+    return 0
+
+
+def _queue_get(vc: VolcanoClient, args, out) -> int:
+    queue = vc.get_queue(args.name)
+    if queue is None:
+        print(f"queue {args.name} not found", file=out)
+        return 1
+    print(f"{'Name':<25}{'Weight':<8}{'State':<10}{'Inqueue':<9}{'Pending':<9}{'Running':<9}", file=out)
+    s = queue.status
+    print(
+        f"{queue.metadata.name:<25}{queue.spec.weight:<8}{s.state or queue.spec.state:<10}"
+        f"{s.inqueue:<9}{s.pending:<9}{s.running:<9}",
+        file=out,
+    )
+    return 0
+
+
+def _queue_list(vc: VolcanoClient, args, out) -> int:
+    print(f"{'Name':<25}{'Weight':<8}{'State':<10}{'Inqueue':<9}{'Pending':<9}{'Running':<9}", file=out)
+    for queue in vc.list_queues():
+        s = queue.status
+        print(
+            f"{queue.metadata.name:<25}{queue.spec.weight:<8}{s.state or queue.spec.state:<10}"
+            f"{s.inqueue:<9}{s.pending:<9}{s.running:<9}",
+            file=out,
+        )
+    return 0
+
+
+def _queue_operate(vc: VolcanoClient, args, out) -> int:
+    """pkg/cli/queue/operate.go — open/close via Command CR, update weight
+    directly."""
+    if args.action in ("open", "close"):
+        action = "OpenQueue" if args.action == "open" else "CloseQueue"
+        vc.create_command(
+            bus.Command(
+                metadata=core.ObjectMeta(
+                    name=f"{args.name}-{args.action}-{int(time.time() * 1000)}", namespace=""
+                ),
+                action=action,
+                target_object=core.OwnerReference(kind="Queue", name=args.name),
+            )
+        )
+    elif args.action == "update":
+        if args.weight is None:
+            print("update action requires --weight", file=out)
+            return 1
+        queue = vc.get_queue(args.name)
+        if queue is None:
+            print(f"queue {args.name} not found", file=out)
+            return 1
+        queue.spec.weight = args.weight
+        vc.update_queue(queue)
+    else:
+        print(f"invalid action {args.action}", file=out)
+        return 1
+    print(f"operate queue {args.name} successfully", file=out)
+    return 0
+
+
+def _queue_delete(vc: VolcanoClient, args, out) -> int:
+    vc.delete_queue(args.name)
+    print(f"delete queue {args.name} successfully", file=out)
+    return 0
+
+
+# ---- describe subcommands (the "why is my job pending" surface) ----
+
+def _collect_events(vc: VolcanoClient, namespace: str, belongs) -> list:
+    return sorted(
+        (
+            e
+            for e in vc.api.list("Event", namespace)
+            if belongs(e.involved_object.get("name", ""))
+        ),
+        key=lambda e: e.metadata.resource_version,
+    )
+
+
+def _print_events(events, out) -> None:
+    if not events:
+        print("Events:             <none>", file=out)
+        return
+    print("Events:", file=out)
+    print(
+        f"  {'Type':<8} {'Count':<6} {'Reason':<18} {'Object':<32} Message",
+        file=out,
+    )
+    for e in events:
+        obj = f"{e.involved_object.get('kind', '')}/{e.involved_object.get('name', '')}"
+        print(
+            f"  {e.type:<8} {e.count:<6} {e.reason:<18} {obj:<32} {e.message}",
+            file=out,
+        )
+
+
+def _describe_scheduling(vc: VolcanoClient, namespace: str, name: str,
+                         pg, belongs, out) -> None:
+    """The shared body of ``describe job`` / ``describe podgroup``:
+    PodGroup conditions, the unschedulable-reason histogram aggregated
+    out of recorded Warning/Unschedulable Events, and the raw Events
+    table.  An aggregated Event's message is the LATEST occurrence's
+    detail (the correlator refreshes it), so each event contributes its
+    current per-reason node counts once — NOT multiplied by the
+    historical repeat count, which would inflate the current cause by
+    however long the task was stuck on a previous one.  Reads only the
+    API surface, so it renders identically over the in-process backend
+    and ``--bus``."""
+    from volcano_tpu_torch.api.unschedule_info import parse_fit_errors
+
+    if pg is not None:
+        s = pg.status
+        print(f"Phase:              {s.phase}", file=out)
+        print(f"Min Member:         {pg.spec.min_member}", file=out)
+        print(f"Queue:              {pg.spec.queue}", file=out)
+        if s.conditions:
+            print("Conditions:", file=out)
+            print(f"  {'Type':<16} {'Status':<8} {'Reason':<22} Message", file=out)
+            for c in s.conditions:
+                print(
+                    f"  {c.type:<16} {c.status:<8} {c.reason:<22} {c.message}",
+                    file=out,
+                )
+        else:
+            print("Conditions:         <none>", file=out)
+    else:
+        print("PodGroup:           <none>", file=out)
+
+    events = _collect_events(vc, namespace, belongs)
+    histogram: Dict[str, int] = {}
+    for e in events:
+        if e.type != "Warning" or e.reason != "Unschedulable":
+            continue
+        parsed = parse_fit_errors(e.message)
+        if parsed is None:
+            continue
+        for reason, count in parsed[1].items():
+            histogram[reason] = histogram.get(reason, 0) + count
+    if histogram:
+        print("Unschedulable Reasons:", file=out)
+        print(f"  {'Nodes':<7} Reason", file=out)
+        for reason, count in sorted(histogram.items(), key=lambda kv: -kv[1]):
+            print(f"  {count:<7} {reason}", file=out)
+    _print_events(events, out)
+
+
+def _describe_job(vc: VolcanoClient, args, out) -> int:
+    job = vc.get_job(args.namespace, args.name)
+    if job is None:
+        print(f"job {args.namespace}/{args.name} not found", file=out)
+        return 1
+    print(f"Name:               {job.metadata.name}", file=out)
+    print(f"Namespace:          {job.metadata.namespace}", file=out)
+    print(f"Scheduler:          {job.spec.scheduler_name}", file=out)
+    s = job.status
+    print(
+        f"Status:             pending={s.pending} running={s.running} "
+        f"succeeded={s.succeeded} failed={s.failed}",
+        file=out,
+    )
+
+    # pod names follow <job>-<task>-<idx> (the _job_view matcher)
+    import re
+
+    jn = re.escape(job.metadata.name)
+    patterns = [
+        re.compile(rf"^{jn}-{re.escape(t.name)}-\d+$") for t in job.spec.tasks
+    ]
+
+    def belongs(name: str) -> bool:
+        return name == job.metadata.name or any(p.match(name) for p in patterns)
+
+    # the job controller names the PodGroup after the job (actions.go:423)
+    pg = vc.get_pod_group(args.namespace, args.name)
+    _describe_scheduling(vc, args.namespace, args.name, pg, belongs, out)
+    return 0
+
+
+def _describe_podgroup(vc: VolcanoClient, args, out) -> int:
+    pg = vc.get_pod_group(args.namespace, args.name)
+    if pg is None:
+        # the group may live on the bus as a raw v1alpha1 kind
+        from volcano_tpu_torch.apis import scheme as _scheme
+
+        raw = vc.api.get("PodGroupV1alpha1", args.namespace, args.name)
+        if raw is not None:
+            pg = _scheme.pod_group_v1alpha1_to_hub(raw)
+    if pg is None:
+        print(f"podgroup {args.namespace}/{args.name} not found", file=out)
+        return 1
+    print(f"Name:               {pg.metadata.name}", file=out)
+    print(f"Namespace:          {pg.metadata.namespace}", file=out)
+
+    prefix = f"{pg.metadata.name}-"
+
+    def belongs(name: str) -> bool:
+        return name == pg.metadata.name or name.startswith(prefix)
+
+    _describe_scheduling(vc, args.namespace, args.name, pg, belongs, out)
+    return 0
 
 
 # ---- the cycle journal (cmd/trace.py's commands) ----
@@ -409,6 +781,53 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = parser.add_subparsers(dest="group", required=True)
 
+    job = sub.add_parser("job").add_subparsers(dest="cmd", required=True)
+
+    run = job.add_parser("run")
+    run.add_argument("--name", "-N", default="")
+    run.add_argument("--namespace", "-n", default="default")
+    run.add_argument("--image", "-i", default="busybox")
+    run.add_argument("--replicas", "-r", type=int, default=1)
+    run.add_argument("--min", dest="min_available", type=int, default=1)
+    run.add_argument("--requests", "-R", default="cpu=1000m,memory=100Mi")
+    run.add_argument("--limits", "-L", default="cpu=1000m,memory=100Mi")
+    run.add_argument("--scheduler", "-S", default="volcano-tpu")
+    run.add_argument("--queue", "-q", default="default")
+    run.add_argument("--taskname", default="task")
+    run.add_argument("--filename", "-f", default="")
+
+    for name in ("list",):
+        p = job.add_parser(name)
+        p.add_argument("--namespace", "-n", default="")
+
+    for name in ("view", "suspend", "resume", "delete"):
+        p = job.add_parser(name)
+        p.add_argument("--name", "-N", required=True)
+        p.add_argument("--namespace", "-n", default="default")
+
+    queue = sub.add_parser("queue").add_subparsers(dest="cmd", required=True)
+    qc = queue.add_parser("create")
+    qc.add_argument("--name", "-N", required=True)
+    qc.add_argument("--weight", "-w", type=int, default=1)
+    qg = queue.add_parser("get")
+    qg.add_argument("--name", "-N", required=True)
+    queue.add_parser("list")
+    qo = queue.add_parser("operate")
+    qo.add_argument("--name", "-N", required=True)
+    qo.add_argument("--action", "-a", required=True, choices=["open", "close", "update"])
+    qo.add_argument("--weight", "-w", type=int, default=None)
+    qd = queue.add_parser("delete")
+    qd.add_argument("--name", "-N", required=True)
+
+    desc = sub.add_parser(
+        "describe",
+        description="conditions + events + unschedulable-reason histogram",
+    ).add_subparsers(dest="cmd", required=True)
+    for name in ("job", "podgroup"):
+        p = desc.add_parser(name)
+        p.add_argument("--name", "-N", required=True)
+        p.add_argument("--namespace", "-n", default="default")
+
     trace_p = sub.add_parser(
         "trace", description="cycle journal: record, replay, diff, export; "
         "flight recorder: pod, gang"
@@ -508,6 +927,19 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 _HANDLERS = {
+    ("job", "run"): _job_run,
+    ("job", "list"): _job_list,
+    ("job", "view"): _job_view,
+    ("job", "suspend"): _job_suspend,
+    ("job", "resume"): _job_resume,
+    ("job", "delete"): _job_delete,
+    ("queue", "create"): _queue_create,
+    ("queue", "get"): _queue_get,
+    ("queue", "list"): _queue_list,
+    ("queue", "operate"): _queue_operate,
+    ("queue", "delete"): _queue_delete,
+    ("describe", "job"): _describe_job,
+    ("describe", "podgroup"): _describe_podgroup,
     ("top", None): _top,
     **{("trace", name): _journal for name in trace_cmd.COMMANDS},
     ("trace", "pod"): _trace_pod,

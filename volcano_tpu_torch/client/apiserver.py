@@ -14,9 +14,10 @@ server relays it): this volatile store is standalone and not
 persistent, and names its daemon's /metrics address once the daemon has
 set ``metrics_address``.
 
-Not present in the port yet: admission hooks (``register_admission``;
-with none registered the reference's ``create`` and ``update`` behave as
-these do) and the federation primitives ``cas_bind`` and ``txn_commit``.
+Admission hooks (``register_admission``) run in ``create`` and
+``update``, under the store lock, inside an ``admission:review`` span
+when the flight recorder is on.  Not present in the port yet: the
+federation primitives ``cas_bind`` and ``txn_commit``.
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ MODIFIED = "MODIFIED"
 DELETED = "DELETED"
 
 WatchHandler = Callable[[str, Optional[object], Optional[object]], None]
+# AdmissionHook(operation, obj) -> obj (mutating) or raises AdmissionError.
+AdmissionHook = Callable[[str, object], object]
 
 
 class ApiError(Exception):
@@ -60,6 +63,7 @@ class APIServer:
         self._lock = threading.RLock()
         self._store: Dict[str, Dict[str, object]] = {}  # guarded-by: self._lock
         self._watchers: Dict[str, List[WatchHandler]] = {}  # guarded-by: self._lock
+        self._admission: Dict[Tuple[str, str], List[AdmissionHook]] = {}  # guarded-by: self._lock
         self._rv = 0  # guarded-by: self._lock
         #: reverse owner index for cascade deletion (the k8s garbage
         #: collector the reference relies on for Job → Pod/PodGroup/
@@ -96,6 +100,40 @@ class APIServer:
         # requires-lock: self._lock
         for handler in self._watchers.get(kind, []):
             handler(event, old, new)
+
+    def _run_admission(self, kind: str, operation: str, obj):
+        # requires-lock: self._lock
+        hooks = self._admission.get((kind, operation), [])
+        if not hooks:
+            return obj
+        from volcano_tpu_torch import obs
+
+        if not obs.enabled():
+            # recorder off: no trace-id hash / args dict built while
+            # holding the store lock (the zero-cost-off budget)
+            for hook in hooks:
+                obj = hook(operation, obj) or obj
+            return obj
+        meta = getattr(obj, "metadata", None)
+        with obs.span(
+            "admission:review", cat="admission",
+            trace_id=obs.trace_id_for(meta.namespace or "", meta.name or "")
+            if meta is not None else None,
+            args={"kind": kind, "operation": operation},
+        ):
+            for hook in hooks:
+                obj = hook(operation, obj) or obj
+        return obj
+
+    # ---- admission registration (the webhook configuration) ----
+
+    def register_admission(self, kind: str, operation: str, hook: AdmissionHook) -> None:
+        """operation ∈ {CREATE, UPDATE}; hooks run in registration order,
+        mutating first then validating by convention."""
+        with self._lock:
+            # registration races request-threads running the admission
+            # chain (the bus server registers webhooks while serving)
+            self._admission.setdefault((kind, operation), []).append(hook)
 
     # ---- watch (the informer feed) ----
 
@@ -156,6 +194,7 @@ class APIServer:
     def create(self, obj):
         with self._lock:
             kind = obj.kind
+            obj = self._run_admission(kind, "CREATE", obj)
             bucket = self._store.setdefault(kind, {})
             key = self._key(obj)
             if key in bucket:
@@ -171,9 +210,11 @@ class APIServer:
         """Update; with ``expected_rv`` set, an optimistic-concurrency
         CAS: succeeds only if the stored resourceVersion still equals it
         (the k8s semantics the reference's ConfigMap leader lock relies
-        on, cmd/scheduler/app/server.go:110-156)."""
+        on, cmd/scheduler/app/server.go:110-156).  Admission UPDATE hooks
+        run either way, as they do for real k8s CAS updates."""
         with self._lock:
             kind = obj.kind
+            obj = self._run_admission(kind, "UPDATE", obj)
             bucket = self._store.setdefault(kind, {})
             key = self._key(obj)
             old = bucket.get(key)
@@ -200,7 +241,7 @@ class APIServer:
         return self.update(obj, expected_rv=expected_rv)
 
     def update_status(self, obj):
-        """Status subresource write — same store."""
+        """Status subresource write — same store, no admission."""
         with self._lock:
             kind = obj.kind
             bucket = self._store.setdefault(kind, {})
@@ -270,7 +311,9 @@ class APIServer:
         each section to a list of ``None`` (success) or an error string
         aligned with the input order, so the caller can route failed
         binds/evicts to the resync path exactly like the per-object
-        effects do.
+        effects do.  Like ``update_status``, the binding/status writes
+        skip admission (status subresources); event creates run the
+        in-process admission chain via the normal ``create`` path.
 
         The per-item application lives in :func:`apply_commit_batch`,
         which works against any APIServer surface."""

@@ -1,13 +1,11 @@
 """Typed clients over the in-process API server.
 
-A copy of ``volcano_tpu/client/clients.py`` with the kinds the scheduler
-its store path and its leader elector read or write: pods, nodes,
-ConfigMaps, PVCs, priority classes and Events (``KubeClient``),
-PodGroups and Queues with their v1alpha1 creates (``VolcanoClient``),
-the whole ``SchedulerClient`` and the Event correlator
-``record_event_via``.  Not present in the port yet: the methods for
-Jobs, Commands, Services, Secrets and NetworkPolicies, which wait for
-their callers (the controllers).
+A copy of ``volcano_tpu/client/clients.py``: the core group
+(``KubeClient``: pods, nodes, services, config maps, secrets, PVCs,
+network policies, priority classes, Events), the CRD group
+(``VolcanoClient``: Jobs, PodGroups with their v1alpha1 creates,
+Queues, Commands), the whole ``SchedulerClient`` and the Event
+correlator ``record_event_via``.
 
 Reference: the generated clientsets (pkg/client) — here thin typed
 facades, since serde/codegen is unnecessary for in-process dataclasses.
@@ -19,13 +17,12 @@ from __future__ import annotations
 
 from typing import List, Optional
 
-from volcano_tpu_torch.apis import core, scheduling, scheme
+from volcano_tpu_torch.apis import batch, bus, core, scheduling, scheme
 from volcano_tpu_torch.client.apiserver import ADDED, APIServer, DELETED, MODIFIED, NotFoundError
 
 
 class KubeClient:
-    """Core-group operations (pods/nodes/config maps/pvcs/priority classes/
-    events)."""
+    """Core-group operations (pods/nodes/services/configmaps/secrets/pvcs)."""
 
     def __init__(self, api: APIServer):
         self.api = api
@@ -78,6 +75,13 @@ class KubeClient:
     def list_nodes(self) -> List[core.Node]:
         return self.api.list("Node")
 
+    # namespaced simple kinds
+    def create_service(self, svc: core.Service) -> core.Service:
+        return self.api.create(svc)
+
+    def get_service(self, namespace: str, name: str) -> Optional[core.Service]:
+        return self.api.get("Service", namespace, name)
+
     def create_config_map(self, cm: core.ConfigMap) -> core.ConfigMap:
         return self.api.create(cm)
 
@@ -86,6 +90,18 @@ class KubeClient:
 
     def update_config_map(self, cm: core.ConfigMap) -> core.ConfigMap:
         return self.api.update(cm)
+
+    def create_secret(self, secret: core.Secret) -> core.Secret:
+        return self.api.create(secret)
+
+    def get_secret(self, namespace: str, name: str) -> Optional[core.Secret]:
+        return self.api.get("Secret", namespace, name)
+
+    def delete_secret(self, namespace: str, name: str) -> None:
+        self.api.delete("Secret", namespace, name)
+
+    def create_network_policy(self, np: core.NetworkPolicy) -> core.NetworkPolicy:
+        return self.api.create(np)
 
     def create_pvc(self, pvc: core.PersistentVolumeClaim) -> core.PersistentVolumeClaim:
         return self.api.create(pvc)
@@ -110,10 +126,29 @@ class KubeClient:
 
 
 class VolcanoClient:
-    """CRD-group operations (podgroups/queues)."""
+    """CRD-group operations (jobs/podgroups/queues/commands)."""
 
     def __init__(self, api: APIServer):
         self.api = api
+
+    # jobs
+    def create_job(self, job: batch.Job) -> batch.Job:
+        return self.api.create(job)
+
+    def get_job(self, namespace: str, name: str) -> Optional[batch.Job]:
+        return self.api.get("Job", namespace, name)
+
+    def list_jobs(self, namespace: Optional[str] = None) -> List[batch.Job]:
+        return self.api.list("Job", namespace)
+
+    def update_job(self, job: batch.Job) -> batch.Job:
+        return self.api.update(job)
+
+    def update_job_status(self, job: batch.Job) -> batch.Job:
+        return self.api.update_status(job)
+
+    def delete_job(self, namespace: str, name: str) -> None:
+        self.api.delete("Job", namespace, name)
 
     # podgroups
     def create_pod_group(self, pg: scheduling.PodGroup) -> scheduling.PodGroup:
@@ -166,6 +201,16 @@ class VolcanoClient:
 
     def delete_queue(self, name: str) -> None:
         self.api.delete("Queue", "", name)
+
+    # commands
+    def create_command(self, cmd: bus.Command) -> bus.Command:
+        return self.api.create(cmd)
+
+    def delete_command(self, namespace: str, name: str) -> None:
+        self.api.delete("Command", namespace, name)
+
+    def list_commands(self, namespace: Optional[str] = None) -> List[bus.Command]:
+        return self.api.list("Command", namespace)
 
 
 class SchedulerClient:

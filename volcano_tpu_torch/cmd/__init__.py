@@ -1,26 +1,29 @@
 """Entry points of the port: the scheduler daemon
 (``python -m volcano_tpu_torch.cmd.scheduler``), the API-server daemon
-(``python -m volcano_tpu_torch.cmd.apiserver``), the compute-plane
-sidecar (``python -m volcano_tpu_torch.cmd.compute_plane``) and the
-cycle journal tool (``python -m volcano_tpu_torch.cmd.trace``).  The
-controllers and admission daemons of ``volcano_tpu/cmd`` are not
-present in the port.
+(``python -m volcano_tpu_torch.cmd.apiserver``), the controller manager
+(``python -m volcano_tpu_torch.cmd.controllers``), the admission
+webhooks (``python -m volcano_tpu_torch.cmd.admission``), the whole
+control plane (``python -m volcano_tpu_torch.cmd.local_up``), the
+compute-plane sidecar (``python -m volcano_tpu_torch.cmd.compute_plane``)
+and the cycle journal tool (``python -m volcano_tpu_torch.cmd.trace``).
 
-``SchedulerDaemon`` and ``ApiServerDaemon`` are exported lazily, so
-that the sidecar and the journal tool start without the scheduler's
-modules.
+The daemon classes are exported lazily, so that the sidecar and the
+journal tool start without the scheduler's modules.
 """
 
-__all__ = ["ApiServerDaemon", "SchedulerDaemon"]
+import importlib
+
+_DAEMONS = {
+    "AdmissionDaemon": "volcano_tpu_torch.cmd.admission",
+    "ApiServerDaemon": "volcano_tpu_torch.cmd.apiserver",
+    "ControllersDaemon": "volcano_tpu_torch.cmd.controllers",
+    "SchedulerDaemon": "volcano_tpu_torch.cmd.scheduler",
+}
+
+__all__ = sorted(_DAEMONS)
 
 
 def __getattr__(name):
-    if name == "SchedulerDaemon":
-        from volcano_tpu_torch.cmd.scheduler import SchedulerDaemon
-
-        return SchedulerDaemon
-    if name == "ApiServerDaemon":
-        from volcano_tpu_torch.cmd.apiserver import ApiServerDaemon
-
-        return ApiServerDaemon
+    if name in _DAEMONS:
+        return getattr(importlib.import_module(_DAEMONS[name]), name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
