@@ -51,7 +51,10 @@ Phases, each of which fails the run:
      9-lane session at 10k x 1k on the wide
      instance, equal to the torch spec; ``run_packed_blocked`` (torch
      ops, on no dispatch path) at 50k x 10k and on the wide cell, equal
-     to the kernel;
+     to the kernel; ``run_packed_sharded`` (torch ops, reached by name)
+     over 4 shards at 50k x 10k and 8 at 10k x 1k, every shard on
+     cuda:0, and on a small cell whose blocks stop (the cross-shard
+     full-width step), each equal to the kernel;
   6. the cycle — the port's scheduling cycle, a scheduler's entry
      point: cluster objects (``generate_cluster_objects``) fed to a fresh
      ``SchedulerCache``, ``open_session`` with the headline tiers,
@@ -184,8 +187,8 @@ Phases, each of which fails the run:
      without a launch, the same for preempt-cuda; nothing runs in the
      kernel's place; then the plane and the breakers are reset and a
      clean session runs on the kernel again.
-Then one JSON line with the blocked formulation's times (torch ops, not
-a kernel), one JSON line listing each kernel with its launches, its match with
+Then one JSON line each with the blocked and the sharded formulations'
+times (torch ops, not kernels), one JSON line listing each kernel with its launches, its match with
 the plain version, its time, the plain version's time, its bound by
 bytes and operations and its latency floor (the serial chain, timed link
 by link by the step probe), and as the last line the device record.
@@ -1598,30 +1601,6 @@ def phase_dgx_cell(card: str, f32_cell_ms: float, specs: SpecPool) -> dict:
                 int_bound_by=bound_by, session_ms=med_ms, session_max_ms=max(lat) * 1e3)
 
 
-def blocked_pass_ms(snap) -> tuple:
-    """(ms, stats) of one blocked pass over every task of ``snap`` on the
-    card, host clock to a synchronize, the planes already there."""
-    import torch
-
-    from volcano_tpu_torch.ops.blocked import (
-        _PASS_ARRAYS,
-        prepare_blocked_arrays,
-        schedule_pass_blocked,
-    )
-    from volcano_tpu_torch.ops.kernels import as_tensor
-
-    arrays, T_blk = prepare_blocked_arrays(snap)
-    planes = [as_tensor(arrays[k], "cuda") for k in _PASS_ARRAYS]
-    active = torch.zeros(T_blk, dtype=torch.bool, device="cuda")
-    active[: snap.n_tasks] = True
-    stats = {}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    schedule_pass_blocked(*planes, active, top_k=BLOCKED_TOP_K, stats=stats)
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3, stats
-
-
 def phase_wide_cell(card: str, specs: SpecPool) -> dict:
     """The wide cell through execute_allocate: the session kernel's wide
     instance, equal to the torch spec on the card and to its plain version
@@ -1724,28 +1703,79 @@ def phase_lanes_session(card: str, specs: SpecPool) -> None:
 
 def phase_blocked_vs_kernel(card: str, main_rec: dict) -> dict:
     """run_packed_blocked at the main config on the card: its bindings
-    equal the kernel's, its session and pass times beside the kernel's."""
+    equal the kernel's, its session time beside the kernel's (one
+    session, a single pass: its second session and a separate timing of
+    the pass gave their time to the sharded phase)."""
     from volcano_tpu_torch.ops.blocked import run_packed_blocked
     from volcano_tpu_torch.ops.synthetic import BASELINE_CONFIGS, generate_snapshot
 
     snap = generate_snapshot(**BASELINE_CONFIGS[MAIN_CONFIG])
+    stats = {}
     t0 = time.perf_counter()
-    out = run_packed_blocked(snap, top_k=BLOCKED_TOP_K)
-    first_ms = (time.perf_counter() - t0) * 1e3
+    out = run_packed_blocked(snap, top_k=BLOCKED_TOP_K, stats=stats)
+    session_ms = (time.perf_counter() - t0) * 1e3
     check(np.array_equal(out, main_rec["assignment"]),
           f"{MAIN_CONFIG}: run_packed_blocked != the kernel's execute_allocate")
-    t0 = time.perf_counter()
-    run_packed_blocked(snap, top_k=BLOCKED_TOP_K)
-    again_ms = (time.perf_counter() - t0) * 1e3
-    graph_ms, graph_stats = blocked_pass_ms(snap)
     print(f"{MAIN_CONFIG}: run_packed_blocked == the kernel's bindings; session "
-          f"{first_ms:.3f} ms, again {again_ms:.3f} ms (kernel session "
-          f"{main_rec['session_ms']:.3f} ms, pass {main_rec['ms']:.3f} ms); one blocked pass "
-          f"{graph_ms:.3f} ms from CUDA graphs; blocks {graph_stats['blocks']}, stops "
-          f"{graph_stats['stops']}; card {card}")
-    return dict(main_session_ms=again_ms, main_first_session_ms=first_ms,
-                main_pass_ms=graph_ms, main_blocks=graph_stats["blocks"],
-                main_stops=graph_stats["stops"])
+          f"{session_ms:.3f} ms (kernel session {main_rec['session_ms']:.3f} ms, pass "
+          f"{main_rec['ms']:.3f} ms); passes {stats['passes']}, blocks {stats['blocks']}, "
+          f"stops {stats['stops']}; card {card}")
+    return dict(main_session_ms=session_ms, main_passes=stats["passes"],
+                main_blocks=stats["blocks"], main_stops=stats["stops"])
+
+
+#: the sharded phase's cells: (config, shards), every shard on cuda:0 (the
+#: card machine has one GPU); each shard tracks BLOCKED_TOP_K candidates
+SHARDED_CELLS = ((MAIN_CONFIG, 4), (SECOND_CONFIG, 8))
+#: a small cell whose blocks stop, so the cross-shard full-width step runs:
+#: 4 shards of 16 nodes, uniform nodes (ties across shards), 4 candidates
+SHARDED_STOPS = dict(snap=dict(n_tasks=300, n_nodes=50, gang_size=4, seed=0), shards=4,
+                     block_size=16, top_k=4)
+
+
+def phase_sharded_vs_kernel(card: str, recs: Optional[dict] = None) -> dict:
+    """run_packed_sharded on cuda:0 (torch ops, no kernel of its own): its
+    bindings equal the session kernel's at the main config over 4 shards,
+    at the second over 8, and on a small cell whose blocks stop.  ``recs``
+    holds the main path's records by config; without them the kernel's
+    bindings are computed here."""
+    from volcano_tpu_torch.ops.executor import execute_allocate
+    from volcano_tpu_torch.ops.sharded import run_packed_sharded
+    from volcano_tpu_torch.ops.synthetic import BASELINE_CONFIGS, generate_snapshot
+
+    def session(snap, shards, **kwargs):
+        stats = {}
+        t0 = time.perf_counter()
+        out = run_packed_sharded(snap, devices=["cuda:0"] * shards, stats=stats, **kwargs)
+        return out, (time.perf_counter() - t0) * 1e3, stats
+
+    record = {}
+    for name, shards in SHARDED_CELLS:
+        snap = generate_snapshot(**BASELINE_CONFIGS[name])
+        want = recs[name]["assignment"] if recs else execute_allocate(snap)
+        got, ms, stats = session(snap, shards, top_k=BLOCKED_TOP_K)
+        check(np.array_equal(got, want),
+              f"{name}: run_packed_sharded over {shards} shards != the kernel's bindings")
+        print(f"{name}: run_packed_sharded over {shards} shards on cuda:0 == the kernel's "
+              f"bindings; session {ms:.3f} ms; passes {stats['passes']}, blocks "
+              f"{stats['blocks']}, stops {stats['stops']}; gathered "
+              f"{stats['gather_bytes_per_block']} bytes a block; card {card}")
+        record[name] = dict(shards=shards, session_ms=ms, passes=stats["passes"],
+                            blocks=stats["blocks"], stops=stats["stops"],
+                            gather_bytes_per_block=stats["gather_bytes_per_block"])
+    cell = SHARDED_STOPS
+    snap = generate_snapshot(**cell["snap"])
+    want = execute_allocate(snap)
+    got, ms, stats = session(snap, cell["shards"], block_size=cell["block_size"],
+                             top_k=cell["top_k"])
+    check(np.array_equal(got, want), "the stops cell: run_packed_sharded != the kernel's bindings")
+    check(stats["stops"] > 0, f"the stops cell stopped no block ({stats})")
+    print(f"stops cell: run_packed_sharded over {cell['shards']} shards == the kernel's bindings; "
+          f"blocks {stats['blocks']}, stops {stats['stops']} (each a cross-shard full-width "
+          f"step); session {ms:.3f} ms; card {card}")
+    record["stops_cell"] = dict(shards=cell["shards"], session_ms=ms, blocks=stats["blocks"],
+                                stops=stats["stops"])
+    return record
 
 
 class ListBinder:
@@ -6320,12 +6350,14 @@ def run_phases(specs: SpecPool) -> int:
     timed(phase_int_kernel_vs_plain)
     timed(phase_wide_kernel_vs_plain)
     main_rec = timed(phase_main_path, MAIN_CONFIG, card, compare_plain=True, specs=specs)
-    timed(phase_main_path, SECOND_CONFIG, card, compare_plain=False, specs=specs)
+    second_rec = timed(phase_main_path, SECOND_CONFIG, card, compare_plain=False, specs=specs)
     pre_rec = timed(phase_preempt_main_path, card)
     dgx_rec = timed(phase_dgx_cell, card, main_rec["ms"], specs)
     wide_rec = timed(phase_wide_cell, card, specs)
     timed(phase_lanes_session, card, specs)
     blocked_rec = timed(phase_blocked_vs_kernel, card, main_rec)
+    sharded_rec = timed(phase_sharded_vs_kernel, card,
+                        {MAIN_CONFIG: main_rec, SECOND_CONFIG: second_rec})
     cycle_rec = timed(phase_cycle, MAIN_CONFIG, card)
     timed(phase_cycle, SECOND_CONFIG, card)
     preempt_cycle_rec = timed(phase_preempt_cycle, PREEMPT_CYCLE_MAIN, card)
@@ -6436,13 +6468,16 @@ def run_phases(specs: SpecPool) -> int:
             "library_ms": None,
         },
     ]
-    # the blocked formulation is torch ops, not a kernel: its times on a
-    # line of their own
+    # the blocked and sharded formulations are torch ops, not kernels:
+    # their times on lines of their own
     print(json.dumps({"blocked": dict(
         route="torch ops", source="volcano_tpu_torch/ops/blocked.py",
         replaces="volcano_tpu/ops/blocked.py:168", top_k=BLOCKED_TOP_K,
         wide_session_ms=wide_rec["blocked_session_ms"], wide_blocks=wide_rec["blocked_blocks"],
         wide_stops=wide_rec["blocked_stops"], **blocked_rec)}))
+    print(json.dumps({"sharded": dict(
+        route="torch ops", source="volcano_tpu_torch/ops/sharded.py",
+        replaces="volcano_tpu/ops/sharded.py:65", top_k=BLOCKED_TOP_K, **sharded_rec)}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -144,7 +144,8 @@ def test_tables_equal_where_the_port_keeps_an_entry():
     assert pp.OP_VERSIONS == {op: jp.OP_VERSIONS[op] for op in pp.OP_VERSIONS}
     assert set(pp.OP_VERSIONS) == {"create", "update", "update_status", "get", "list",
                                    "delete", "watch", "unwatch", "register_admission",
-                                   "commit_batch", "watch_batch", "bus_hello"}
+                                   "commit_batch", "watch_batch", "bus_status",
+                                   "bus_hello"}
     assert set(pp.ERRORS) == set(jp.ERRORS)
     assert pp.HAS_BINARY == jp.HAS_BINARY
 

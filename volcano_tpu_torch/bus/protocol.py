@@ -181,6 +181,7 @@ OP_VERSIONS: Dict[str, int] = {
     "register_admission": 1,
     "commit_batch": 2,
     "watch_batch": 3,
+    "bus_status": 5,
     "bus_hello": 8,
 }
 

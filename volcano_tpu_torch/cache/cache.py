@@ -1108,6 +1108,7 @@ class SchedulerCache(Cache):
         pod = task.pod
         ts = pod.metadata.creation_timestamp if pod is not None else 0
         if ts and ts > 1e9:  # epoch seconds, not an ordinal fixture stamp
+            # det: submit-to-bind latency from the pod's epoch stamp, a metric, not a decision
             metrics.observe_submit_to_bind(max(time.time() - ts, 0.0))
         if obs.enabled():
             args = {"pod": f"{task.namespace}/{task.name}"}

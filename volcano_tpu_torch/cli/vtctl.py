@@ -16,6 +16,9 @@ the port has:
   vtctl incidents list|show|collect|capture
                           the incident bundles the SLO watchdog (or an
                           operator) captures
+  vtctl faults validate   parse a fault schedule and print it normalized
+  vtctl lint              the port's static-analysis suite
+                          (``python -m volcano_tpu_torch.analysis``)
 
 Commands run against an API server: an empty in-process one by default
 (tests pass theirs to :func:`main`), or a ``vtpu-apiserver`` of the port
@@ -29,9 +32,9 @@ Usage: python -m volcano_tpu_torch.cli.vtctl [--bus URL] job run -N NAME
        python -m volcano_tpu_torch.cli.vtctl [--bus URL] trace pod -N NAME
 
 Not present in the port yet, each waiting for its caller: ``shards``
-(federation), ``bus status|add-replica|remove-replica``
-(WAL and replication), ``faults validate``, ``lint`` and ``explore``
-(``analysis/``).
+(federation), ``bus status|add-replica|remove-replica`` (WAL and
+replication) and ``explore`` (the interleaving explorer, whose machines
+drive replication, federation's leases and ``txn_commit``).
 """
 
 from __future__ import annotations
@@ -772,6 +775,30 @@ def _incidents_capture(vc: VolcanoClient, args, out) -> int:
     return 0
 
 
+def _faults_validate(vc: VolcanoClient, args, out) -> int:
+    """Parse a fault schedule and print it normalized — catches a
+    typo'd point name or malformed modifier before it reaches a daemon
+    flag (where it would be a startup error at deploy time)."""
+    from volcano_tpu_torch.faults import parse_faults
+
+    spec = parse_faults(args.spec)  # ValueError → main's error path
+    print(f"seed: {spec.seed}", file=out)
+    if not spec.rules:
+        print("no fault rules (plane would be a no-op)", file=out)
+    for rule in spec.rules.values():
+        mods = []
+        if rule.count is not None:
+            mods.append(f"at most {rule.count} firings")
+        if rule.after:
+            mods.append(f"after {rule.after} evaluations")
+        if rule.ms:
+            mods.append(f"{rule.ms:g} ms")
+        suffix = f" ({', '.join(mods)})" if mods else ""
+        print(f"  {rule.point}: p={rule.probability:g}{suffix}", file=out)
+    print(f"normalized: {spec.format()}", file=out)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="vtctl", description="volcano-tpu control CLI")
     parser.add_argument(
@@ -923,6 +950,27 @@ def build_parser() -> argparse.ArgumentParser:
                       help="seconds between boost and bundle write")
     icap.add_argument("--boost-ttl", type=float, default=30.0,
                       help="capture-boost TTL seconds")
+
+    faults_p = sub.add_parser(
+        "faults",
+        description="fault-injection schedules (volcano_tpu_torch.faults)",
+    ).add_subparsers(dest="cmd", required=True)
+    fv = faults_p.add_parser(
+        "validate",
+        description="parse a --faults/VTPU_FAULTS spec and print the "
+        "normalized schedule (rejects typos before a chaos run)",
+    )
+    fv.add_argument("--spec", "-s", required=True)
+
+    lint = sub.add_parser(
+        "lint",
+        description="run the port's project-invariant static-analysis "
+        "suite (volcano_tpu_torch.analysis: lock discipline, determinism, "
+        "VBUS serde drift, metric hygiene); extra arguments are "
+        "forwarded, e.g. `vtctl lint --pass lock --report out.json`",
+    )
+    lint.set_defaults(cmd=None)
+    lint.add_argument("lint_args", nargs=argparse.REMAINDER)
     return parser
 
 
@@ -944,6 +992,7 @@ _HANDLERS = {
     **{("trace", name): _journal for name in trace_cmd.COMMANDS},
     ("trace", "pod"): _trace_pod,
     ("trace", "gang"): _trace_gang,
+    ("faults", "validate"): _faults_validate,
     # the singular alias parses with group="incident"
     **{(group, cmd): handler
        for group in ("incidents", "incident")
@@ -955,6 +1004,26 @@ _HANDLERS = {
 
 def main(argv: Optional[List[str]] = None, api: Optional[APIServer] = None, out=None) -> int:
     out = out if out is not None else sys.stdout
+    raw = list(sys.argv[1:] if argv is None else argv)
+    # `lint` is intercepted before argparse: pure source analysis — no
+    # store, no bus — and its flags are forwarded verbatim (argparse
+    # REMAINDER refuses leading optionals).  The scan skips the root
+    # parser's own options so `vtctl --bus X lint …` routes here too
+    # (the bus is simply ignored; lint never touches a store).
+    i = 0
+    while i < len(raw):
+        tok = raw[i]
+        if tok == "--bus":
+            i += 2
+            continue
+        if tok.startswith("--bus="):
+            i += 1
+            continue
+        if tok == "lint":
+            from volcano_tpu_torch.analysis.__main__ import main as lint_main
+
+            return lint_main(raw[i + 1:], out=out)
+        break  # any other first positional/option: normal dispatch
     args = build_parser().parse_args(argv)
     remote = None
     if api is None and getattr(args, "bus", ""):

@@ -212,12 +212,15 @@ def set_identity(daemon: str, shard: str = "", replica_index: str = "",
     registry.set_identity(daemon=daemon, shard=shard, replica_index=replica_index, role=role)
     from volcano_tpu_torch import __version__
 
+    # label-vocab: version — the package __version__, one value per build
     registry.set_gauge(f"{_NAMESPACE}_build_info", {"version": __version__}, 1.0)
 
 
 def register_executor_failure(executor: str, cause: str) -> None:
     """One failed or refused call of ``executor``; cause ∈ {error,
     circuit-open, corrupt-output, deadline, diverged}."""
+    # label-vocab: executor — the executor names (ops/dispatch.py
+    # select_executor and the preempt routes), a static set
     registry.inc(f"{_NAMESPACE}_executor_failures_total",
                  {"executor": executor, "cause": cause})
 
@@ -226,17 +229,21 @@ def register_executor_fallback(from_: str, to: str, cause: str) -> None:
     """One session demoted from ``from_`` to ``to``: in the port only
     ``remote`` → ``local`` (a compute-plane session that failed ran on
     the in-process kernel); cause ∈ {error}."""
+    # label-vocab: from, to — the executor route names, a static set
     registry.inc(f"{_NAMESPACE}_executor_fallbacks_total",
                  {"from": from_, "to": to, "cause": cause})
 
 
 def update_circuit_breaker_state(executor: str, value: float) -> None:
     """0 = closed, 0.5 = half-open (probing), 1 = open (tripped)."""
+    # label-vocab: executor — the per-name breaker registry
+    # (faults/breaker.py), a static set of executor/seam names
     registry.set_gauge(f"{_NAMESPACE}_circuit_breaker_open", {"executor": executor}, value)
 
 
 def register_fault_injected(point: str) -> None:
     """One firing of the fault plane at ``point``."""
+    # label-vocab: point — the parsed fault schedule's point names
     registry.inc(f"{_NAMESPACE}_faults_injected_total", {"point": point})
 
 
@@ -434,6 +441,8 @@ _FRAME_BYTE_BUCKETS = [64, 256, 1024, 4096, 16384, 65536, 262144, 1048576, 41943
 
 def observe_bus_request(method: str, seconds: float, code: str) -> None:
     """One client call; code ∈ {ok, error, timeout, disconnected}."""
+    # label-vocab: method — the protocol.OP_VERSIONS op registry plus
+    # "ping", a static set
     registry.inc(f"{_NAMESPACE}_bus_requests_total", {"method": method, "code": code})
     registry.observe(f"{_NAMESPACE}_bus_request_latency_milliseconds", {"method": method},
                      seconds * 1e3)
@@ -445,10 +454,12 @@ def register_bus_reconnect() -> None:
 
 def register_bus_relist(kind: str) -> None:
     """A watch that could not resume and relisted (410 Gone)."""
+    # label-vocab: kind — the protocol.KINDS decode registry, a static set
     registry.inc(f"{_NAMESPACE}_bus_relists_total", {"kind": kind})
 
 
 def register_bus_watch_event(kind: str) -> None:
+    # label-vocab: kind — the protocol.KINDS decode registry, a static set
     registry.inc(f"{_NAMESPACE}_bus_watch_events_total", {"kind": kind})
 
 
@@ -460,6 +471,7 @@ def update_bus_watch_lag(seconds: float) -> None:
 
 def update_bus_codec_connections(codec: str, count: int) -> None:
     """Live server connections per negotiated body codec."""
+    # label-vocab: codec ∈ {json, binary}, a static set
     registry.set_gauge(f"{_NAMESPACE}_bus_codec", {"codec": codec}, count)
 
 
@@ -476,6 +488,7 @@ def register_bus_codec_fallback() -> None:
 
 def observe_bus_server_request(op: str, seconds: float, code: str) -> None:
     """One server-side request; code ∈ {ok, error}."""
+    # label-vocab: op — the protocol.OP_VERSIONS registry, a static set
     registry.inc(f"{_NAMESPACE}_bus_server_requests_total", {"op": op, "code": code})
     registry.observe(f"{_NAMESPACE}_bus_server_request_latency_milliseconds", {"op": op},
                      seconds * 1e3)
@@ -527,12 +540,16 @@ def update_slo_burn(slo: str, window: str, value: float) -> None:
     """volcano_slo_burn{slo,window}: the burn-rate watchdog's consumption
     ratio per declared SLO and window (>= 1.0 in both = breach).
     window ∈ {fast, slow}."""
+    # label-vocab: slo — the declared SLO names (obs/slo.py
+    # DEFAULT_SLOS, a static per-process set)
     registry.set_gauge(f"{_NAMESPACE}_slo_burn", {"slo": slo, "window": window}, value)
 
 
 def register_incident_captured(trigger: str) -> None:
     """volcano_incidents_captured_total{trigger}: incident bundles this
     daemon wrote; the trigger vocabulary is capped by bounded_label."""
+    # label-vocab: trigger — the declared SLO names plus {manual,
+    # watchdog}, routed through bounded_label
     registry.inc(
         f"{_NAMESPACE}_incidents_captured_total",
         {"trigger": bounded_label(f"{_NAMESPACE}_incidents_captured_total", "trigger",
@@ -560,11 +577,14 @@ def bounded_label(metric: str, label: str, value: str) -> str:
         if value in seen or len(seen) < _LABEL_CARDINALITY_CAP:
             seen.add(value)
             return value
+    # label-vocab: metric — the fixed set of bounded_label call sites
     registry.inc(f"{_NAMESPACE}_metric_label_overflow_total", {"metric": metric})
     return "other"
 
 
 def update_unschedule_task_count(job_name: str, count: int) -> None:
+    """gang.go's per-job unready gauge.  job ∈ the bounded_label-capped
+    vocabulary: past _LABEL_CARDINALITY_CAP job names, job="other"."""
     job_name = bounded_label("unschedule_task_count", "job", job_name)
     registry.set_gauge(f"{_NAMESPACE}_unschedule_task_count", {"job": job_name}, count)
 
@@ -574,6 +594,8 @@ def update_unschedule_job_count(count: int) -> None:
 
 
 def register_job_retries(job_name: str) -> None:
+    """job ∈ the bounded_label-capped vocabulary (see
+    update_unschedule_task_count)."""
     job_name = bounded_label("job_retry_counts", "job", job_name)
     registry.inc(f"{_NAMESPACE}_job_retry_counts", {"job": job_name})
 
@@ -608,7 +630,8 @@ def _well_known_reasons() -> frozenset:
 
 def register_unschedulable_reason(reason: str, tasks: int = 1) -> None:
     """Tasks left pending with ``reason`` in their fit-error histogram;
-    a reason outside the well-known vocabulary counts as "other"."""
+    reason ∈ _well_known_reasons() plus "other": a reason outside the
+    well-known vocabulary counts as "other"."""
     if reason not in _well_known_reasons():
         reason = "other"
     registry.inc(f"{_NAMESPACE}_unschedulable_task_reasons", {"reason": reason}, tasks)

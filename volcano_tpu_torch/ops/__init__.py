@@ -13,6 +13,10 @@
   blocked        the reference's blocked formulation as torch ops on a
                  device; on no dispatch path (the kernel takes every
                  session), held against the kernel and the JAX package
+  sharded        the reference's node-sharded blocked session as torch
+                 ops, one shard per entry of a device list in one
+                 process; reached by name (and as the ``sharded`` replay
+                 executor), held against the kernel and the JAX package
   dispatch       executor selection, validity gates, circuit breakers
                  and fault points
   executor       ``execute_allocate`` and ``execute_preempt``, the entry

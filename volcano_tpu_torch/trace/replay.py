@@ -17,13 +17,17 @@ only a label):
                      staged planes, so the session takes one full put.
   * ``torch-scan`` — the PyTorch specification (ops/kernels.run_packed).
   * ``blocked``    — the blocked formulation (ops/blocked.py).
+  * ``sharded``    — the node-sharded blocked formulation
+                     (ops/sharded.py): one shard on each visible GPU,
+                     or one shard on ``device`` where the caller names
+                     one.
   * ``native``     — the C++ host baseline (volcano_tpu_torch.native),
                      default weights only; a failed build raises.
   * ``auto``       — whatever ops/dispatch.select_executor picks for
                      ``device``.
 
-Every executor but ``native`` runs on ``device``: the card unless the
-caller names another.
+Every executor but ``native`` and ``sharded`` runs on ``device``: the
+card unless the caller names another.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-EXECUTORS = ("cuda", "torch-scan", "blocked", "native", "auto")
+EXECUTORS = ("cuda", "torch-scan", "blocked", "sharded", "native", "auto")
 
 
 @dataclass
@@ -94,6 +98,11 @@ def run_snapshot(snap, executor: str = "cuda", weights=None, gang_rounds: int = 
 
         return run_packed_blocked(snap, weights=weights, gang_rounds=gang_rounds,
                                   device=device)
+    if executor == "sharded":
+        from volcano_tpu_torch.ops.sharded import run_packed_sharded
+
+        return run_packed_sharded(snap, devices=None if device is None else [device],
+                                  weights=weights, gang_rounds=gang_rounds)
     if executor == "auto":
         from volcano_tpu_torch.ops.dispatch import run_packed_auto
 
