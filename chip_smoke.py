@@ -80,7 +80,7 @@ Phases, each of which fails the run:
      cell.  No kernel failure may be counted on any main path;
      then the scheduler loop (``phase_loop``): ``Scheduler.run_once``
      cycle after cycle on one cache with snapshot reuse, from a policy
-     file, for each of LOOP_CELLS — 4 cycles at 50k x 10k with every
+     file, for each of LOOP_CELLS — 3 cycles at 50k x 10k with every
      bound pod returned to Pending between cycles (``update_pod``, spec
      unchanged; every cycle the JAX package's cycle digest, every cycle
      after the first a warm pack reusing all 50,000 task rows), 5 at
@@ -135,7 +135,16 @@ Phases, each of which fails the run:
      line and /metrics (no cycle that raised, no commit or executor
      failure, the session kernel launched in its cycles past its
      warmup's), the children exiting 0 on SIGTERM, a ``{"bus": ...}``
-     line; then the Job path in process (``phase_jobs``, JOB_CELL): the
+     line; then the replicated store (``phase_ha``, HA_CELL): three
+     apiserver binaries, each on its own data directory, electing a
+     leader; the same cluster seeded through the group, one scheduler
+     child on the card binding it with STORE_DIGESTS' digest read from a
+     follower, the replicas' store digests equal; the leader replica
+     SIGKILLed and a survivor leading within the lease TTL plus a probe
+     round, the arrivals bound with ARRIVAL_DIGESTS' digest and no
+     relist; the killed replica recovered from its data directory and
+     rejoined as a follower at lag 0 (``vtctl bus status``), a
+     ``{"ha": ...}`` line; then the Job path in process (``phase_jobs``, JOB_CELL): the
      port's admission with the pod gate, ``ControllersDaemon`` (job,
      podgroup and queue controllers, the GC on an injected clock) and
      ``SchedulerDaemon`` (enqueue and gpu-allocate on the card), stepped
@@ -152,12 +161,13 @@ Phases, each of which fails the run:
      three run by ``vtctl --bus`` bound with its PodGroup Running and 3
      launches in the scheduler child, an invalid job refused by the
      admission child, ``vtctl`` reads, every child exiting 0 on SIGTERM,
-     a ``{"local_up": ...}`` line;
+     the children on the shm rings (the scheduler child's ring pair
+     mapped in the phase's directory), a ``{"local_up": ...}`` line;
   7. the sidecar (``phase_sidecar``) — the compute-plane sidecar as a
      child process (``python -m volcano_tpu_torch.cmd.compute_plane
      --socket PATH --warmup``, serving on the card; its pid holds memory
      in ``nvidia-smi``), this process its scheduler through
-     ``executor.configure``: LOOP_A's 4 cycles through it (a full frame,
+     ``executor.configure``: LOOP_A's 3 cycles through it (a full frame,
      then delta frames; each cycle LOOP_A's digest, executor ``auto``,
      no fallback, no kernel launched here and the session kernel
      launched in the child, read through its SIGUSR1 status line), one
@@ -168,8 +178,8 @@ Phases, each of which fails the run:
      digest, exactly one fallback counted and /healthz degraded; a
      ``{"sidecar": ...}`` line with the frames' bytes and round trips;
   8. replay (``phase_replay``) — the trace recorder on: LOOP_A's first
-     3 cycles, LOOP_C's preempting cycle and LOOP_B's first 3 churn
-     cycles with ``trace.enable(dir, snapshot_every=1)``, LOOP_A's fourth
+     2 cycles, LOOP_C's preempting cycle and LOOP_B's first 3 churn
+     cycles with ``trace.enable(dir, snapshot_every=1)``, LOOP_A's third
      with ``snapshot_every=0`` (events only), each cycle with its digest
      and a journal record holding a bind decision per bind and the
      loop's, the framework's, gpu-allocate's and the dispatcher's spans
@@ -347,8 +357,9 @@ CYCLE_DIGESTS = {
     MAIN_CONFIG: "c5ccf48727093b88dd6634c8eb317b91cf968f30e419d920f5d637d389b374ca",
     SECOND_CONFIG: "9853688e576b441a556020ec00bb36671927f220ec2514ed5e728276f2e4859a",
 }
-#: cycles a cycle cell runs, each on a fresh cache (3, as for WARM_RUNS)
-CYCLE_RUNS = 3
+#: cycles a cycle cell runs, each on a fresh cache (3 until the
+#: replicated store's phase needed the room; each is held to its digest)
+CYCLE_RUNS = 2
 
 #: the preempting cycle: its tiers (tests/test_preempt_kernel.py's), its
 #: actions, and its cells (generate_preempt_cluster_objects, seed 0) with
@@ -362,7 +373,8 @@ PREEMPT_CYCLE_CELLS = {
     PREEMPT_CYCLE_MAIN: dict(n_victims=90_000, n_nodes=10_000, n_preemptors=10_000),
     PREEMPT_CYCLE_SECOND: dict(n_victims=9_000, n_nodes=1_000, n_preemptors=1_000),
 }
-PREEMPT_CYCLE_RUNS = {PREEMPT_CYCLE_MAIN: 3, PREEMPT_CYCLE_SECOND: 3}
+#: (3 each until the replicated store's phase needed the room)
+PREEMPT_CYCLE_RUNS = {PREEMPT_CYCLE_MAIN: 2, PREEMPT_CYCLE_SECOND: 2}
 #: sha256 of repr((sorted evicted names, sorted (name, node) pipelined
 #: pairs)) that the JAX package's enqueue, jax-allocate, jax-preempt,
 #: backfill give on each cell's objects under PREEMPT_CYCLE_TIERS;
@@ -374,18 +386,21 @@ PREEMPT_CYCLE_DIGESTS = {
 
 #: the scheduler loop's cells: ``Scheduler.run_once`` cycle after cycle
 #: on one cache (``snapshot_reuse=True``), from a policy file (the revert
-#: cell's 4 cycles, a cold one and 3 warm, keep the whole run inside its
-#: time limit).  A cell names its cluster (a cycle config, or the
+#: cell's cycles, a cold one and then warm ones, keep the whole run
+#: inside its time limit).  A cell names its cluster (a cycle config, or the
 #: preempt cell), its tiers and actions, its cycles, and what happens in
 #: the store between cycles:
 #: ``revert`` (every bound pod back to Pending through ``update_pod``
 #: with its spec unchanged) or ``churn`` (``generate_loop_events``, seed 0)
+#: and, where the card runs fewer than tier-1 holds on the CPU, its
+#: ``card_cycles`` (the revert cell's 3 on the card, and through the
+#: sidecar, since the replicated store's phase needed the room)
 LOOP_A = "loop_50k_pods_10k_nodes_revert"
 LOOP_B = "loop_10k_pods_1k_nodes_churn"
 LOOP_C = "loop_10k_pods_1k_nodes_preempt"
 LOOP_CELLS = {
     LOOP_A: dict(config=MAIN_CONFIG, tiers=CYCLE_TIERS, actions=("gpu-allocate",),
-                 cycles=4, between="revert"),
+                 cycles=4, card_cycles=3, between="revert"),
     LOOP_B: dict(config=SECOND_CONFIG, tiers=CYCLE_TIERS, actions=("gpu-allocate",),
                  cycles=5, between="churn"),
     LOOP_C: dict(config=PREEMPT_CYCLE_SECOND, tiers=PREEMPT_CYCLE_TIERS,
@@ -2504,7 +2519,8 @@ def phase_loop(name: str, card: str) -> dict:
     n_pods, n_nodes = len(objects[1]), len(objects[0])
     cycles = []
     with GcClock() as gc_clock, LoopChecks(gc_clock) as checks:
-        loop = loop_cycles(objects, spec["tiers"], spec["actions"], spec["cycles"],
+        loop = loop_cycles(objects, spec["tiers"], spec["actions"],
+                           spec.get("card_cycles", spec["cycles"]),
                            spec["between"], cache_hook=checks.hook_cache,
                            cycle_window=gc_clock.cycle)
         while True:
@@ -4808,6 +4824,545 @@ def phase_bus(card: str) -> dict:
     return out
 
 
+# ---- the durable, replicated store: three apiserver replicas, a leader kill ----
+
+#: the replicated store's cell (``phase_ha``): SECOND_CONFIG's cluster,
+#: the bus cell's size, in three apiserver replicas on data directories
+#: of their own, one scheduler child binding it over the endpoint list;
+#: the leader replica SIGKILLed, the arrivals bound, the replica restarted
+HA_CELL = "ha_10k_pods_1k_nodes_leader_kill"
+HA_REPLICAS = 3
+#: the replicas' ``--repl-lease-ttl`` (the binary's default)
+HA_LEASE_S = 2.0
+#: one probe round of an election: ``bus/replication.probe_status``'s
+#: timeout, what one unanswered probe of a peer can take
+HA_PROBE_ROUND_S = 1.5
+#: the replicas' ``--snapshot-every``: at the binary's 256 every replica
+#: rewrites its whole store every 256 records (a rotation of the seeded
+#: cell, 13,501 objects, took 1,931.9 ms beside an NVIDIA H100 80GB HBM3
+#: at 700 W, ``wal_costs``), 52 times over while the cell is seeded
+HA_SNAPSHOT_EVERY = 4096
+#: client threads creating the pods and pod groups: creates through the
+#: group wait on the quorum one at a time, and concurrent ones share a
+#: follower's pull, apply and fsync.  Their order is free: the store's
+#: digest does not depend on it (tests/test_torch_replication.py); the
+#: priority classes, nodes and queues go in order
+HA_SEED_THREADS = 16
+
+
+def free_ports(n: int) -> list:
+    """``n`` free ports below the kernel's ephemeral range (each bound
+    and closed to check): a replica restarted on its port must find it
+    free, and a port of the ephemeral range may meanwhile have become
+    the local end of one of the many connections the run opens."""
+    import random
+    import socket
+
+    with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+        low = int(f.read().split()[0])
+    candidates = list(range(10_000, low))
+    random.Random(os.getpid()).shuffle(candidates)
+    out = []
+    for port in candidates:
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        out.append(port)
+        if len(out) == n:
+            return out
+    check(False, f"no {n} free ports below {low}")
+
+
+def shm_rings(pid: int, directory: str) -> list:
+    """The shm ring files (``c2s-*.ring``, ``s2c-*.ring``) under
+    ``directory`` that process ``pid`` has mapped, by basename, one entry
+    a mapping: ``bus/shm.py`` unlinks a pair once both ends have mapped
+    it, so a process's maps are where its rings show."""
+    root = os.path.realpath(directory) + os.sep
+    out = []
+    with open(f"/proc/{pid}/maps") as f:
+        for line in f:
+            parts = line.split(None, 5)
+            path = parts[5].strip() if len(parts) == 6 else ""
+            path = path[:-len(" (deleted)")] if path.endswith(" (deleted)") else path
+            if path.startswith(root) and path.endswith(".ring"):
+                out.append(os.path.basename(path))
+    return sorted(out)
+
+
+def fsync_probe(directory: str, n: int = 200, nbytes: int = 1024) -> dict:
+    """The host's fsync cost where the replicas keep their WALs: ``n``
+    appends of ``nbytes`` to a file in ``directory``, each flushed and
+    fsynced as ``bus/wal.py`` does a record; p50, p99 and max ms."""
+    import tempfile
+
+    fd, path = tempfile.mkstemp(dir=directory, suffix=".probe")
+    times = []
+    try:
+        with os.fdopen(fd, "wb") as f:
+            for _ in range(n):
+                f.write(b"x" * nbytes)
+                f.flush()
+                t0 = time.perf_counter()
+                os.fsync(f.fileno())
+                times.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        os.unlink(path)
+    times.sort()
+    return dict(n=n, bytes=nbytes, p50_ms=times[n // 2], p99_ms=times[int(n * 0.99)],
+                max_ms=times[-1])
+
+
+def wal_costs(card: str) -> dict:
+    """The durable store's host costs beside the card, by hand (not part
+    of the run): the fsync probe, SECOND_CONFIG seeded into one
+    in-process ``PersistentAPIServer`` (no snapshot rotation), one
+    4,096-bind ``commit_batch`` on it (the leader's half of a commit
+    frame), a second store applying that record as a follower does, and
+    one snapshot of the whole store.  A ``{"wal_costs": ...}`` line."""
+    import shutil
+    import tempfile
+
+    from volcano_tpu_torch.bus.wal import WAL_FILE, PersistentAPIServer, read_records
+
+    base = tempfile.mkdtemp(prefix="vtpu-wal-")
+    try:
+        objects = loop_objects(SECOND_CONFIG)
+        out = dict(card=card, fsync_1k=fsync_probe(base),
+                   fsync_4m=fsync_probe(base, n=20, nbytes=4 << 20))
+        leader = PersistentAPIServer(os.path.join(base, "leader"), snapshot_every=1 << 30)
+        t0 = time.perf_counter()
+        seed_store(leader, objects)
+        out["seed_ms_per_create"] = (time.perf_counter() - t0) / sum(map(len, objects)) * 1e3
+        binds = [{"namespace": p.metadata.namespace, "name": p.metadata.name,
+                  "hostname": "node-1"} for p in objects[1][:4096]]
+        t0 = time.perf_counter()
+        leader.commit_batch(binds=binds)
+        out["leader_frame_ms"] = (time.perf_counter() - t0) * 1e3
+        records = read_records(os.path.join(leader.data_dir, WAL_FILE))[0]
+        follower = PersistentAPIServer(os.path.join(base, "follower"), snapshot_every=1 << 30)
+        for rec in records[:-1]:
+            follower.apply_replica_record(rec, sync=False)
+        t0 = time.perf_counter()
+        follower.apply_replica_record(records[-1])
+        out.update(follower_apply_ms=(time.perf_counter() - t0) * 1e3,
+                   frame_record_bytes=len(records[-1]))
+        t0 = time.perf_counter()
+        follower.snapshot_now()
+        out.update(snapshot_ms=(time.perf_counter() - t0) * 1e3,
+                   snapshot_objects=sum(map(len, objects)),
+                   snapshot_bytes=os.path.getsize(os.path.join(follower.data_dir,
+                                                               "snapshot.json")))
+        leader.close()
+        follower.close()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    print(json.dumps({"wal_costs": out}))
+    return out
+
+
+class _Listing:
+    """A store read over the wire as ``bus.wal.store_digest`` reads a
+    store: its lists (a replica serves them from its own store)."""
+
+    def __init__(self, client):
+        self.client = client
+
+    def locked(self):
+        return contextlib.nullcontext()
+
+    def list(self, kind: str):
+        return self.client.list(kind)
+
+
+def replica_digests(endpoints, timeout: float = 120.0) -> dict:
+    """Each replica's ``store_digest`` over its own lists, once every
+    replica reports the same applied sequence and while it stays so (a
+    quiescent group: the caller has stopped the writers); the run fails
+    when they do not agree within ``timeout``."""
+    import threading
+
+    from volcano_tpu_torch.bus import RemoteAPIServer
+    from volcano_tpu_torch.bus.replication import probe_status
+    from volcano_tpu_torch.bus.wal import store_digest
+
+    t0 = time.monotonic()
+    while True:
+        seqs = [(probe_status(u) or {}).get("seq") for u in endpoints]
+        digests = {}
+        if None not in seqs and len(set(seqs)) == 1:
+            def read(url: str) -> None:
+                client = RemoteAPIServer(url, timeout=60.0)
+                try:
+                    if client.wait_ready(30):
+                        digests[url] = store_digest(_Listing(client))
+                finally:
+                    client.close()
+
+            readers = [threading.Thread(target=read, args=(u,)) for u in endpoints]
+            for r in readers:
+                r.start()
+            for r in readers:
+                r.join()
+            after = [(probe_status(u) or {}).get("seq") for u in endpoints]
+            if after == seqs and len(digests) == len(endpoints) and len(set(digests.values())) == 1:
+                return dict(seq=seqs[0], digests=digests)
+        check(time.monotonic() - t0 < timeout,
+              f"replicas not converged in {timeout} s: seqs {seqs}, digests {digests}")
+        time.sleep(0.5)
+
+
+def create_through_failover(api, objects, threads: int = 1, timeout: float = 120.0) -> tuple:
+    """``create_objects`` through a replicated group's client from
+    ``threads`` threads (thread i the objects i, i + threads, ...).  A
+    create is retried while the group answers ``NotLeaderError`` (a write
+    refused before it reached a store: no leader known yet, or the
+    follower's link to the new one not up) or the client's connection to
+    a killed replica fails under it (``BusError``); an ``AlreadyExists``
+    on a retry is the earlier attempt's write, which landed (the
+    reference soak's at-least-once rule).  (seconds, retries)."""
+    import copy
+    import threading
+
+    from volcano_tpu_torch.bus.protocol import BusError, NotLeaderError
+    from volcano_tpu_torch.client.apiserver import AlreadyExistsError
+
+    t0, retries, errors = time.perf_counter(), [0] * threads, []
+
+    def run(i: int) -> None:
+        try:
+            for obj in objects[i::threads]:
+                obj = copy.copy(obj)
+                obj.metadata = copy.copy(obj.metadata)
+                tried = False
+                while True:
+                    try:
+                        api.create(obj)
+                        break
+                    except AlreadyExistsError:
+                        if not tried:
+                            raise
+                        break
+                    except (NotLeaderError, BusError):
+                        tried = True
+                        retries[i] += 1
+                        if time.perf_counter() - t0 > timeout:
+                            raise
+                        time.sleep(0.05)
+        except Exception as e:  # noqa: BLE001 — reported by the caller's check
+            errors.append(repr(e))
+
+    workers = [threading.Thread(target=run, args=(i,)) for i in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    check(not errors, f"creates through the group failed: {errors[:3]}")
+    return time.perf_counter() - t0, sum(retries)
+
+
+def seed_group(api, objects, threads: int = HA_SEED_THREADS) -> float:
+    """``seed_store`` through a replicated group: priority classes and
+    nodes in order, the pods and pod groups from ``threads`` threads,
+    then the queues; the seconds it took."""
+    nodes, pods, pod_groups, queues, *rest = objects
+    t0 = time.perf_counter()
+    create_objects(api, list(rest[0] if rest else ()) + list(nodes))
+    create_through_failover(api, list(pods) + list(pod_groups), threads)
+    create_objects(api, queues)
+    return time.perf_counter() - t0
+
+
+def repl_metrics(body: str) -> dict:
+    """A replica's durability series from its /metrics text: fsyncs and
+    quorum waits (count, mean ms), lag, WAL bytes."""
+    out = {}
+    for key, series in (("fsync", "volcano_wal_fsync_latency_milliseconds"),
+                        ("quorum_wait", "volcano_repl_quorum_wait_milliseconds")):
+        n = metric_sum(body, series + "_count")
+        out[key] = dict(n=n, mean_ms=metric_sum(body, series + "_sum") / max(n, 1.0))
+    out.update(lag_entries=metric_sum(body, "volcano_repl_lag_entries"),
+               wal_bytes=metric_sum(body, "volcano_wal_size_bytes"))
+    return out
+
+
+def failover_checked(child: "Binary", port: int, what: str, paused=(0, 0)):
+    """``child_checked`` across a store failover: a PodGroup status
+    writeback the group refused while it had no reachable leader (its
+    frame answered ``NotLeaderError``), or whose connection to the killed
+    leader failed under it (the send, or the connection before the
+    answer), is allowed and counted (the next cycle writes it again), and
+    so is one that timed out at the end of the pause ``paused`` (the
+    child's log between those offsets: a call in flight when the child
+    was stopped finds its deadline gone when it resumes); any other
+    commit failure is not."""
+    status = child.status()
+    _, body = http_get(port, "/metrics")
+    body = body.decode()
+    failures = {m: metric_sum(body, m) for m in ("volcano_executor_failures_total",)}
+    failures.update({k: metric_sum(body, "volcano_commit_failures_total", kind=k)
+                     for k in ("bind", "evict")})
+    text = child.text()
+    pause = text[paused[0]:paused[1]]
+    refused = [line for line in text.splitlines() if "writeback" in line and "failed" in line]
+    check(status["failed_cycles"] == 0 and "cycle failed" not in text
+          and status["resync"] == 0 and status["quarantined"] == 0 and not any(failures.values())
+          and all(any(why in line for why in ("leader", "connection lost", "send failed"))
+                  or ("timed out" in line and line in pause) for line in refused)
+          and len(refused) == metric_sum(body, "volcano_commit_failures_total", kind="status"),
+          f"{what}: status {status}, {failures}, refused writebacks {refused[:5]}:\n"
+          f"{child.tail()}")
+    return status, body
+
+
+def phase_ha(card: str) -> dict:
+    """The durable, replicated store on the card (``HA_CELL``): three
+    ``python -m volcano_tpu_torch.cmd.apiserver --data-dir D_i --replicas
+    E --replica-index i --repl-lease-ttl 2.0 --snapshot-every 4096``
+    children elect one leader; this process seeds SECOND_CONFIG's cluster
+    through the port's ``RemoteAPIServer`` given all three endpoints
+    (``seed_group``: every create fsynced and quorum-committed, the pods
+    and pod groups from HA_SEED_THREADS threads); one ``python -m volcano_tpu_torch.cmd.scheduler
+    --bus E --snapshot-reuse --pipelined-commit --warmup`` child on the
+    card binds it, read back from a follower with STORE_DIGESTS' digest,
+    the three replicas' ``store_digest`` equal.  The leader replica is
+    SIGKILLed: a survivor must lead within the lease TTL plus one probe
+    round; the arrivals, created through the group, bind with
+    ARRIVAL_DIGESTS' digest while the scheduler's ``bus_relists_total``
+    stays flat (a PodGroup status writeback refused for want of a leader,
+    lost with the killed leader's connection, or timed out by the pause
+    of the digest reads, is counted and allowed: the next cycle writes
+    it again), and
+    the scheduler exits 0 on SIGTERM.  The killed replica restarts from its data directory,
+    recovers and rejoins as a follower; the three digests are equal again
+    and ``vtctl --bus ... bus status`` shows one leader and two followers
+    at lag 0.  The session kernel launched in the scheduler child's
+    cycles (its count less its warmup's, 3 a cycle that binds), no child
+    dies, every child exits 0 on SIGTERM.  The fsync and quorum waits are
+    printed, not bound.  One ``{"ha": ...}`` line."""
+    import gc
+    import io
+    import re
+    import shutil
+    import signal
+    import tempfile
+
+    from volcano_tpu_torch.bus import RemoteAPIServer
+    from volcano_tpu_torch.bus.replication import probe_status
+    from volcano_tpu_torch.cli.vtctl import main as vtctl
+
+    name, config = HA_CELL, SECOND_CONFIG
+    t_phase = time.perf_counter()
+    objects = loop_objects(config)
+    n_pods, n_objects = len(objects[1]), sum(len(objs) for objs in objects)
+    base = tempfile.mkdtemp(prefix="vtpu-ha-")
+    ports = free_ports(HA_REPLICAS)
+    endpoints = [f"tcp://127.0.0.1:{p}" for p in ports]
+    bus = ",".join(endpoints)
+    out = dict(cell=name, config=config, card=card, replicas=HA_REPLICAS, lease_s=HA_LEASE_S)
+    children, clients = [], []
+    reps, metrics_ports = {}, {}
+
+    def start_replica(i: int):
+        b = Binary("volcano_tpu_torch.cmd.apiserver",
+                   ["--port", str(ports[i]), "--listen-port", "0",
+                    "--data-dir", os.path.join(base, f"replica-{i}"), "--replicas", bus,
+                    "--replica-index", str(i), "--repl-lease-ttl", str(HA_LEASE_S),
+                    "--snapshot-every", str(HA_SNAPSHOT_EVERY)])
+        children.append(b)
+        reps[i] = b
+        return b
+
+    def roles(indices) -> dict:
+        return {i: (probe_status(endpoints[i]) or {}).get("role", "down") for i in indices}
+
+    def dead():
+        return [c.name for c in children if c in reps.values() and not c.alive()] or None
+
+    def client_of(address: str):
+        c = RemoteAPIServer(address, timeout=60.0)
+        clients.append(c)
+        check(c.wait_ready(30), f"{name}: {address} did not answer")
+        return c
+
+    try:
+        for i in range(HA_REPLICAS):
+            start_replica(i)
+        for i in range(HA_REPLICAS):
+            metrics_ports[i] = int(reps[i].wait_log(r"metrics on :(\d+), replica").group(1))
+        elect_s = wait_for(lambda: sorted(roles(range(HA_REPLICAS)).values())
+                           == ["follower", "follower", "leader"], CHILD_START_S,
+                           f"{name}: one leader and two followers", failed=dead, interval=0.1)
+        leader_i = next(i for i, r in roles(range(HA_REPLICAS)).items() if r == "leader")
+        client = client_of(bus)
+        seed_s = seed_group(client, objects)
+        out.update(elect_s=elect_s, seed_s=seed_s, creates_per_s=n_objects / seed_s,
+                   seed_threads=HA_SEED_THREADS, codec=client.codec,
+                   fsync_probe=fsync_probe(base))
+        print(f"{name}: {HA_REPLICAS} replicas elected apiserver-{leader_i} in {elect_s:.3f} s; "
+              f"seeded {n_objects} objects through the group in {seed_s:.3f} s "
+              f"({out['creates_per_s']:.1f} creates/s under the quorum, {HA_SEED_THREADS} "
+              f"threads); fsync of 1 KiB in the data directories' file system "
+              f"{out['fsync_probe']}; card {card}")
+        # the audit reads a follower that the kill spares
+        audit_i = next(i for i in range(HA_REPLICAS) if i != leader_i)
+        audit_client = client_of(endpoints[audit_i])
+        audit = StoreAudit(audit_client)
+        check(audit_client.wait_synced(60), f"{name}: the audit's watch did not sync")
+        with policy_file(CYCLE_TIERS, ("gpu-allocate",)) as path:
+            sched = Binary("volcano_tpu_torch.cmd.scheduler",
+                           ["--bus", bus, "--snapshot-reuse", "--pipelined-commit", "--warmup",
+                            "--scheduler-conf", path, "--listen-port", "0"])
+            children.append(sched)
+            s_port = int(sched.wait_log(r"serving on :(\d+)").group(1))
+            t0 = time.perf_counter()
+            t_settle = wait_for(lambda: store_settled(audit_client, audit, n_pods), SETTLE_S,
+                                f"{name}: the cluster bound, read from a follower",
+                                failed=lambda: None if sched.alive() else sched.tail(),
+                                interval=0.5)
+            digest = audit.digest()
+            check(digest == STORE_DIGESTS[config],
+                  f"{name}: store digest {digest} != the JAX package's {STORE_DIGESTS[config]}")
+            status0, body = child_checked(sched, s_port, f"{name}: the scheduler after its binds")
+            launches0 = cycle_launches(status0)
+            check(launches0 > 0 and launches0 % 3 == 0,
+                  f"{name}: session kernel launches in the scheduler's cycles {launches0}")
+            relists0 = metric_sum(body, "volcano_bus_relists_total")
+            commit_ms = metric_sum(body, "volcano_bus_request_latency_milliseconds_sum",
+                                   method="commit_batch")
+            frame_binds = metric_sum(body, "volcano_bind_coalesce_size_sum")
+            # the scheduler rewrites every PodGroup's status each cycle (the
+            # reference's JobUpdater: a Running group has no recorded status
+            # to compare with), so it is paused while the replicas are read
+            pause_from = len(sched.text())
+            sched.proc.send_signal(signal.SIGSTOP)
+            try:
+                converged = replica_digests(endpoints)
+            finally:
+                sched.proc.send_signal(signal.SIGCONT)
+            time.sleep(1.0)
+            paused = (pause_from, len(sched.text()))
+            _, lbody = http_get(metrics_ports[leader_i], "/metrics")
+            out.update(bound_s=t_settle, store_digest=digest, launches=launches0,
+                       commit_frames=metric_sum(
+                           body, "volcano_bus_request_latency_milliseconds_count",
+                           method="commit_batch"),
+                       commit_ms_per_bind=commit_ms / max(frame_binds, 1.0),
+                       replica_digest=converged, leader_metrics=repl_metrics(lbody.decode()))
+            print(f"{name}: the scheduler bound {n_pods} pods in {t_settle:.3f} s, read from "
+                  f"apiserver-{audit_i} (a follower) with digest == STORE_DIGESTS, "
+                  f"{out['commit_ms_per_bind']:.4f} ms a bind in {out['commit_frames']:.0f} "
+                  f"commit frames, {launches0} session kernel launches; the three replicas' "
+                  f"store_digest equal at seq {converged['seq']}; the leader's fsync and quorum "
+                  f"wait {out['leader_metrics']}; card {card}")
+
+            survivors = [i for i in range(HA_REPLICAS) if i != leader_i]
+            reps[leader_i].proc.kill()
+            reps[leader_i].proc.wait(timeout=60)
+            t_kill = time.monotonic()
+            wait_for(lambda: "leader" in roles(survivors).values(), 30.0,
+                     f"{name}: a survivor leading after apiserver-{leader_i}'s SIGKILL",
+                     interval=0.01)
+            lead_s = time.monotonic() - t_kill
+            limit = HA_LEASE_S + HA_PROBE_ROUND_S
+            new_i = next(i for i, r in roles(survivors).items() if r == "leader")
+            check(lead_s <= limit, f"{name}: apiserver-{new_i} led {lead_s:.3f} s after the "
+                                   f"SIGKILL, limit {limit} s")
+            arrivals = arrival_objects()
+            # the pods and pod groups from the seed's threads, the queue
+            # that admits them last
+            create_s, retries = create_through_failover(client, arrivals[:-1], HA_SEED_THREADS)
+            create_objects(client, arrivals[-1:])
+            n_new = ARRIVALS["jobs"]
+            wait_for(lambda: len(arrival_binds(audit, arrivals)) == n_new, SETTLE_S,
+                     f"{name}: the arrivals bound after the failover",
+                     failed=lambda: None if sched.alive() else sched.tail())
+            bound_ms = (time.monotonic() - t_kill) * 1e3
+            digest = cycle_digest(arrival_binds(audit, arrivals))
+            check(digest == ARRIVAL_DIGESTS[config],
+                  f"{name}: arrivals digest {digest} != the JAX package's "
+                  f"{ARRIVAL_DIGESTS[config]}")
+            check(audit.events.get("Scheduled") == [n_pods + n_new, 0] and not audit.rebinds,
+                  f"{name}: Scheduled Events {audit.events.get('Scheduled')}, rebinds "
+                  f"{audit.rebinds[:3]}")
+            wait_for(lambda: store_settled(audit_client, audit, n_pods + n_new), SETTLE_S,
+                     f"{name}: every PodGroup Running after the failover",
+                     failed=lambda: None if sched.alive() else sched.tail(), interval=0.5)
+            status1, body = failover_checked(sched, s_port, f"{name}: the scheduler after the "
+                                                            f"arrivals", paused)
+            launches1 = cycle_launches(status1) - launches0
+            check(launches1 > 0 and launches1 % 3 == 0,
+                  f"{name}: session kernel launches after the failover {launches1}")
+            relists1 = metric_sum(body, "volcano_bus_relists_total")
+            check(relists1 == relists0, f"{name}: the scheduler relisted across the failover: "
+                                        f"bus_relists_total {relists0} -> {relists1}")
+            _, nbody = http_get(metrics_ports[new_i], "/metrics")
+            reconnects = metric_sum(body, "volcano_bus_reconnects_total")
+            rcs = {"scheduler": sched.terminate()}
+            out.update(killed=leader_i, new_leader=new_i, takeover_ms=lead_s * 1e3,
+                       scheduler_reconnects=reconnects,
+                       status_writebacks_refused=metric_sum(
+                           body, "volcano_commit_failures_total", kind="status"),
+                       takeover_limit_ms=limit * 1e3, arrivals_create_ms=create_s * 1e3,
+                       arrivals_retries=retries, arrivals_bound_ms=bound_ms,
+                       arrival_digest=digest, launches_after=launches1, relists=relists1,
+                       new_leader_metrics=repl_metrics(nbody.decode()))
+            print(f"{name}: apiserver-{leader_i} SIGKILLed; apiserver-{new_i} led after "
+                  f"{lead_s * 1e3:.1f} ms (limit {limit * 1e3:.0f}); the {n_new} arrivals created "
+                  f"through the group in {create_s * 1e3:.1f} ms ({retries} NotLeaderError "
+                  f"retries) and bound {bound_ms:.1f} ms after the kill, digest == "
+                  f"ARRIVAL_DIGESTS, {launches1} launches, bus_relists_total flat at {relists1}; "
+                  f"card {card}")
+
+            t0 = time.perf_counter()
+            reborn = start_replica(leader_i)
+            m = reborn.wait_log(r"store recovered from \S+ in ([\d.]+) ms: snapshot (\w+), "
+                                r"(\d+) WAL records, torn tail (\w+), seq (\d+)")
+            metrics_ports[leader_i] = int(reborn.wait_log(r"metrics on :(\d+), replica").group(1))
+            wait_for(lambda: roles([leader_i])[leader_i] == "follower", CHILD_START_S,
+                     f"{name}: apiserver-{leader_i} rejoining as a follower", failed=dead)
+            converged = replica_digests(endpoints)
+            rejoin_s = time.perf_counter() - t0
+            texts = {}
+            for i in range(HA_REPLICAS):
+                buf = io.StringIO()
+                check(vtctl(["--bus", endpoints[i], "bus", "status"], out=buf) == 0,
+                      f"{name}: vtctl bus status on apiserver-{i}")
+                texts[i] = buf.getvalue()
+            shown = {i: re.search(r"^Role:\s+(\S+)", t, re.M).group(1) for i, t in texts.items()}
+            rows = re.findall(r"^  (apiserver-\d+)\s+(\d+)\s+(\d+)\s", texts[new_i], re.M)
+            check(sorted(shown.values()) == ["follower", "follower", "leader"]
+                  and shown[new_i] == "leader" and len(rows) == 2
+                  and all(lag == "0" for _fid, _acked, lag in rows),
+                  f"{name}: vtctl bus status: {shown}, followers {rows}:\n{texts[new_i]}")
+            print(texts[new_i], end="")
+            out.update(recovery_ms=float(m.group(1)), recovery_snapshot=m.group(2) == "True",
+                       records_replayed=int(m.group(3)), recovery_torn=m.group(4) == "True",
+                       recovered_seq=int(m.group(5)), rejoin_s=rejoin_s,
+                       replica_digest_after=converged, vtctl_roles=shown, vtctl_followers=rows)
+            print(f"{name}: apiserver-{leader_i} recovered {out['records_replayed']} WAL records "
+                  f"(snapshot {out['recovery_snapshot']}, torn tail {out['recovery_torn']}) to "
+                  f"seq {out['recovered_seq']} in {out['recovery_ms']:.1f} ms and rejoined as a "
+                  f"follower; the three store_digests equal at seq {converged['seq']} "
+                  f"{rejoin_s:.3f} s after its restart; card {card}")
+            check(not dead(), f"{name}: a replica died: {dead()}")
+            rcs.update({f"apiserver-{i}": reps[i].terminate() for i in range(HA_REPLICAS)})
+            check(all(rc == 0 for rc in rcs.values()), f"{name}: exit codes on SIGTERM {rcs}")
+            out["sigterm_rcs"] = rcs
+    finally:
+        for c in clients:
+            c.close()
+        for c in children:
+            c.close()
+        shutil.rmtree(base, ignore_errors=True)
+    out["phase_ms"] = (time.perf_counter() - t_phase) * 1e3
+    gc.collect()
+    print(json.dumps({"ha": out}))
+    return out
+
+
 # ---- the Job path: admission, the controllers, the scheduler, a kubelet ----
 
 JOB_CELL = "jobs_150x50_1k_nodes_lifecycle"
@@ -5357,7 +5912,11 @@ def phase_local_up(card: str) -> dict:
     child refuses a Job whose minAvailable exceeds its replicas with the
     JAX package's message; ``vtctl job list``, ``job view``, ``describe
     job`` and ``queue list`` print; SIGTERM ends every child with exit 0.
-    A ``{"local_up": ...}`` line."""
+    The children and this process talk over the same-host shm rings
+    (``multiproc_up`` sets ``VTPU_BUS_SHM=1``; ``VTPU_BUS_SHM_DIR`` points
+    at the phase's own directory): the scheduler child must have a ring
+    pair mapped there, so a silent TCP fallback fails the run.  A
+    ``{"local_up": ...}`` line."""
     import io
     import os
     import shutil
@@ -5368,6 +5927,9 @@ def phase_local_up(card: str) -> dict:
 
     t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="vtpu-local-up-")
+    shm_dir = os.path.join(tmp, "shm")
+    saved_env = {k: os.environ.get(k) for k in ("VTPU_BUS_SHM", "VTPU_BUS_SHM_DIR")}
+    os.environ["VTPU_BUS_SHM_DIR"] = shm_dir
     names = ("apiserver", "admission", "controllers", "scheduler-0")
     api, procs = multiproc_up(nodes=LOCAL_UP_NODES, gate_pods=True, log_dir=tmp,
                               schedule_period=0.2)
@@ -5381,6 +5943,9 @@ def phase_local_up(card: str) -> dict:
         sched = children[3]
         metrics_port = int(sched.wait_log(r"serving on :(\d+)").group(1))
         before = sched.status()
+        rings = shm_rings(sched.proc.pid, shm_dir)
+        check({r.split("-")[0] for r in rings} == {"c2s", "s2c"},
+              f"local_up: the scheduler child maps no shm ring pair under {shm_dir}: {rings}")
 
         def run(*argv):
             buf = io.StringIO()
@@ -5423,7 +5988,7 @@ def phase_local_up(card: str) -> dict:
         codes = {c.name: c.terminate() for c in reversed(children)}
         check(all(code == 0 for code in codes.values()), f"children's exit codes {codes}")
         rec.update(up_s=up_s, submit_to_bound_s=bind_s, launches=launches,
-                   reads=reads, exit_codes=codes,
+                   reads=reads, exit_codes=codes, scheduler_rings=rings,
                    s=time.perf_counter() - t0)
         print(json.dumps({"local_up": rec}))
         return rec
@@ -5431,6 +5996,11 @@ def phase_local_up(card: str) -> dict:
         api.close()
         shutdown_procs(procs)
         shutil.rmtree(tmp, ignore_errors=True)
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
 
 
 #: the sidecar phase (``phase_sidecar``): the loop cell and the preempting
@@ -5718,8 +6288,8 @@ def phase_sidecar(card: str, loop_recs: Optional[dict] = None) -> dict:
         in_process = (loop_recs or {}).get(SIDECAR_LOOP, {}).get("cycles", [])
         cycles = []
         with WireTally() as wire:
-            loop = loop_cycles(objects, spec["tiers"], spec["actions"], spec["cycles"],
-                               spec["between"])
+            loop = loop_cycles(objects, spec["tiers"], spec["actions"],
+                               spec.get("card_cycles", spec["cycles"]), spec["between"])
             while True:
                 fallbacks = executor_fallbacks()
                 before = sidecar.status()
@@ -5897,7 +6467,9 @@ class Stopwatch:
 #: in the interleaved cost run of LOOP_A (two a mode, each mode in both
 #: halves; four a mode until the flight recorder's checks took ~30 s of
 #: the run's time)
-REPLAY_CELLS = {LOOP_A: 4, LOOP_C: 1, LOOP_B: 3}
+#: (LOOP_A's 4 until the replicated store's phase needed the room: 2
+#: captured and the events-only one since)
+REPLAY_CELLS = {LOOP_A: 3, LOOP_C: 1, LOOP_B: 3}
 REPLAY_EVENTS_ONLY = (LOOP_A,)
 REPLAY_NATIVE = {LOOP_B: (0, 1, 2)}
 RECORDER_COST_ORDER = ("off", "events", "capture", "capture", "events", "off")
@@ -6100,9 +6672,9 @@ def recorder_cost(card: str) -> dict:
 
 def phase_replay(card: str) -> dict:
     """The trace recorder, the cycle journal and replay on the card.
-      * LOOP_A's first 3 cycles, LOOP_C's preempting cycle and LOOP_B's
+      * LOOP_A's first 2 cycles, LOOP_C's preempting cycle and LOOP_B's
         first 3 churn cycles run with ``trace.enable(dir,
-        snapshot_every=1)``, and LOOP_A's fourth with ``snapshot_every=0``
+        snapshot_every=1)``, and LOOP_A's third with ``snapshot_every=0``
         (``recorded_loop``: each cycle's JAX digest, executor ``cuda``,
         its journal record complete);
       * every captured cycle replays through
@@ -6375,6 +6947,7 @@ def run_phases(specs: SpecPool) -> int:
     bus_rec = timed(phase_bus, card)
     print(json.dumps({"obs": obs_line(card, daemon_rec, bus_rec, t1 - t0,
                                       time.perf_counter() - t1)}))
+    ha_rec = timed(phase_ha, card)
     jobs_rec = timed(phase_jobs, card)
     local_up_rec = timed(phase_local_up, card)
     sidecar_rec = timed(phase_sidecar, card, loop_recs)
@@ -6424,6 +6997,8 @@ def run_phases(specs: SpecPool) -> int:
             "jobs_launches": {"binding_cycles": jobs_rec["binding_cycles"],
                               "launches": jobs_rec["launches"]},
             "local_up_launches": local_up_rec["launches"],
+            "ha_launches": {"before_kill": ha_rec["launches"],
+                            "after_kill": ha_rec["launches_after"]},
             "library_ms": None,
         },
         {

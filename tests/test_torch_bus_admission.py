@@ -23,7 +23,7 @@ import pytest
 import chip_smoke
 from tests import torch_mirror
 from tests.torch_bus_helpers import (  # noqa: F401 — fixtures
-    cm, cpu_actions, one_torch_thread, pair, PAIRS, Pair, wait)
+    cm, cpu_actions, one_torch_thread, pair, PAIRS, Pair, shm_env, wait)
 
 
 def registered(p, kind: str = "ConfigMap") -> bool:
@@ -91,6 +91,14 @@ def test_registration_replayed_after_server_restart(pair):
     registration is dropped by the server."""
     reviewer = pair.new_client()
     c = pair.c
+    # both connections through their set-up (the codec hello; with no
+    # webhook and no watch yet the connection thread then goes idle)
+    # before the webhook registers and the server restarts: a JAX client
+    # whose set-up calls (the hello, a webhook's leader check and
+    # re-registration) a restart cuts waits out each call's 5 s timeout;
+    # the port's client fails them at once (tests/test_torch_bus_resilience.py)
+    want = "binary" if c.protocol.HAS_BINARY and pair.s.protocol.HAS_BINARY else "json"
+    assert wait(lambda: reviewer.codec == pair.client.codec == want, 5)
     reviewer.register_admission("ConfigMap", "CREATE", hook_for(c))
     assert wait(lambda: registered(pair), 5)
     pair.restart_server()
@@ -192,7 +200,8 @@ def _bindings(stores) -> list:
 
 @pytest.mark.parametrize("case", [pytest.param(c, marks=[getattr(pytest.mark, m) for m in marks])
                                   for c, marks in CASES])
-def test_bus_e2e_case_equal_on_both_packages(case, tmp_path, cpu_actions, monkeypatch):  # noqa: F811
+def test_bus_e2e_case_equal_on_both_packages(case, tmp_path, cpu_actions, monkeypatch,  # noqa: F811
+                                              shm_env):
     """Each case on the port (its scheduler, in process or as children,
     on the CPU instance of gpu-allocate), then on the JAX package; the
     stores the runs built hold the same bindings."""

@@ -10,7 +10,9 @@ backlog overflow relisting, bookmarks advancing the resume point,
 unwatch tearing the server's subscription down, a commit burst reaching
 a watcher batched and in order, and a client degrading, for its
 lifetime, to per-object binds, per-object watch frames or JSON framing
-when the server answers ``unknown bus op``.  Every server binds port 0
+when the server answers ``unknown bus op``; and the port's client
+failing a call in flight as soon as its connection drops, not at the
+call's timeout.  Every server binds port 0
 and is stopped, and every client closed, before its test ends.
 """
 
@@ -38,11 +40,61 @@ def test_unreachable_bus_raises_bus_error(name):
 
 
 def test_port_client_takes_one_endpoint():
-    """The port's client dials one endpoint; a replicated endpoint list
-    (the reference's failover) is refused at construction."""
-    p = pkg("port")
-    with pytest.raises(ValueError):
-        p.RemoteAPIServer("tcp://127.0.0.1:1,tcp://127.0.0.1:2")
+    """The port's client takes one endpoint at a time: given a
+    replicated endpoint list (the reference's failover form) it keeps the
+    whole list in ``endpoints``, as the JAX client does, and its
+    ``address`` is the one entry of it that it dials now."""
+    clients = [pkg(name).RemoteAPIServer("127.0.0.1:1,tcp://127.0.0.1:2", timeout=1)
+               for name in ("port", "jax")]
+    try:
+        assert [c.endpoints for c in clients] == [["tcp://127.0.0.1:1", "tcp://127.0.0.1:2"]] * 2
+        assert all("," not in c.address and c.address in c.endpoints for c in clients)
+    finally:
+        for c in clients:
+            c.close()
+
+
+@pytest.mark.parametrize("server", PKGS)
+def test_port_client_fails_a_call_when_its_connection_drops(server):
+    """A call whose connection dies before its answer fails as soon as
+    the client's reader sees the loss, not at the call's timeout: the
+    reader fails the connection's pending calls (the connection thread
+    may itself be parked in one, the codec hello or the leader check of
+    a fresh dial)."""
+    import threading
+
+    pair = Pair("port", server)
+    entered, release = threading.Event(), threading.Event()
+    get = pair.store.get
+
+    def parked_get(*a, **kw):
+        entered.set()
+        release.wait(10)
+        return get(*a, **kw)
+
+    pair.store.get = parked_get
+    out = {}
+
+    def call():
+        t0 = time.monotonic()
+        try:
+            pair.client.get("ConfigMap", "ns", "x")
+        except pair.c.ApiError as e:
+            out["error"] = e
+        out["s"] = time.monotonic() - t0
+
+    caller = threading.Thread(target=call, daemon=True)
+    try:
+        caller.start()
+        assert entered.wait(5), "the server never took the call"
+        pair.server.stop()
+        caller.join(10)
+        assert isinstance(out.get("error"), pair.c.BusError), out
+        assert out["s"] < 2.5, f"the call failed after {out['s']:.2f} s (timeout 5 s)"
+    finally:
+        release.set()
+        caller.join(10)
+        pair.close()
 
 
 def _watch(client):

@@ -39,7 +39,7 @@ import chip_smoke
 import volcano_tpu.actions  # noqa: F401 — registers the JAX package's actions
 import volcano_tpu.plugins  # noqa: F401 — registers its plugin builders
 from tests.test_torch_store_loop import store_dump
-from tests.torch_bus_helpers import cpu_actions, daemon_run, pkg, wait  # noqa: F401 — fixture
+from tests.torch_bus_helpers import cpu_actions, daemon_run, pkg, shm_env, wait  # noqa: F401 — fixtures
 from volcano_tpu_torch.ops.synthetic import generate_cluster_objects
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -244,9 +244,6 @@ LEFT_OUT_FLAGS = {
                   "autoscale_up_pending", "autoscale_down_p99_ms", "autoscale_down_pending",
                   "autoscale_sustain", "autoscale_cooldown_s", "autoscale_period_s",
                   "gang_broker"},
-    "apiserver": {"data_dir", "snapshot_every", "replicas", "replica_index", "repl_lease_ttl",
-                  "shm"},
-    "local_up": {"apiserver_replicas", "apiserver_data_dir", "repl_lease_ttl"},
 }
 
 
@@ -270,9 +267,6 @@ def test_kept_flags_have_the_reference_defaults(monkeypatch, binary):
 @pytest.mark.parametrize("binary, argv", [
     ("scheduler", ["--shards", "2"]), ("scheduler", ["--shard-identity", "s0"]),
     ("scheduler", ["--autoscale-min", "1"]), ("scheduler", ["--gang-broker", "on"]),
-    ("apiserver", ["--data-dir", "/tmp/x"]), ("apiserver", ["--replicas", "tcp://a:1"]),
-    ("apiserver", ["--shm"]), ("apiserver", ["--snapshot-every", "8"]),
-    ("local_up", ["--apiserver-replicas", "3"]), ("local_up", ["--repl-lease-ttl", "1"]),
 ])
 def test_left_out_flags_are_refused(binary, argv, capsys):
     import importlib
@@ -281,6 +275,103 @@ def test_left_out_flags_are_refused(binary, argv, capsys):
     with pytest.raises(SystemExit) as exc:
         main(argv)
     assert exc.value.code == 2 and "unrecognized arguments" in capsys.readouterr().err
+
+
+class _Reached(Exception):
+    pass
+
+
+def _apiserver_daemon(monkeypatch, argv):
+    """The ``ApiServerDaemon`` the apiserver binary builds from ``argv``
+    (started and stopped: its bus on a free port)."""
+    from volcano_tpu_torch.cmd import apiserver
+
+    built = {}
+
+    def serve(daemon):
+        built["daemon"] = daemon
+        daemon.start()
+        built["shm"] = daemon.bus._shm_listener is not None
+        daemon.stop()
+        return 0
+
+    monkeypatch.setattr("volcano_tpu_torch.cmd.daemon.serve_forever", serve)
+    assert apiserver.main(["--port", "0", "--listen-port", "0", *argv]) == 0
+    return built
+
+
+@pytest.mark.parametrize("flag", ["--data-dir", "--snapshot-every", "--replicas", "--shm"])
+def test_apiserver_store_flags_reach_the_store(flag, monkeypatch, tmp_path, shm_env):  # noqa: F811
+    """Each durable or replicated store flag of the apiserver, with a
+    value, reaches the daemon's store (where the parser refused it until
+    the WAL, replication and shm were ported)."""
+    from volcano_tpu_torch.bus.replication import ReplicaManager
+    from volcano_tpu_torch.bus.wal import PersistentAPIServer
+
+    d = str(tmp_path / "data")
+    argv = {"--data-dir": ["--data-dir", d],
+            "--snapshot-every": ["--data-dir", d, "--snapshot-every", "8"],
+            "--replicas": ["--data-dir", d, "--replicas", "tcp://127.0.0.1:1,tcp://127.0.0.1:2",
+                           "--replica-index", "1", "--repl-lease-ttl", "0.5"],
+            "--shm": ["--shm"]}[flag]
+    built = _apiserver_daemon(monkeypatch, argv)
+    daemon = built["daemon"]
+    if flag == "--shm":
+        assert built["shm"] and os.environ["VTPU_BUS_SHM"] == "1"
+        return
+    assert isinstance(daemon.api, PersistentAPIServer) and daemon.api.data_dir == d
+    assert os.path.exists(os.path.join(d, "meta.json"))
+    if flag == "--snapshot-every":
+        assert daemon.api.snapshot_every == 8
+    if flag == "--replicas":
+        rep = daemon.replica
+        assert isinstance(rep, ReplicaManager) and daemon.bus.replica is rep
+        assert (rep.endpoints, rep.index, rep.lease_ttl) == (
+            ["tcp://127.0.0.1:1", "tcp://127.0.0.1:2"], 1, 0.5)
+
+
+@pytest.mark.parametrize("flag", ["--apiserver-replicas", "--repl-lease-ttl"])
+def test_local_up_replica_flags_reach_the_apiserver_children(flag, monkeypatch, tmp_path,  # noqa: F811
+                                                            shm_env):
+    """``local_up --multiproc`` with ``--apiserver-replicas 3`` (and a
+    lease TTL) spawns three apiserver children, each on its own data
+    directory under ``--apiserver-data-dir``, naming the whole group and
+    its own index, with shm switched on for the children."""
+    from volcano_tpu_torch.cmd import local_up
+
+    spawned = []
+
+    class Exited:
+        pid = 0
+
+        def poll(self):
+            return 0
+
+        def wait(self, timeout=None):
+            return 0
+
+    def spawn(module, *flags, log_path=""):
+        spawned.append((module, list(flags)))
+        return Exited()
+
+    def stop(*_a, **_kw):
+        raise _Reached
+
+    monkeypatch.setattr(local_up, "_spawn", spawn)
+    monkeypatch.setattr("volcano_tpu_torch.bus.connect_bus", stop)
+    extra = {"--apiserver-replicas": [], "--repl-lease-ttl": ["--repl-lease-ttl", "1.5"]}[flag]
+    with pytest.raises(_Reached):
+        local_up.main(["--multiproc", "--device", "cpu", "--apiserver-replicas", "3",
+                       "--apiserver-data-dir", str(tmp_path), *extra])
+    assert os.environ["VTPU_BUS_SHM"] == "1"
+    apiservers = [flags for module, flags in spawned if module.endswith("cmd.apiserver")]
+    assert len(apiservers) == 3
+    lists = {f[f.index("--replicas") + 1] for f in apiservers}
+    assert len(lists) == 1 and len(lists.pop().split(",")) == 3
+    for i, f in enumerate(apiservers):
+        assert f[f.index("--replica-index") + 1] == str(i)
+        assert f[f.index("--data-dir") + 1] == os.path.join(str(tmp_path), f"replica-{i}")
+        assert f[f.index("--repl-lease-ttl") + 1] == ("1.5" if extra else "2.0")
 
 
 def test_dead_bus_exits_within_wait(cpu_actions, monkeypatch):

@@ -25,7 +25,7 @@ import pytest
 import chip_smoke
 from tests import torch_mirror
 from tests.test_torch_admission import vtctl_checked
-from tests.torch_bus_helpers import cpu_actions, one_torch_thread  # noqa: F401
+from tests.torch_bus_helpers import cpu_actions, one_torch_thread, shm_env  # noqa: F401
 
 REL = "tests/test_e2e.py"
 CASES = [case for case, _ in torch_mirror.cases(torch_mirror.load(REL, "jax"))]
@@ -129,7 +129,7 @@ def test_local_up_demo_in_process(cpu_actions, capsys):  # noqa: F811
     assert "demo job bound" in capsys.readouterr().out
 
 
-def test_local_up_multiproc_demo(capsys):
+def test_local_up_multiproc_demo(capsys, shm_env):  # noqa: F811
     """``local_up --multiproc --demo``: the port's apiserver, admission,
     controllers and scheduler binaries as children bind the demo job
     after the admission child answers reviews."""

@@ -1,14 +1,19 @@
 """Shared pieces of the port's bus, elector and daemon tests.
 
 ``PKGS`` names the two packages; :func:`pkg` gives one package's API
-types, store, bus server and client, elector and metrics registry under
-the same names, so a test runs the same steps against either, and
+types, store, bus server and client, durable store, replication, shm
+transport, vtctl, elector and metrics registry under the same names, so a test runs the same steps against either, and
 :class:`Pair` joins a client of one package to a bus server of the
-other over TCP (port 0, every socket closed in ``close``).
+other over TCP (a reserved port, every socket closed in ``close``).
 """
 
 from __future__ import annotations
 
+import itertools
+import os
+import shutil
+import socket
+import tempfile
 import time
 from types import SimpleNamespace
 
@@ -16,6 +21,35 @@ import pytest
 
 PKGS = ("port", "jax")
 PAIRS = [(c, s) for c in PKGS for s in PKGS]
+
+#: the kernel hands out ephemeral ports from 32768 up; reserved ports
+#: come from below it, 1,500 for each pytest worker
+_RESERVED_BASE = 20_000
+_RESERVED_BLOCK = 1_500
+_reserved = itertools.count()
+
+
+def _worker_index() -> int:
+    name = os.environ.get("PYTEST_XDIST_WORKER", "")
+    return int(name[2:]) % 8 if name.startswith("gw") else 7
+
+
+def reserved_port() -> int:
+    """A free port of this worker's block (bound and closed to check).
+    A test's listener binds one instead of port 0, so it takes no port
+    of the ephemeral range: the JAX package's HA tests reserve theirs
+    there by bind-and-close, and a port-0 bind of another worker between
+    their reservation and their bind made them fail (address in use)."""
+    base = _RESERVED_BASE + _worker_index() * _RESERVED_BLOCK
+    for _ in range(_RESERVED_BLOCK):
+        port = base + next(_reserved) % _RESERVED_BLOCK
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError("no reserved port left in this worker's block")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -31,6 +65,30 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture
+def shm_env():
+    """For a test that switches the shm transport on in this process
+    (``local_up --multiproc`` and the apiserver's ``--shm`` set
+    ``VTPU_BUS_SHM=1`` here): its ring directories go under a temporary
+    directory of its own (short: a unix socket's path is limited), and
+    both variables are restored after it, so later tests on the worker
+    stay on TCP."""
+    names = ("VTPU_BUS_SHM", "VTPU_BUS_SHM_DIR")
+    saved = {k: os.environ.get(k) for k in names}
+    d = tempfile.mkdtemp(prefix="vshm")
+    os.environ.pop("VTPU_BUS_SHM", None)
+    os.environ["VTPU_BUS_SHM_DIR"] = d
+    try:
+        yield d
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def pkg(name: str) -> SimpleNamespace:
     """One package's bus surface by the same names."""
     if name == "port":
@@ -38,6 +96,8 @@ def pkg(name: str) -> SimpleNamespace:
         from volcano_tpu_torch.apis import core, scheduling
         from volcano_tpu_torch.bus import protocol, server
         from volcano_tpu_torch.bus import BusError, BusServer, RemoteAPIServer
+        from volcano_tpu_torch.bus import replication, shm, wal
+        from volcano_tpu_torch.cli.vtctl import main as vtctl
         from volcano_tpu_torch.client import apiserver
         from volcano_tpu_torch.serving import leader
         registry = metrics.registry
@@ -45,12 +105,15 @@ def pkg(name: str) -> SimpleNamespace:
         from volcano_tpu.apis import core, scheduling
         from volcano_tpu.bus import protocol, server
         from volcano_tpu.bus import BusError, BusServer, RemoteAPIServer
+        from volcano_tpu.bus import replication, shm, wal
+        from volcano_tpu.cli.vtctl import main as vtctl
         from volcano_tpu.client import apiserver
         from volcano_tpu.metrics import metrics
         from volcano_tpu.serving import leader
         registry = metrics.registry
     return SimpleNamespace(
         name=name, core=core, scheduling=scheduling, protocol=protocol, server=server,
+        wal=wal, replication=replication, shm=shm, vtctl=vtctl,
         BusError=BusError, BusServer=BusServer, RemoteAPIServer=RemoteAPIServer,
         APIServer=apiserver.APIServer, ApiError=apiserver.ApiError,
         NotFoundError=apiserver.NotFoundError, ConflictError=apiserver.ConflictError,
@@ -88,7 +151,8 @@ class Pair:
         self.c, self.s = pkg(client), pkg(server)
         self.store = self.s.APIServer()
         server_kw.setdefault("bookmark_interval", 0.1)
-        self.server = self.s.BusServer(self.store, **server_kw).start()
+        self.server = self.s.BusServer(self.store, host="127.0.0.1", port=reserved_port(),
+                                       **server_kw).start()
         self.port = self.server.port
         self._clients = []
         self.client = self.new_client()

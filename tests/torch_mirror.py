@@ -5,12 +5,16 @@ JAX package, with the stores of the two runs compared.
 with every import of ``volcano_tpu`` pointed at ``volcano_tpu_torch``,
 for the JAX package as it is; each copy gets a fresh copy of
 ``tests/builders.py`` (its uid and timestamp counters start at 1 in
-both runs).  In each copy the ``APIServer`` the file builds its stores
-with records every store made, and ``vtctl`` records every command's
-argv, exit code and text.  :func:`cases` lists a file's test functions
-and methods, ``parametrize`` marks expanded, as ids; :func:`run_case`
-runs one of them on one copy, with the file's own fixtures and
-``tmp_path`` and ``monkeypatch`` resolved by hand.
+both runs).  In each copy the ``APIServer`` (and ``PersistentAPIServer``)
+the file builds its stores with records every store made, and ``vtctl``
+records every command's argv, exit code and text.  The port has no
+``metrics.metrics`` module: its copy reads ``from volcano_tpu_torch
+import metrics``, whose registry has the reference's names.
+:func:`cases` lists a file's test functions and methods, ``parametrize``
+marks expanded, as ids; :func:`run_case` runs one of them on one copy,
+with the file's own fixtures (its autouse ones around the case) and
+``tmp_path`` and ``monkeypatch`` resolved by hand, and a ``skipif``
+mark of the case honoured.
 
 :func:`store_dump` extends ``tests.test_torch_store_loop.store_dump``
 (pods, Events, PodGroups, and the Job path's kinds) with the specs the
@@ -37,11 +41,13 @@ _seq = itertools.count()
 #: vtctl commands that only read the store: the port's text for them is
 #: held byte for byte against the JAX vtctl's on the same store
 READ_ONLY = {("job", "list"), ("job", "view"), ("queue", "get"), ("queue", "list"),
-             ("describe", "job"), ("describe", "podgroup")}
+             ("describe", "job"), ("describe", "podgroup"), ("bus", "status")}
 
 
 def _port_source(text: str) -> str:
-    return re.sub(r"\bvolcano_tpu\b(?!_torch)", "volcano_tpu_torch", text)
+    text = re.sub(r"\bvolcano_tpu\b(?!_torch)", "volcano_tpu_torch", text)
+    return text.replace("from volcano_tpu_torch.metrics import metrics",
+                        "from volcano_tpu_torch import metrics")
 
 
 def _exec(name: str, path: Path, source: str) -> types.ModuleType:
@@ -75,18 +81,23 @@ def load(rel: str, pkg: str) -> types.ModuleType:
     mod.TMP = None
     mod.STORES = []
     mod.VTCTL = []
-    if hasattr(mod, "APIServer"):
-        base = mod.APIServer
-
-        class RecordingAPIServer(base):
-            def __init__(self, *args, **kwargs):
-                super().__init__(*args, **kwargs)
-                mod.STORES.append(self)
-
-        mod.APIServer = RecordingAPIServer
+    for name in ("APIServer", "PersistentAPIServer"):
+        if hasattr(mod, name):
+            setattr(mod, name, _recording(mod, getattr(mod, name)))
     if hasattr(mod, "vtctl"):
         mod.vtctl = _recording_vtctl(mod, mod.vtctl)
     return mod
+
+
+def _recording(mod, base):
+    """``base`` whose every instance is appended to ``mod.STORES``."""
+    class Recording(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            mod.STORES.append(self)
+
+    Recording.__name__ = Recording.__qualname__ = base.__name__
+    return Recording
 
 
 def _recording_vtctl(mod, main):
@@ -166,10 +177,20 @@ def run_case(mod, case: str, tmp_path: Path) -> None:
     functions) are called by hand, ``tmp_path`` is ``tmp_path`` and
     ``monkeypatch`` a fresh one undone after the run."""
     fn, values = _resolve(mod, case)
+    for mark in _marks(getattr(fn, "__func__", fn)):
+        if mark.name == "skipif" and mark.args and mark.args[0]:
+            pytest.skip(mark.kwargs.get("reason", "skipif"))
     mod.TMP = tmp_path
     finalizers = []
     patch = pytest.MonkeyPatch()
     try:
+        for value in vars(mod).values():
+            marker = getattr(value, "_fixture_function_marker", None)
+            if marker is not None and marker.autouse:
+                gen = value._get_wrapped_function()()
+                if inspect.isgenerator(gen):
+                    next(gen)
+                    finalizers.append(gen)
         kwargs = dict(values)
         for name in inspect.signature(fn).parameters:
             if name in kwargs:

@@ -74,15 +74,12 @@ class K8sObject:
         return serde.from_dict(cls, data)
 
     def clone(self):
-        # deepcopy, NOT a to_dict/from_dict round trip: the store clones
-        # on every get/update/notify, and the serde walk's typing
-        # dispatch made each clone ~10x a structural copy — at 50k-pod
-        # commit batches the round trip WAS the relay floor.  Objects
+        # a structural copy (serde.structural_copy: deepcopy's result,
+        # without its generic dispatch), NOT a to_dict/from_dict round
+        # trip: the store clones on every get/update/notify.  Objects
         # built from the wire still normalize through from_dict; a clone
         # of a well-formed object is structurally identical either way.
-        import copy
-
-        return copy.deepcopy(self)
+        return serde.structural_copy(self)
 
 
 @dataclass

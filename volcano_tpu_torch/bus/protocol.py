@@ -3,9 +3,7 @@
 A copy of ``volcano_tpu/bus/protocol.py``: the same header, versions,
 message types, codecs and error names, so a port peer and a JAX peer
 speak to each other byte for byte.  ``KINDS`` holds every kind of the
-reference, in its order, and ``OP_VERSIONS`` the ops the port's client
-and server keep (``cas_bind``, ``txn_commit``, and the replication and
-membership ops wait for federation and replication).
+reference, in its order, and ``OP_VERSIONS`` every op of the reference.
 
 The out-of-process bus generalizes the compute-plane boundary
 (serving/compute_plane.py) from "ship one packed snapshot" to "be the
@@ -165,10 +163,10 @@ KINDS: Dict[str, type] = {
     )
 }
 
-#: request-op → protocol version that introduced it, for the ops the
-#: port's server dispatches (the reference's numbers).  An op introduced
-#: after MIN_VERSION carries the client-side old-peer fallback (the
-#: ``unknown bus op`` typed-error path).
+#: request-op → protocol version that introduced it (the reference's
+#: numbers).  Every op the server dispatches is declared here, and an op
+#: introduced after MIN_VERSION carries the client-side old-peer
+#: fallback (the ``unknown bus op`` typed-error path).
 OP_VERSIONS: Dict[str, int] = {
     "create": 1,
     "update": 1,
@@ -181,7 +179,15 @@ OP_VERSIONS: Dict[str, int] = {
     "register_admission": 1,
     "commit_batch": 2,
     "watch_batch": 3,
+    "cas_bind": 4,
     "bus_status": 5,
+    "repl_append": 5,
+    "repl_snapshot": 5,
+    "repl_commit": 5,
+    "txn_commit": 6,
+    "repl_prevote": 7,
+    "bus_add_replica": 7,
+    "bus_remove_replica": 7,
     "bus_hello": 8,
 }
 

@@ -1,10 +1,10 @@
 """``RemoteAPIServer`` — the drop-in swap for the in-process store.
 
-A copy of ``volcano_tpu/bus/remote.py`` for one endpoint: the surface of
-``client.apiserver.APIServer`` the scheduler and its elector use (CRUD,
-list, optimistic-concurrency update, status subresource, the coalesced
-commit frame, watch with initial sync) over one TCP connection to a
-``vtpu-apiserver`` — the port's or the JAX package's, whose wire is the
+A copy of ``volcano_tpu/bus/remote.py``: the surface of
+``client.apiserver.APIServer`` (CRUD, list, optimistic-concurrency
+update, status subresource, the coalesced commit frame, the conditional
+binds ``cas_bind`` and ``txn_commit``, watch with initial sync) over one
+connection to a ``vtpu-apiserver`` — the port's or the JAX package's, whose wire is the
 same.  ``KubeClient``/``VolcanoClient``/``SchedulerClient``, the
 scheduler cache's informers and the leader elector run unchanged against
 either backend.
@@ -43,10 +43,14 @@ the reader, so a hook may call back into this client), inside an
 goes back as T_ADMIT_RESP.  The registration is replayed after every
 reconnect.
 
-Not present in the port yet, each waiting for its caller: the same-host
-shm transport (replication/shm), ``cas_bind`` and ``txn_commit``
-(federation), the membership calls, endpoint lists and the
-leader-redirect and failover paths (replication).
+Replicated apiservers: ``address`` may be an endpoint list
+(``tcp://a,tcp://b``).  The client dials the entries in order, rotates
+across them on connection loss, follows a ``NotLeaderError``'s leader
+hint, and, once it hosts an admission webhook, redials until it sits on
+the leader.  ``bus_add_replica`` / ``bus_remove_replica`` change the
+group's membership (v7).  On loopback with ``VTPU_BUS_SHM`` set the
+client first attaches the same-host shm rings (bus/shm.py) and falls
+back to TCP when the attach fails for any reason.
 """
 
 from __future__ import annotations
@@ -60,14 +64,16 @@ import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 from volcano_tpu_torch import metrics, obs, trace
-from volcano_tpu_torch.bus import protocol
+from volcano_tpu_torch.bus import protocol, shm
 from volcano_tpu_torch.bus.protocol import BusError, BusTimeoutError
 from volcano_tpu_torch.client.apiserver import (
     ADDED,
     AdmissionError,
     ApiError,
+    ConflictError,
     DELETED,
     MODIFIED,
+    NotFoundError,
 )
 from volcano_tpu_torch.utils.logging import get_logger
 
@@ -109,8 +115,8 @@ class _WatchState:
 class RemoteAPIServer:
     """Network client to a ``vtpu-apiserver`` bus.
 
-    ``address`` is ``tcp://host:port`` (or a bare ``host:port``); an
-    endpoint list, the reference's replicated form, raises ValueError.
+    ``address`` is ``tcp://host:port`` (or a bare ``host:port``), or a
+    comma-separated endpoint list of replicated apiservers.
     Construction does not block on the dial — the connection manager
     establishes it in the background; use ``wait_ready()`` to gate
     startup on bus availability."""
@@ -122,15 +128,27 @@ class RemoteAPIServer:
         reconnect_min: float = 0.05,
         reconnect_max: float = 2.0,
     ):
-        if "," in address:
-            raise ValueError(f"the port's bus client dials one endpoint, got {address!r}")
-        self.host, self.tcp_port = protocol.parse_bus_url(address)
-        self.address = f"tcp://{self.host}:{self.tcp_port}"
+        #: ``address`` may be a comma-separated endpoint LIST
+        #: (``tcp://a,tcp://b,...``) — the replicated-apiserver form:
+        #: the client dials entries in order until one answers and
+        #: rotates across them on connection loss, so a dead replica
+        #: never strands a daemon.  Reads/watches are served wherever
+        #: we land (followers included); writes are proxied server-side
+        #: to the leader.
+        self.endpoints = [
+            f"tcp://{h}:{p}" for h, p in protocol.parse_bus_endpoints(address)
+        ]
+        self._endpoint_idx = 0
+        self.host, self.tcp_port = protocol.parse_bus_url(self.endpoints[0])
+        self.address = self.endpoints[0]
         self.timeout = timeout
         self.reconnect_min = reconnect_min
         self.reconnect_max = reconnect_max
 
         self._sock: Optional[socket.socket] = None
+        #: the last connection whose reader saw it die: a request sent on
+        #: it after that reader failed the pending calls fails at once
+        self._lost_sock: Optional[socket.socket] = None
         self._send_lock = threading.Lock()
         self._closed = False
         self._connected = threading.Event()
@@ -163,6 +181,15 @@ class RemoteAPIServer:
         #: set once a server rejects the v5 ``bus_status`` op — status
         #: then reads ``role: unknown`` (observability, never correctness)
         self._no_bus_status = False
+        #: set once a server rejects the v4 ``cas_bind`` op — spillover
+        #: binds then degrade to the get + CAS-update equivalent
+        self._no_cas_bind = False
+        #: set once a server rejects the v6 ``txn_commit`` op — atomic
+        #: multi-object transactions then ABORT (reported unsupported),
+        #: never replay per-object: a pre-v6 peer cannot apply half a
+        #: gang atomically, so the gang broker degrades to the honest
+        #: pre-v6 refusal mode instead
+        self._no_txn_commit = False
         #: negotiated body codec for the CURRENT connection — reset to
         #: JSON on every (re)dial, flipped to binary only when the
         #: server's hello answer says so.  Frames are stamped per frame,
@@ -171,6 +198,16 @@ class RemoteAPIServer:
 
         self._ctl: "queue.Queue[tuple]" = queue.Queue()
         self._dispatch_q: "queue.Queue[Optional[tuple]]" = queue.Queue()
+        #: this client must sit on the LEADER (set by
+        #: register_admission: webhook reviews are forwarded by the
+        #: server that runs the store transaction, which is always the
+        #: leader) — on connect to a follower it redials at the
+        #: follower-reported leader address
+        self._must_lead = False
+        #: monotonic stamp of the last leader-hint redial — one hint
+        #: mid-election must not turn into a redial storm
+        self._last_hint_redial = 0.0
+
         #: forwarded admission reviews, run off the reader thread (a
         #: hook may call back into this client)
         self._admit_q: "queue.Queue[Optional[tuple]]" = queue.Queue()
@@ -210,13 +247,36 @@ class RemoteAPIServer:
                 return False
         return True
 
+    def _current_endpoint(self) -> Tuple[str, int]:
+        url = self.endpoints[self._endpoint_idx % len(self.endpoints)]
+        self.address = url
+        return protocol.parse_bus_url(url)
+
+    def _dial(self) -> socket.socket:
+        """One transport attempt at the current endpoint: the same-host
+        shm ring first when enabled (``local_up --multiproc``), TCP
+        otherwise — and TCP as the silent fallback whenever the ring
+        attach fails for ANY reason (no listener, no directory, no
+        fd-passing).  Both return socket-shaped objects carrying the
+        identical frame stream."""
+        host, port = self._current_endpoint()
+        if shm.shm_enabled() and host in ("127.0.0.1", "localhost", "::1"):
+            try:
+                return shm.connect(port, timeout=self.timeout)
+            except (OSError, ValueError, ConnectionError) as e:
+                log.debug("bus shm attach failed (%s); dialing TCP", e)
+        return socket.create_connection((host, port), timeout=self.timeout)
+
     def _conn_loop(self) -> None:
         backoff = self.reconnect_min
         while not self._closed:
             try:
-                sock = socket.create_connection((self.host, self.tcp_port),
-                                                timeout=self.timeout)
+                sock = self._dial()
             except OSError:
+                # rotate to the next replica before backing off — a
+                # dead endpoint must not serialize the whole list
+                # behind its own backoff ladder
+                self._endpoint_idx += 1
                 jitter = random.uniform(0, backoff * 0.25)
                 time.sleep(backoff + jitter)
                 backoff = min(backoff * 2, self.reconnect_max)
@@ -243,12 +303,22 @@ class RemoteAPIServer:
                 # proceeds (a true transport loss surfaces through the
                 # reader thread's disconnect signal regardless)
                 self.codec = protocol.CODEC_JSON
+            if self._must_lead and not self._leader_check():
+                # connected to a follower while this client must sit on
+                # the leader (admission endpoint): redial at the leader
+                self._connected.clear()
+                self._teardown_socket(sock)
+                self._fail_pending(BusError("redialing at the bus leader"))
+                time.sleep(min(0.2, self.reconnect_max))
+                continue
             self._resync_session()
             # serve control messages until the reader reports loss
             while not self._closed:
                 item = self._ctl.get()
                 if item[0] == "disconnect":
                     break
+                if item[0] == "redial":
+                    break  # e.g. leader moved — reconnect at the hint
                 if item[0] == "resync":
                     self._resync_session()
                 if item[0] == "unsubscribe":
@@ -298,6 +368,26 @@ class RemoteAPIServer:
             self.codec = protocol.CODEC_JSON
             metrics.register_bus_codec_fallback()
 
+    def _leader_check(self) -> bool:
+        """True when the connected peer can host this client (leader,
+        standalone, or a pre-v5 server).  On a follower: point the
+        endpoint cursor at the reported leader and return False."""
+        try:
+            status = self.bus_status()
+        except (ApiError, OSError):
+            return True  # can't tell — stay; calls will surface errors
+        if status.get("role") != "follower":
+            return True
+        leader = status.get("leader")
+        if not leader:
+            return False  # election in progress — retry shortly
+        if leader not in self.endpoints:
+            self.endpoints.append(leader)
+        self._endpoint_idx = self.endpoints.index(leader)
+        log.info("bus %s is a follower; redialing at leader %s",
+                 self.address, leader)
+        return False
+
     def _resync_session(self) -> None:
         """After (re)connect: re-register admission endpoints, then
         re-establish every watch with resume-or-relist.  Each item is
@@ -314,6 +404,10 @@ class RemoteAPIServer:
             except (ApiError, OSError) as e:
                 log.error("bus admission re-register %s/%s failed: %s",
                           kind, operation, e)
+                if "not leader" in str(e):
+                    # this peer became a follower — redial at the leader
+                    self._ctl.put(("redial",))
+                    return
                 failed = True
         with self._watch_lock:
             states = list(self._watches.values())
@@ -359,6 +453,12 @@ class RemoteAPIServer:
                 mtype, corr_id, payload = protocol.recv_frame(sock)
             except (ConnectionError, OSError, ValueError):
                 if self._sock is sock:
+                    # no reply can come on this connection: fail its
+                    # calls now, not at their timeout (the connection
+                    # thread itself may be parked in one, the codec
+                    # hello or the leader check of a fresh dial)
+                    self._lost_sock = sock
+                    self._fail_pending(BusError("bus connection lost"))
                     self._ctl.put(("disconnect",))
                 return
             if mtype in (protocol.T_RESP, protocol.T_PONG):
@@ -482,6 +582,8 @@ class RemoteAPIServer:
             with self._send_lock:
                 protocol.send_frame(sock, mtype, req_id, payload,
                                     codec=self.codec)
+            if sock is self._lost_sock:
+                raise BusError("bus connection lost")
         except (OSError, BusError) as e:
             with self._pending_lock:
                 self._pending.pop(req_id, None)
@@ -500,9 +602,48 @@ class RemoteAPIServer:
             raise waiter["error"]
         if waiter["error_payload"] is not None:
             metrics.observe_bus_request(method, time.perf_counter() - start, "error")
+            leader = waiter["error_payload"].get("leader")
+            if leader:
+                # leader-hint redial: a "not leader" answer NAMES the
+                # current leader — steer the endpoint cursor there and
+                # reconnect directly instead of rotating the list
+                # blindly (each blind rotation costs a dial + probe;
+                # the hint collapses the failover/proxy tail to one
+                # reconnect).  Debounced: one hint per second at most.
+                self._note_leader(leader)
             protocol.raise_error(waiter["error_payload"])
         metrics.observe_bus_request(method, time.perf_counter() - start, "ok")
         return waiter["result"]
+
+    def _note_leader(self, leader: str) -> None:
+        """Point the endpoint cursor at a hinted leader so the NEXT
+        dial — a reconnect after a failure, or a ``_must_lead``
+        leader-chase — goes straight there instead of rotating the
+        list blindly.  Mirrors ``_leader_check``'s cursor discipline
+        (benign races: worst case the list briefly holds a duplicate
+        entry).
+
+        Only a ``_must_lead`` client redials IMMEDIATELY: for everyone
+        else the hinted write already failed typed and the caller's
+        retry flows through the live connection once the proxy heals.
+        Tearing down a healthy follower connection on every hint was
+        worse than blind rotation — mid-failover the hint names the
+        JUST-DEAD leader (the follower's stale view), and the
+        pointless redial both pays a dead dial and forces the watch
+        resume onto whatever epoch the reconnect lands on (the
+        zero-relist failover pin caught exactly that churn)."""
+        if leader not in self.endpoints:
+            self.endpoints.append(leader)
+        self._endpoint_idx = self.endpoints.index(leader)
+        now = time.monotonic()
+        if (
+            self._must_lead
+            and leader != self.address
+            and now - self._last_hint_redial >= 1.0
+        ):
+            self._last_hint_redial = now
+            self._ctl.put(("redial",))
+
 
     # ---- the APIServer surface ----
 
@@ -531,6 +672,41 @@ class RemoteAPIServer:
                 log.warning("bus %s does not speak bus_status (old peer)", self.address)
                 self._no_bus_status = True
         return {"role": "unknown", "persistent": False}
+
+    def _membership_call(self, op: str, url: str, verb: str) -> dict:
+        """Shared driver for the VBUS v7 membership ops.  Routed to the
+        leader (a follower proxies).  A pre-v7 server answers ``unknown
+        bus op``: dynamic membership then fails with a typed error — no
+        fallback CAN exist, an old peer has no membership log to record
+        the change in (version skew costs the elastic feature, never
+        group safety)."""
+        try:
+            # the leader may wait for a joiner's catch-up (or probe the
+            # shrunk group's reachability) before logging the config
+            # record — give it room beyond the default per-call budget
+            return self._call({"op": op, "url": url},
+                              timeout=max(self.timeout, 30.0))
+        except BusError:
+            raise  # transport failure — NOT a capability signal
+        except ApiError as e:
+            if "unknown bus op" not in str(e):
+                raise
+            raise ApiError(
+                "bus does not support dynamic membership (pre-v7 "
+                f"peer) — {verb} refused"
+            ) from e
+
+    def bus_add_replica(self, url: str) -> dict:
+        """Admit one new replica to the replication group (protocol v7;
+        ``vtctl bus add-replica``)."""
+        return self._membership_call("bus_add_replica", url,
+                                     "add-replica")
+
+    def bus_remove_replica(self, url: str) -> dict:
+        """Retire one replica from the replication group (protocol v7;
+        ``vtctl bus remove-replica``)."""
+        return self._membership_call("bus_remove_replica", url,
+                                     "remove-replica")
 
     def create(self, obj):
         resp = self._call({"op": "create", "object": protocol.encode_obj(obj)})
@@ -603,6 +779,107 @@ class RemoteAPIServer:
             conditions=conditions, pod_groups=pod_groups,
         )
 
+    def cas_bind(self, namespace: str, name: str, hostname: str,
+                 expected_rv=None):
+        """Optimistic binding write (protocol v4): one round trip that
+        binds the pod iff it is still unbound and its resourceVersion
+        matches — the federation spillover primitive.  A pre-v4 server
+        answers ``unknown bus op``; the client then degrades PERMANENTLY
+        (per connection lifetime) to the get + CAS ``update``
+        equivalent.  The at-most-once-bind invariant survives the skew
+        unchanged (the conflict is still detected at the store via the
+        expected resourceVersion); the one semantic difference is that
+        ``update`` runs the server's UPDATE admission chain, which the
+        native op skips like any binding subresource — against an old
+        server, a Pod-UPDATE webhook can therefore observe (and reject)
+        spillover binds.  A rejected bind counts as a spillover error
+        and is retried next cycle, never silently dropped."""
+        if not self._no_cas_bind:
+            try:
+                resp = self._call({
+                    "op": "cas_bind", "namespace": namespace,
+                    "name": name, "hostname": hostname,
+                    "expected_rv": expected_rv,
+                })
+                return protocol.decode_obj(resp["object"])
+            except BusError:
+                raise  # transport failure — NOT a capability signal
+            except ApiError as e:
+                if "unknown bus op" not in str(e):
+                    raise
+                log.warning(
+                    "bus %s does not speak cas_bind (old peer); "
+                    "falling back to get + CAS update", self.address,
+                )
+                self._no_cas_bind = True
+        pod = self.get("Pod", namespace, name)
+        if pod is None:
+            raise NotFoundError(f"Pod {namespace}/{name} not found")
+        if pod.spec.node_name:
+            raise ConflictError(
+                f"pod {namespace}/{name} already bound to "
+                f"{pod.spec.node_name}"
+            )
+        if (
+            expected_rv is not None
+            and pod.metadata.resource_version != expected_rv
+        ):
+            raise ConflictError(
+                f"Pod {namespace}/{name} resourceVersion "
+                f"{pod.metadata.resource_version} != expected {expected_rv}"
+            )
+        pod.spec.node_name = hostname
+        return self.update(pod, expected_rv=pod.metadata.resource_version)
+
+    def txn_commit(self, binds=()):
+        """Atomic multi-``cas_bind`` transaction (protocol v6): N
+        conditional binds checked and applied all-or-nothing in one
+        server-side store lock hold — the cross-shard gang-assembly
+        primitive.  Returns the ``{committed, results, objects}`` shape
+        of :meth:`client.apiserver.APIServer.txn_commit`.
+
+        A pre-v6 server answers ``unknown bus op``; the client then
+        degrades PERMANENTLY (per connection lifetime) to an ABORT —
+        ``committed: False`` with every item marked unsupported and
+        ``reason: "unsupported"`` — and NEVER to a per-object replay: a
+        sequence of single binds against an old peer could crash or
+        conflict halfway and strand a partial gang, which is exactly
+        the state the transaction exists to forbid.  Version skew costs
+        the cross-shard gang feature, never the no-partial-gang
+        invariant (the caller stays in the pre-v6 refusal mode)."""
+        binds = list(binds)
+        if not self._no_txn_commit:
+            try:
+                resp = self._call({"op": "txn_commit", "binds": binds})
+                return {
+                    "committed": resp["committed"],
+                    "results": resp["results"],
+                    "objects": [
+                        protocol.decode_obj(d)
+                        for d in resp.get("objects", ())
+                    ],
+                }
+            except BusError:
+                raise  # transport failure — NOT a capability signal
+            except ApiError as e:
+                if "unknown bus op" not in str(e):
+                    raise
+                log.warning(
+                    "bus %s does not speak txn_commit (old peer); "
+                    "atomic multi-object transactions abort — no "
+                    "per-object fallback can be atomic", self.address,
+                )
+                self._no_txn_commit = True
+        return {
+            "committed": False,
+            "results": [
+                "unsupported: pre-v6 bus cannot apply an atomic "
+                "multi-object transaction"
+            ] * len(binds),
+            "objects": [],
+            "reason": "unsupported",
+        }
+
     def record_event(
         self,
         namespace: str,
@@ -628,6 +905,9 @@ class RemoteAPIServer:
         key = (kind, operation)
         first = key not in self._admission
         self._admission.setdefault(key, []).append(hook)
+        #: reviews are forwarded by the leader — from now on this client
+        #: chases the leader across reconnects (replicated apiservers)
+        self._must_lead = True
         if first and self._connected.is_set():
             try:
                 self._call({"op": "register_admission", "kind": kind,
@@ -639,7 +919,13 @@ class RemoteAPIServer:
                 # an unregistered webhook fails OPEN on the server side
                 log.error("bus admission register %s/%s failed: %s",
                           kind, operation, e)
-                self._ctl.put(("resync",))
+                if "not leader" in str(e):
+                    # we sit on a follower: break the connection so the
+                    # reconnect (with _must_lead set) lands on the
+                    # leader, where the resync replays the registration
+                    self._ctl.put(("redial",))
+                else:
+                    self._ctl.put(("resync",))
 
     def watch(self, kind: str, handler: WatchHandler,
               send_initial: bool = True) -> None:

@@ -1,7 +1,8 @@
 """``BusServer`` — the network face of the in-process API server.
 
-A copy of ``volcano_tpu/bus/server.py`` for the volatile store: wraps a
-``client.apiserver.APIServer`` behind the frame protocol in
+A copy of ``volcano_tpu/bus/server.py``: wraps a
+``client.apiserver.APIServer`` store (volatile, or the WAL-backed
+``bus.PersistentAPIServer``) behind the frame protocol in
 ``bus.protocol`` over TCP, so a ``RemoteAPIServer`` of the port or of
 the JAX package talks to it as to the reference's server.
 
@@ -27,11 +28,11 @@ decoupled through per-connection outbound queues so a slow or dead peer
 can never stall the store — it overflows its queue and is disconnected,
 after which it resyncs via resume-or-relist.
 
-``bus_status`` answers the wrapped store's status (``{"role":
-"standalone", "persistent": false}`` and its daemon's /metrics
-address).  With the flight recorder on, a request that carries a span
-context (``payload["span"]``) runs inside an adopted ``bus:<op>`` span,
-the child of the client's span in the other process.
+``bus_status`` answers the wrapped store's status (role, persistence,
+WAL and replication fields, its daemon's /metrics address).  With the
+flight recorder on, a request that carries a span context
+(``payload["span"]``) runs inside an adopted ``bus:<op>`` span, the
+child of the client's span in the other process.
 
 * **Remote admission**: a connection may register as the webhook for a
   (kind, operation) (``register_admission``); creates and updates of
@@ -40,12 +41,20 @@ the child of the client's span in the other process.
   touching the store (a reviewer that disconnects mid-review fails
   open).  A closed connection's registrations are dropped.
 
+* **Durability and replication**: over a persistent store the bus
+  sequence, epoch and watch backlog are the store's durable ones, so a
+  restarted server (or a promoted follower) resumes client cursors
+  instead of forcing a relist.  With a ``replica`` (bus/replication.py)
+  a follower proxies the write ops to its leader and answers the
+  ``repl_*`` log-shipping and membership ops; ``bus_status`` carries the
+  replica's role, term, followers and lag.
+* **Same-host rings**: with ``VTPU_BUS_SHM`` set the server also
+  listens on the shm transport (bus/shm.py) next to TCP; the frames are
+  the same.
+
 An op the server does not have is answered with the reference's typed
 ``unknown bus op`` error, so a client of the reference takes its
-old-peer fallback.  Not present in the port yet, each waiting for its
-caller: ``cas_bind`` and ``txn_commit`` (federation), the durable
-store's resume surface, the replication and membership ops and the shm
-listener (WAL, replication, shm).
+old-peer fallback.
 """
 
 from __future__ import annotations
@@ -58,7 +67,9 @@ import uuid
 from typing import Dict, List, Optional, Tuple
 
 from volcano_tpu_torch import metrics, obs, trace
-from volcano_tpu_torch.bus import protocol
+from volcano_tpu_torch.bus import protocol, shm
+from volcano_tpu_torch.bus.protocol import NotLeaderError
+from volcano_tpu_torch.bus.wal import bus_status_payload
 from volcano_tpu_torch.client.apiserver import AdmissionError, ApiError, APIServer
 from volcano_tpu_torch.utils.logging import get_logger
 
@@ -327,6 +338,7 @@ class BusServer:
         backlog_size: int = 4096,
         bookmark_interval: float = 2.0,
         admission_timeout: float = 10.0,
+        replica=None,
     ):
         self.api = api
         self.host = host
@@ -334,11 +346,21 @@ class BusServer:
         self.backlog_size = backlog_size
         self.bookmark_interval = bookmark_interval
         self.admission_timeout = admission_timeout
+        #: replication role manager (bus/replication.py): routes write
+        #: ops to the leader while this replica follows, and serves the
+        #: repl_* log-shipping ops while it leads.  None = standalone.
+        self.replica = replica
         #: epoch: identifies the resume-token space.  A volatile store
         #: mints a fresh one per incarnation, so a resume token from
         #: another incarnation can never be judged against our sequence
-        #: numbers → relist-required
-        self.epoch = uuid.uuid4().hex
+        #: numbers → relist-required; a persistent store carries its
+        #: epoch in the data-dir meta — shared across restarts and
+        #: across replicas — so surviving cursors resume instead.
+        self._own_epoch = uuid.uuid4().hex
+        #: durable stores restore the sequence + backlog at start();
+        #: afterwards the central watchers keep _seq in lockstep with
+        #: the store's committed event stream (see _make_central_watcher)
+        self._persistent = hasattr(api, "current_event_seq")
         self._seq = 0  # guarded-by: self.api.locked()
         #: retained watch entries (cached-payload wrappers, shared with
         #: every subscriber queue)
@@ -357,9 +379,17 @@ class BusServer:
         self._listener: Optional[socket.socket] = None
         self._conns: List[_Conn] = []  # guarded-by: self._conns_lock
         self._conns_lock = threading.Lock()
+        #: same-host shared-memory ring listener (bus/shm.py), opened
+        #: next to the TCP listener when VTPU_BUS_SHM is set; None when
+        #: the transport is off or could not come up (TCP still serves)
+        self._shm_listener = None
         self._stop = threading.Event()
 
     # ---- lifecycle ----
+
+    @property
+    def epoch(self) -> str:
+        return getattr(self.api, "epoch", "") or self._own_epoch
 
     @property
     def port(self) -> int:
@@ -387,6 +417,16 @@ class BusServer:
                     raise
                 time.sleep(0.05)
         self._listener.listen(64)
+        if self._persistent:
+            # recovery restores the resume surface: the store's durable
+            # event seq and recent-event ring become this incarnation's
+            # sequence + backlog, so clients whose cursor survived the
+            # restart resume instead of relisting
+            with self.api.locked():
+                self._seq = self.api.event_seq
+                self._backlog = [
+                    _CachedPayload(e) for e in self.api.recent_events()
+                ][-self.backlog_size:]
         for kind in protocol.KINDS:
             handler = self._make_central_watcher(kind)
             self.api.watch(kind, handler, send_initial=False)
@@ -400,16 +440,38 @@ class BusServer:
         accept.start()
         bookmark.start()
         log.info("bus serving on %s:%d (epoch %s)", self.host, self.port, self.epoch[:8])
+        if shm.shm_enabled():
+            # same-host ring transport: rendezvous derived from the TCP
+            # port, so clients need no extra discovery.  Failure to come
+            # up is never fatal — TCP serves regardless.
+            try:
+                self._shm_listener = shm.ShmListener(self.port).start(self._adopt_conn)
+                log.info("bus shm rings at %s", self._shm_listener.dir)
+            except Exception as e:  # noqa: BLE001 — transport is optional
+                log.warning("bus shm listener unavailable (%s); TCP only", e)
+                self._shm_listener = None
         return self
 
     def stop(self) -> None:
         self._stop.set()
         if self._listener is not None:
+            # shutdown first: the accept thread blocked in accept() keeps
+            # a closed listener listening, and a client redialing the
+            # port (a restart on it, a failover probe) would be accepted
+            # by this dead incarnation and wait out its call timeout
+            for close in (lambda: self._listener.shutdown(socket.SHUT_RDWR),
+                          self._listener.close):
+                try:
+                    close()
+                except OSError:
+                    pass
+            self._listener = None
+        if self._shm_listener is not None:
             try:
-                self._listener.close()
+                self._shm_listener.stop()
             except OSError:
                 pass
-            self._listener = None
+            self._shm_listener = None
         with self._conns_lock:
             conns = list(self._conns)
         for conn in conns:
@@ -433,13 +495,25 @@ class BusServer:
             # requires-lock: self.api.locked()
             # (store watchers fire under the store lock — the
             # _notify discipline documented on APIServer.locked)
-            self._seq += 1
+            encoded = None
+            if self._persistent:
+                # lockstep with the durable stream: the persistent
+                # store stamps each committed event's seq just before
+                # flushing its notification (wal.py), so bus sequence
+                # numbers survive restarts and match across replicas;
+                # the port's store also hands over the event's encoded
+                # objects, the ones its WAL record carries
+                self._seq = self.api.current_event_seq
+                encoded = getattr(self.api, "current_event_encoded", None)
+            else:
+                self._seq += 1
+            old_d, new_d = encoded or (protocol.encode_obj(old), protocol.encode_obj(new))
             entry = _CachedPayload({
                 "seq": self._seq,
                 "kind": kind,
                 "event": event,
-                "old": protocol.encode_obj(old),
-                "new": protocol.encode_obj(new),
+                "old": old_d,
+                "new": new_d,
                 "ts": time.time(),
             })
             self._backlog.append(entry)
@@ -615,8 +689,22 @@ class BusServer:
             conn.push(protocol.T_ERROR, req_id, protocol.error_payload(ApiError(str(e))))
             metrics.observe_bus_server_request(op, time.perf_counter() - start, "error")
 
+    #: ops that mutate (or linearizably read) the store — while this
+    #: server is a replication FOLLOWER they are proxied to the leader,
+    #: so a client connected anywhere keeps working; watches and lists
+    #: stay local (informer-grade staleness, the k8s contract).  ``get``
+    #: is routed too: read-modify-CAS loops (leader leases, queue
+    #: updates) need their read against the write point or every CAS
+    #: would spuriously conflict on follower lag.
+    _LEADER_OPS = frozenset({
+        "create", "update", "update_status", "delete",
+        "cas_bind", "commit_batch", "txn_commit", "get",
+        "bus_add_replica", "bus_remove_replica",
+    })
+
     def _execute(self, conn: _Conn, req_id: int, payload: dict, op: str):
         api = self.api
+        replica = self.replica
         if op == "bus_hello":
             # v8 codec negotiation — the codec is a property of THIS
             # connection.  The reply rides the freshly negotiated codec;
@@ -629,8 +717,56 @@ class BusServer:
                 conn.codec = protocol.CODEC_JSON
             self._update_codec_gauge()
             return {"codec": conn.codec, "version": protocol.VERSION}
+        if replica is not None and not replica.is_leader:
+            if op in self._LEADER_OPS:
+                if payload.get("proxied"):
+                    # one-hop cap: our leader view is stale — tell the
+                    # proxying peer instead of bouncing frames around;
+                    # the hint carries OUR leader view so the caller's
+                    # next dial is direct, not a blind rotation
+                    raise NotLeaderError(
+                        "not leader (proxied write refused)",
+                        leader=replica.leader_url,
+                    )
+                return replica.proxy(payload)
+            if op == "register_admission":
+                raise NotLeaderError(
+                    "not leader — register_admission must run at the "
+                    f"leader ({replica.leader_url or 'unknown'})",
+                    leader=replica.leader_url,
+                )
         if op == "bus_status":
-            return api.bus_status()
+            return bus_status_payload(api, replica)
+        if op == "repl_append":
+            if replica is None:
+                raise ApiError("replication not enabled")
+            # the connection's codec decides HOW record payloads ship
+            # (raw bytes on binary connections, text/base64 on JSON) —
+            # see ReplicationCoordinator.pull for the byte-verbatim rule
+            return replica.handle_append(payload, codec=conn.codec)
+        if op == "repl_snapshot":
+            if replica is None:
+                raise ApiError("replication not enabled")
+            return replica.handle_snapshot(payload)
+        if op == "repl_commit":
+            if replica is None:
+                raise ApiError("replication not enabled")
+            return replica.handle_commit(payload)
+        if op == "repl_prevote":
+            if replica is None:
+                raise ApiError("replication not enabled")
+            # served by ANY role: a pre-vote probe asks "would you
+            # support my promotion", which followers (and the leader,
+            # who always denies) answer locally
+            return replica.handle_prevote(payload)
+        if op == "bus_add_replica":
+            if replica is None:
+                raise ApiError("replication not enabled")
+            return replica.add_replica(str(payload.get("url", "")))
+        if op == "bus_remove_replica":
+            if replica is None:
+                raise ApiError("replication not enabled")
+            return replica.remove_replica(str(payload.get("url", "")))
         if op == "create":
             obj = protocol.decode_obj(payload["object"])
             obj = self._remote_admission(obj.kind, "CREATE", obj)
@@ -667,6 +803,29 @@ class BusServer:
                 ],
             )
             return {"results": results}
+        if op == "cas_bind":
+            # v4: one optimistic binding write — bind iff still unbound
+            # and the resourceVersion matches (the federation spillover
+            # primitive; conflicts detected at the store, Omega-style)
+            obj = api.cas_bind(
+                payload["namespace"], payload["name"], payload["hostname"],
+                expected_rv=payload.get("expected_rv"),
+            )
+            return {"object": protocol.encode_obj(obj)}
+        if op == "txn_commit":
+            # v6: the atomic multi-cas_bind transaction — every
+            # precondition checked before any effect, all binds applied
+            # under one store lock hold (a persistent store logs them as
+            # ONE WAL record), per-item conflict results on abort.  The
+            # cross-shard gang-assembly primitive.
+            result = api.txn_commit(payload.get("binds", ()))
+            return {
+                "committed": result["committed"],
+                "results": result["results"],
+                "objects": [
+                    protocol.encode_obj(o) for o in result.get("objects", ())
+                ],
+            }
         if op == "watch":
             self._handle_watch(conn, req_id, payload)
             return None  # responses pushed inline for ordering

@@ -17,6 +17,10 @@ the port has:
                           the incident bundles the SLO watchdog (or an
                           operator) captures
   vtctl faults validate   parse a fault schedule and print it normalized
+  vtctl bus status|add-replica|remove-replica
+                          the durable, replicated store: role, leader,
+                          term, WAL and snapshot, follower lag; dynamic
+                          membership of the replication group
   vtctl lint              the port's static-analysis suite
                           (``python -m volcano_tpu_torch.analysis``)
 
@@ -32,9 +36,8 @@ Usage: python -m volcano_tpu_torch.cli.vtctl [--bus URL] job run -N NAME
        python -m volcano_tpu_torch.cli.vtctl [--bus URL] trace pod -N NAME
 
 Not present in the port yet, each waiting for its caller: ``shards``
-(federation), ``bus status|add-replica|remove-replica`` (WAL and
-replication) and ``explore`` (the interleaving explorer, whose machines
-drive replication, federation's leases and ``txn_commit``).
+(federation) and ``explore`` (the interleaving explorer, whose lease
+machine drives federation's leases).
 """
 
 from __future__ import annotations
@@ -416,6 +419,97 @@ def _describe_podgroup(vc: VolcanoClient, args, out) -> int:
 
     _describe_scheduling(vc, args.namespace, args.name, pg, belongs, out)
     return 0
+
+
+# ---- bus (the replicated persistent bus observability surface) ----
+
+def _bus_status(vc: VolcanoClient, args, out) -> int:
+    """Render the bus durability/replication status: role, leader
+    identity, term/epoch, applied + committed sequence, WAL/snapshot
+    sizes and fsync stats, and per-follower replication lag (entries +
+    ms).  Reads ONLY the ``bus_status`` payload (stored/derived state,
+    no call-time clocks), so the output is byte-identical over the
+    in-process backend and ``--bus`` for the same store state — the
+    ``vtctl shards`` discipline."""
+    api = vc.api
+    st = api.bus_status() if hasattr(api, "bus_status") else {
+        "role": "standalone", "persistent": False,
+    }
+    print(f"Role:               {st.get('role', 'unknown')}", file=out)
+    if st.get("identity"):
+        print(f"Identity:           {st['identity']} "
+              f"(index {st.get('index', '?')} of "
+              f"{st.get('replicas', '?')})", file=out)
+    if "leader" in st:
+        print(f"Leader:             {st.get('leader') or '<none elected>'}",
+              file=out)
+    print(f"Persistent:         {str(bool(st.get('persistent'))).lower()}",
+          file=out)
+    if not st.get("persistent"):
+        return 0
+    print(f"Epoch:              {st.get('epoch', '')}", file=out)
+    print(f"Term:               {st.get('term', 0)}", file=out)
+    if "membership_epoch" in st:
+        members = ", ".join(st.get("membership", ()))
+        print(f"Membership:         epoch {st['membership_epoch']} "
+              f"[{members}]", file=out)
+    print(f"Applied seq:        {st.get('seq', 0)}", file=out)
+    if "commit_seq" in st:
+        print(f"Committed seq:      {st['commit_seq']}", file=out)
+    if "quorum" in st:
+        print(f"Quorum:             {st['quorum']} of "
+              f"{st.get('replicas', 1)}", file=out)
+    print(f"WAL:                {st.get('wal_size_bytes', 0)} bytes, "
+          f"{st.get('wal_records', 0)} records since snapshot", file=out)
+    print(f"Snapshot:           {st.get('snapshot_size_bytes', 0)} bytes "
+          f"@ seq {st.get('snapshot_seq', 0)}", file=out)
+    print(f"Last fsync:         {st.get('last_fsync_ms', 0)} ms "
+          f"at {st.get('last_fsync_ts', 0)}", file=out)
+    if "wal_codec" in st:
+        print(f"WAL codec:          {st['wal_codec']}", file=out)
+    followers = st.get("followers", {})
+    if followers:
+        print("Followers:", file=out)
+        print(f"  {'ID':<22}{'ACKED':<9}{'LAG':<7}{'LAG-MS':<9}"
+              f"{'CODEC':<7}", file=out)
+        for fid in sorted(followers):
+            f = followers[fid]
+            print(
+                f"  {fid:<22}{f.get('acked_seq', 0):<9}"
+                f"{f.get('lag_entries', 0):<7}{f.get('lag_ms', 0):<9g}"
+                f"{f.get('codec', 'json'):<7}",
+                file=out,
+            )
+    elif st.get("role") == "leader" and int(st.get("replicas", 1)) > 1:
+        print("Followers:          <none attached>", file=out)
+    return 0
+
+
+def _bus_membership_change(vc: VolcanoClient, args, out, what: str) -> int:
+    """Shared driver for ``bus add-replica`` / ``bus remove-replica``:
+    sends the VBUS v7 membership op (the server routes it to the
+    leader) and renders the committed config."""
+    api = vc.api
+    method = getattr(api, f"bus_{what}_replica", None)
+    if method is None:
+        # the in-process backend has no replication group to change
+        print("error: dynamic membership needs a replicated bus — "
+              "connect with --bus tcp://...", file=out)
+        return 1
+    res = method(args.url)
+    members = "\n".join(f"  {u}" for u in res.get("endpoints", ()))
+    print(f"membership change committed at seq {res.get('seq', 0)} "
+          f"(epoch {res.get('epoch', 0)}):", file=out)
+    print(members, file=out)
+    return 0
+
+
+def _bus_add_replica(vc: VolcanoClient, args, out) -> int:
+    return _bus_membership_change(vc, args, out, "add")
+
+
+def _bus_remove_replica(vc: VolcanoClient, args, out) -> int:
+    return _bus_membership_change(vc, args, out, "remove")
 
 
 # ---- the cycle journal (cmd/trace.py's commands) ----
@@ -855,6 +949,35 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--name", "-N", required=True)
         p.add_argument("--namespace", "-n", default="default")
 
+    bus_p = sub.add_parser(
+        "bus",
+        description="replicated persistent bus (WAL + leader/follower "
+        "apiserver HA)",
+    ).add_subparsers(dest="cmd", required=True)
+    bus_p.add_parser(
+        "status",
+        description="role, leader identity, term, WAL/snapshot sizes, "
+        "fsync stats, per-follower replication lag, membership epoch",
+    )
+    bus_add = bus_p.add_parser(
+        "add-replica",
+        description="admit ONE new replica to the running replication "
+        "group (dynamic membership, VBUS v7): start the new "
+        "vtpu-apiserver with --replicas listing the whole new group "
+        "(itself last) so it catches up as a learner, then run this — "
+        "the leader logs a replicated membership record once the "
+        "joiner's lag has closed",
+    )
+    bus_add.add_argument("url", help="the joiner's bus endpoint "
+                         "(tcp://host:port)")
+    bus_rm = bus_p.add_parser(
+        "remove-replica",
+        description="retire ONE replica from the running group; "
+        "refused when the remaining members could not commit a write "
+        "(reachable-majority floor) or when aimed at the leader",
+    )
+    bus_rm.add_argument("url", help="the retiring replica's bus endpoint")
+
     trace_p = sub.add_parser(
         "trace", description="cycle journal: record, replay, diff, export; "
         "flight recorder: pod, gang"
@@ -993,6 +1116,9 @@ _HANDLERS = {
     ("trace", "pod"): _trace_pod,
     ("trace", "gang"): _trace_gang,
     ("faults", "validate"): _faults_validate,
+    ("bus", "status"): _bus_status,
+    ("bus", "add-replica"): _bus_add_replica,
+    ("bus", "remove-replica"): _bus_remove_replica,
     # the singular alias parses with group="incident"
     **{(group, cmd): handler
        for group in ("incidents", "incident")

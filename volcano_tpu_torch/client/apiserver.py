@@ -14,10 +14,15 @@ server relays it): this volatile store is standalone and not
 persistent, and names its daemon's /metrics address once the daemon has
 set ``metrics_address``.
 
+Beside ``commit_batch`` stand the two conditional binding writes:
+``cas_bind`` (bind one pod iff it is still unbound, and its
+resourceVersion matches when given) and ``txn_commit`` (N such binds
+all or nothing, under one lock hold).  ``bus.PersistentAPIServer``
+logs each of these transactions as one WAL record.
+
 Admission hooks (``register_admission``) run in ``create`` and
 ``update``, under the store lock, inside an ``admission:review`` span
-when the flight recorder is on.  Not present in the port yet: the
-federation primitives ``cas_bind`` and ``txn_commit``.
+when the flight recorder is on.
 """
 
 from __future__ import annotations
@@ -322,6 +327,122 @@ class APIServer:
                 self, binds=binds, evicts=evicts, events=events,
                 conditions=conditions, pod_groups=pod_groups,
             )
+
+    def cas_bind(self, namespace: str, name: str, hostname: str,
+                 expected_rv: Optional[int] = None):
+        """Optimistic-concurrency binding write: set the pod's nodeName
+        iff it is still unbound (and, when ``expected_rv`` is given, its
+        resourceVersion is unchanged) — one atomic check-and-bind under
+        the store lock.  The federation spillover primitive: concurrent
+        schedulers racing for one pod resolve HERE, at the store, with a
+        ConflictError for the loser (Omega-style shared-state
+        concurrency; PAPERS.md).  Like the binding subresource it skips
+        admission."""
+        with self._lock:
+            pod = self._store.get("Pod", {}).get(f"{namespace}/{name}")
+            if pod is None:
+                raise NotFoundError(f"Pod {namespace}/{name} not found")
+            if pod.spec.node_name:
+                raise ConflictError(
+                    f"pod {namespace}/{name} already bound to "
+                    f"{pod.spec.node_name}"
+                )
+            if (
+                expected_rv is not None
+                and pod.metadata.resource_version != expected_rv
+            ):
+                raise ConflictError(
+                    f"Pod {namespace}/{name} resourceVersion "
+                    f"{pod.metadata.resource_version} != expected "
+                    f"{expected_rv}"
+                )
+            bound = pod.clone()
+            bound.spec.node_name = hostname
+            return self.update_status(bound)
+
+    def txn_commit(self, binds=()) -> Dict[str, object]:
+        """Atomic multi-object transaction: apply N ``cas_bind``s
+        all-or-nothing under ONE store lock hold — the product of
+        ``commit_batch`` (N effects, one transaction) and ``cas_bind``
+        (conditional single-object bind), and the primitive cross-shard
+        gang assembly stands on (the reference's federation/broker.py): a gang placed
+        partly at home and partly on foreign shards either binds whole
+        or not at all, so no observer — watcher, scheduler, or a crash
+        — can ever see a partial gang.
+
+        ``binds`` items: ``{namespace, name, hostname, expected_rv?}``.
+        Every precondition (pod exists, still unbound, resourceVersion
+        matches when given) is checked before ANY effect lands; the
+        return is::
+
+            {"committed": bool,
+             "results": [None | "<error>" per item, input order],
+             "objects": [bound pods] when committed, else []}
+
+        On abort the per-item results say exactly which claim went
+        stale (the caller discards the whole assembly and retries with
+        fresh truth — the Omega conflict model, gang-sized).  Like the
+        binding subresource it skips admission.  The persistent store
+        overrides this to log the whole transaction as ONE WAL record
+        riding the atomic ``commit_batch`` path, replicated and
+        quorum-acked as a unit."""
+        binds = list(binds)
+        with self._lock:
+            results: List[Optional[str]] = []
+            pods = []
+            seen: set = set()
+            for b in binds:
+                key = f"{b['namespace']}/{b['name']}"
+                pod = self._store.get("Pod", {}).get(key)
+                err = None
+                if key in seen:
+                    # two claims for one pod in one transaction: the
+                    # sequential cas_bind equivalent would conflict on
+                    # the second — committing last-write-wins would let
+                    # a buggy planner believe two slots landed
+                    err = (
+                        f"ConflictError: duplicate claim for Pod {key} "
+                        f"in one transaction"
+                    )
+                elif not b.get("hostname"):
+                    # malformed items must abort in the SWEEP — a
+                    # KeyError in the apply loop would land after
+                    # earlier binds, creating the durable partial gang
+                    # this op exists to forbid (the wire hands client
+                    # payloads straight here)
+                    err = (
+                        f"ApiError: bind item for Pod {key} is missing "
+                        f"a hostname"
+                    )
+                elif pod is None:
+                    err = f"NotFoundError: Pod {key} not found"
+                elif pod.spec.node_name:
+                    err = (
+                        f"ConflictError: pod {key} already bound to "
+                        f"{pod.spec.node_name}"
+                    )
+                elif (
+                    b.get("expected_rv") is not None
+                    and pod.metadata.resource_version != b["expected_rv"]
+                ):
+                    err = (
+                        f"ConflictError: Pod {key} resourceVersion "
+                        f"{pod.metadata.resource_version} != expected "
+                        f"{b['expected_rv']}"
+                    )
+                seen.add(key)
+                results.append(err)
+                pods.append(pod)
+            if any(results):
+                return {"committed": False, "results": results,
+                        "objects": []}
+            out = []
+            for b, pod in zip(binds, pods):
+                bound = pod.clone()
+                bound.spec.node_name = b["hostname"]
+                out.append(self.update_status(bound))
+            return {"committed": True, "results": [None] * len(binds),
+                    "objects": out}
 
     def list(self, kind: str, namespace: Optional[str] = None) -> List:
         with self._lock:

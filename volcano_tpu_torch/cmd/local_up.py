@@ -1,9 +1,11 @@
 """vtpu-local-up — bring up the whole control plane.
 
-A copy of ``volcano_tpu/cmd/local_up.py`` for one volatile apiserver:
-the replicated persistent bus (``--apiserver-replicas``,
-``--apiserver-data-dir``, ``--repl-lease-ttl``) and the shared-memory
-transport wait for replication, WAL and shm.  ``--device`` (``cuda`` by
+A copy of ``volcano_tpu/cmd/local_up.py``.  With ``--multiproc``,
+``--apiserver-replicas N`` spawns the replicated persistent bus (N
+apiserver children with per-replica WAL directories under
+``--apiserver-data-dir``, lease ``--repl-lease-ttl``), and the children
+and this process talk over the same-host shm rings (``VTPU_BUS_SHM=1``,
+falling back to TCP where an attach fails).  ``--device`` (``cuda`` by
 default, ``cpu`` for the CPU instances of gpu-allocate, gpu-preempt and
 gpu-reclaim) places the scheduler: the in-process daemon's, or the
 scheduler children's with ``--multiproc``; without ``--device cpu`` and
@@ -13,6 +15,7 @@ output in a file of its own.
 Usage: python -m volcano_tpu_torch.cmd.local_up --demo [--device cpu]
        python -m volcano_tpu_torch.cmd.local_up --multiproc --demo
            [--standby-scheduler] [--log-dir DIR]
+           [--apiserver-replicas 3 --apiserver-data-dir DIR]
 
 The standalone equivalent of hack/local-up-volcano.sh.  Three topologies:
 
@@ -170,18 +173,33 @@ def multiproc_up(nodes: int = 3, node_cpu: str = "8", node_mem: str = "16Gi",
                  schedule_period: float = 0.2,
                  micro_cycles: bool = False,
                  flight_recorder: bool = False,
+                 apiserver_replicas: int = 1,
+                 apiserver_data_dir: str = "",
+                 repl_lease_ttl: float = 2.0,
                  device: str = "cuda",
                  log_dir: str = "",
                  ) -> Tuple[object, List[subprocess.Popen]]:
     """The reference's deployment topology as real OS processes:
     vtpu-apiserver + vtpu-admission + vtpu-controllers + vtpu-scheduler
     (two schedulers with leader election when ``standby_scheduler``),
-    the schedulers on ``device``.  With ``log_dir`` each child's output
-    goes to ``<log_dir>/<binary>[-i].log``.
+    the schedulers on ``device``.  ``apiserver_replicas > 1`` spawns the
+    replicated persistent bus — N ``vtpu-apiserver`` processes with
+    per-replica WAL dirs forming a leader/follower group, every daemon
+    dialed to the full endpoint list.  With ``log_dir`` each child's
+    output goes to ``<log_dir>/<binary>[-i].log``.
 
     Returns ``(RemoteAPIServer, [Popen, ...])`` in that order of
     binaries; the caller owns process teardown (``shutdown_procs``)."""
+    import tempfile
+
     from volcano_tpu_torch.bus import connect_bus
+
+    # same-host topology: engage the shared-memory ring transport for
+    # every daemon (they inherit the environment via _spawn) and for
+    # this process's own bus client.  VTPU_BUS_SHM=0 opts out; any
+    # attach failure falls back to TCP, so this is a fast path, never a
+    # new failure mode.
+    os.environ.setdefault("VTPU_BUS_SHM", "1")
 
     def log_path(name: str) -> str:
         return os.path.join(log_dir, f"{name}.log") if log_dir else ""
@@ -193,12 +211,34 @@ def multiproc_up(nodes: int = 3, node_cpu: str = "8", node_mem: str = "16Gi",
     #: flight-recorder namespace (`vtctl trace pod` spans ≥3 processes)
     fr_flags = ["--flight-recorder"] if flight_recorder else []
 
-    bus_url = f"tcp://{listen_host}:{bus_port}"
-    procs.append(_spawn(
-        "volcano_tpu_torch.cmd.apiserver",
-        "--listen-host", listen_host, "--port", str(bus_port),
-        "--listen-port", "0", *fr_flags, log_path=log_path("apiserver"),
-    ))
+    if apiserver_replicas > 1:
+        ports = [bus_port] + [_free_port(listen_host) for _ in range(apiserver_replicas - 1)]
+        endpoints = [f"tcp://{listen_host}:{p}" for p in ports]
+        bus_url = ",".join(endpoints)
+        base_dir = apiserver_data_dir or tempfile.mkdtemp(prefix="vtpu-apiserver-")
+        for i, port in enumerate(ports):
+            procs.append(_spawn(
+                "volcano_tpu_torch.cmd.apiserver",
+                "--listen-host", listen_host, "--port", str(port),
+                "--listen-port", "0",
+                "--data-dir", os.path.join(base_dir, f"replica-{i}"),
+                "--replicas", bus_url,
+                "--replica-index", str(i),
+                "--repl-lease-ttl", str(repl_lease_ttl),
+                # the leader seeds after election (followers are
+                # read-only), so every replica carries the flag
+                "--seed-nodes", str(nodes),
+                "--seed-node-cpu", node_cpu, "--seed-node-mem", node_mem,
+                *fr_flags, log_path=log_path(f"apiserver-{i}"),
+            ))
+    else:
+        bus_url = f"tcp://{listen_host}:{bus_port}"
+        apiserver_flags = ["--listen-host", listen_host, "--port", str(bus_port),
+                           "--listen-port", "0"]
+        if apiserver_data_dir:
+            apiserver_flags += ["--data-dir", apiserver_data_dir]
+        procs.append(_spawn("volcano_tpu_torch.cmd.apiserver", *apiserver_flags, *fr_flags,
+                            log_path=log_path("apiserver")))
     api = None
     try:
         # BusError after the wait means the spawned apiserver never came
@@ -235,7 +275,21 @@ def multiproc_up(nodes: int = 3, node_cpu: str = "8", node_mem: str = "16Gi",
             procs.append(_spawn("volcano_tpu_torch.cmd.scheduler", *flags,
                                 log_path=log_path(f"scheduler-{i}")))
 
-        seed_cluster(api, nodes, node_cpu, node_mem)
+        if apiserver_replicas > 1:
+            # the elected leader seeds (followers are read-only); wait
+            # for the pool to appear instead of racing the election
+            deadline = time.monotonic() + 60.0
+            while time.monotonic() < deadline:
+                try:
+                    if len(api.list("Node")) >= nodes and api.list("Queue"):
+                        break
+                except Exception:  # noqa: BLE001 — group still electing
+                    pass
+                time.sleep(0.2)
+            else:
+                raise RuntimeError("replicated apiserver group never seeded the cluster")
+        else:
+            seed_cluster(api, nodes, node_cpu, node_mem)
     except BaseException:
         # a failure mid-setup must not strand the daemons it already
         # spawned (the caller never gets a handle to clean them up)
@@ -331,6 +385,18 @@ def build_parser() -> argparse.ArgumentParser:
                         help="enable the cluster-wide flight recorder "
                         "on every spawned daemon (vtctl trace pod/gang "
                         "renders the cross-process waterfall)")
+    parser.add_argument("--apiserver-replicas", type=int, default=1,
+                        help="with --multiproc: spawn N vtpu-apiserver "
+                        "replicas forming the replicated persistent bus "
+                        "(WAL + leader/follower log shipping); daemons "
+                        "dial the full endpoint list")
+    parser.add_argument("--apiserver-data-dir", default="",
+                        help="with --multiproc: WAL/snapshot directory "
+                        "(per-replica subdirs when replicated; empty = "
+                        "a temp dir for replicas, volatile store for a "
+                        "single apiserver)")
+    parser.add_argument("--repl-lease-ttl", type=float, default=2.0,
+                        help="apiserver leader-liveness lease TTL")
     parser.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                         help="where the scheduler runs its kernels: cuda "
                         "(no GPU is an exit at start) or cpu (the plain "
@@ -377,6 +443,9 @@ def main(argv=None) -> int:
             standby_scheduler=args.standby_scheduler,
             micro_cycles=args.micro_cycles,
             flight_recorder=args.flight_recorder,
+            apiserver_replicas=args.apiserver_replicas,
+            apiserver_data_dir=args.apiserver_data_dir,
+            repl_lease_ttl=args.repl_lease_ttl,
             device=args.device,
             log_dir=args.log_dir,
         )

@@ -34,6 +34,9 @@ rendered series, and ``volcano_build_info{version}`` is set.  The bus
 (``bus/``) writes the reference's bus series: the client's requests,
 reconnects, relists, watch events and lag, codec fallbacks; the
 server's requests, watchers, codecs, frame bytes and watch-batch sizes.
+The durable, replicated store (``bus/wal.py``, ``bus/replication.py``)
+writes the reference's durability series: fsync latency, WAL size,
+quorum wait, replication lag, role, membership epoch and recoveries.
 The flight recorder (``obs/``) writes the reference's telemetry series:
 spans dropped by reason, exported batch sizes, tail-sampler evictions and
 decisions, the SLO burn gauges, incident bundles captured and the capture
@@ -145,6 +148,18 @@ class Registry:
         retags the whole exposition at the next scrape."""
         with self._lock:
             self._identity = tuple(sorted((k, v) for k, v in labels.items() if v))
+
+    def refresh_identity_role(self, role: str) -> None:
+        """Replace just the ``role`` identity label — called from the
+        replication role transitions (:func:`update_repl_role`) so both
+        directions retag: a deposed leader's series stop claiming
+        role="leader" the moment it demotes.  No-op when no identity is
+        installed (library embedders, tests)."""
+        with self._lock:
+            if not self._identity or not role:
+                return
+            self._identity = tuple(sorted(
+                [(k, v) for k, v in self._identity if k != "role"] + [("role", role)]))
 
     def render(self) -> str:
         """Prometheus text exposition format, line for line the JAX
@@ -502,6 +517,63 @@ def observe_watch_batch(size: int) -> None:
     """Watch events one coalesced T_WATCH_BATCH frame carried."""
     registry.observe(f"{_NAMESPACE}_bus_watch_batch_size", {}, size,
                      buckets=_COALESCE_BUCKETS)
+
+
+# ---- the durable, replicated store (bus/wal.py, bus/replication.py) ----
+# The durability plane's vital signs: fsync cost (the floor under every
+# acked write), WAL growth between snapshots, the quorum wait, replication
+# lag, the replica's role and membership epoch, and how often recovery
+# ran.
+
+def observe_wal_fsync(seconds: float) -> None:
+    """volcano_wal_fsync_latency_milliseconds: one WAL fsync."""
+    registry.observe(f"{_NAMESPACE}_wal_fsync_latency_milliseconds", {}, seconds * 1e3)
+
+
+def update_wal_size(size_bytes: int) -> None:
+    """volcano_wal_size_bytes: bytes in the live WAL segment (0 again at
+    each snapshot rotation)."""
+    registry.set_gauge(f"{_NAMESPACE}_wal_size_bytes", {}, size_bytes)
+
+
+def observe_repl_quorum_wait(seconds: float) -> None:
+    """volcano_repl_quorum_wait_milliseconds: how long a leader-side
+    write waited for the follower majority."""
+    registry.observe(f"{_NAMESPACE}_repl_quorum_wait_milliseconds", {}, seconds * 1e3)
+
+
+def update_repl_lag(entries: int) -> None:
+    """volcano_repl_lag_entries: on the leader the slowest follower's
+    deficit, on a follower its own distance behind the leader (the
+    ``repl-lag`` SLO's series)."""
+    registry.set_gauge(f"{_NAMESPACE}_repl_lag_entries", {}, entries)
+
+
+def update_membership_epoch(epoch: int) -> None:
+    """volcano_repl_membership_epoch: the group's membership-config
+    version, bumped by every committed add or remove."""
+    registry.set_gauge(f"{_NAMESPACE}_repl_membership_epoch", {}, epoch)
+
+
+#: bounded role vocabulary for the one-hot role gauge ("removed" is a
+#: replica retired by a membership change, still alive for reads)
+_REPL_ROLES = ("leader", "follower", "standalone", "init", "removed")
+
+
+def update_repl_role(role: str) -> None:
+    """volcano_repl_role{role}: one-hot role gauge; the identity ``role``
+    label follows the same transitions."""
+    for r in _REPL_ROLES:
+        # label-vocab: role — the _REPL_ROLES enum above
+        registry.set_gauge(f"{_NAMESPACE}_repl_role", {"role": r}, 1.0 if r == role else 0.0)
+    registry.refresh_identity_role(role)
+
+
+def register_bus_recovery(kind: str) -> None:
+    """volcano_bus_recoveries_total{kind}: one recovery source used at
+    start or resync; kind ∈ {snapshot, wal_tail}."""
+    # label-vocab: kind ∈ {snapshot, wal_tail}
+    registry.inc(f"{_NAMESPACE}_bus_recoveries_total", {"kind": kind})
 
 
 # ---- the flight recorder's telemetry channel (obs/) ----
