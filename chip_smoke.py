@@ -128,7 +128,7 @@ Phases, each of which fails the run:
      ARRIVAL_DIGESTS' digest, a ``{"daemon": ...}`` line; then the bus
      (``phase_bus``): the apiserver binary and two leader-elected
      scheduler binaries as child processes on the card at 10k x 1k, the
-     cluster seeded over the wire, the leader binding it with
+     cluster seeded over the wire (``seed_wire``), the leader binding it with
      STORE_DIGESTS' digest read back through the wire, SIGKILLed, the
      standby binding the arrivals with ARRIVAL_DIGESTS', each scheduler
      child's cycles, commits and launches read through its SIGUSR1 status
@@ -144,7 +144,21 @@ Phases, each of which fails the run:
      round, the arrivals bound with ARRIVAL_DIGESTS' digest and no
      relist; the killed replica recovered from its data directory and
      rejoined as a follower at lag 0 (``vtctl bus status``), a
-     ``{"ha": ...}`` line; then the Job path in process (``phase_jobs``, JOB_CELL): the
+     ``{"ha": ...}`` line; then the sharded scheduler federation
+     (``phase_federation``): (a) ``FederatedScheduler(api, "fed-solo", 1)``
+     over an in-process store holding the 50k x 10k cluster, its first
+     cycle on the session kernel (3 launches, ``cuda``) leaving the store
+     at STORE_DIGESTS' digest; (b) two members over one in-process
+     ``BusServer`` at 10k x 1k, each on its own ``RemoteAPIServer``:
+     disjoint slices covering every node, each member's binding cycle on
+     the session kernel, every pod bound once, a gang no shard hosts
+     alone committed through ``txn_commit``, a burst spilled through
+     ``cas_bind``, ``verify_federation`` clean, then ``shard.kill`` in one
+     member and the survivor holding both shards within FED_TAKEOVER_S
+     of its last renew (both members started at once, no cycle held
+     back for a relist but by the member itself) and binding the
+     arrivals; a ``{"federation": ...}`` line; then the
+     Job path in process (``phase_jobs``, JOB_CELL): the
      port's admission with the pod gate, ``ControllersDaemon`` (job,
      podgroup and queue controllers, the GC on an injected clock) and
      ``SchedulerDaemon`` (enqueue and gpu-allocate on the card), stepped
@@ -167,8 +181,8 @@ Phases, each of which fails the run:
      child process (``python -m volcano_tpu_torch.cmd.compute_plane
      --socket PATH --warmup``, serving on the card; its pid holds memory
      in ``nvidia-smi``), this process its scheduler through
-     ``executor.configure``: LOOP_A's 3 cycles through it (a full frame,
-     then delta frames; each cycle LOOP_A's digest, executor ``auto``,
+     ``executor.configure``: LOOP_A's SIDECAR_CYCLES cycles through it (a
+     full frame, then a delta frame; each cycle LOOP_A's digest, executor ``auto``,
      no fallback, no kernel launched here and the session kernel
      launched in the child, read through its SIGUSR1 status line), one
      preempting cycle at 100k pods x 10k nodes (its digest, one preempt
@@ -178,7 +192,7 @@ Phases, each of which fails the run:
      digest, exactly one fallback counted and /healthz degraded; a
      ``{"sidecar": ...}`` line with the frames' bytes and round trips;
   8. replay (``phase_replay``) — the trace recorder on: LOOP_A's first
-     2 cycles, LOOP_C's preempting cycle and LOOP_B's first 3 churn
+     2 cycles, LOOP_C's preempting cycle and LOOP_B's first 2 churn
      cycles with ``trace.enable(dir, snapshot_every=1)``, LOOP_A's third
      with ``snapshot_every=0`` (events only), each cycle with its digest
      and a journal record holding a bind decision per bind and the
@@ -357,9 +371,10 @@ CYCLE_DIGESTS = {
     MAIN_CONFIG: "c5ccf48727093b88dd6634c8eb317b91cf968f30e419d920f5d637d389b374ca",
     SECOND_CONFIG: "9853688e576b441a556020ec00bb36671927f220ec2514ed5e728276f2e4859a",
 }
-#: cycles a cycle cell runs, each on a fresh cache (3 until the
-#: replicated store's phase needed the room; each is held to its digest)
-CYCLE_RUNS = 2
+#: cycles a cycle cell runs, each on a fresh cache and held to its
+#: digest (3 until the replicated store's phase needed the room, 2 until
+#: the federation's did: the fresh-cache cycles repeat one path)
+CYCLE_RUNS = 1
 
 #: the preempting cycle: its tiers (tests/test_preempt_kernel.py's), its
 #: actions, and its cells (generate_preempt_cluster_objects, seed 0) with
@@ -373,8 +388,9 @@ PREEMPT_CYCLE_CELLS = {
     PREEMPT_CYCLE_MAIN: dict(n_victims=90_000, n_nodes=10_000, n_preemptors=10_000),
     PREEMPT_CYCLE_SECOND: dict(n_victims=9_000, n_nodes=1_000, n_preemptors=1_000),
 }
-#: (3 each until the replicated store's phase needed the room)
-PREEMPT_CYCLE_RUNS = {PREEMPT_CYCLE_MAIN: 2, PREEMPT_CYCLE_SECOND: 2}
+#: (3 each until the replicated store's phase needed the room, 2 until
+#: the federation's did)
+PREEMPT_CYCLE_RUNS = {PREEMPT_CYCLE_MAIN: 1, PREEMPT_CYCLE_SECOND: 1}
 #: sha256 of repr((sorted evicted names, sorted (name, node) pipelined
 #: pairs)) that the JAX package's enqueue, jax-allocate, jax-preempt,
 #: backfill give on each cell's objects under PREEMPT_CYCLE_TIERS;
@@ -393,8 +409,8 @@ PREEMPT_CYCLE_DIGESTS = {
 #: ``revert`` (every bound pod back to Pending through ``update_pod``
 #: with its spec unchanged) or ``churn`` (``generate_loop_events``, seed 0)
 #: and, where the card runs fewer than tier-1 holds on the CPU, its
-#: ``card_cycles`` (the revert cell's 3 on the card, and through the
-#: sidecar, since the replicated store's phase needed the room)
+#: ``card_cycles`` (the revert cell's 3 on the card since the replicated
+#: store's phase needed the room)
 LOOP_A = "loop_50k_pods_10k_nodes_revert"
 LOOP_B = "loop_10k_pods_1k_nodes_churn"
 LOOP_C = "loop_10k_pods_1k_nodes_preempt"
@@ -4568,10 +4584,31 @@ def bus_recorder(name: str, url: str, client, tap, leader_id: str, standby_id: s
     return rec
 
 
+#: the bus cell's seed: its first BUS_SEED_TIMED creates one at a time
+#: over the wire (the wire's µs a create), the rest from HA_SEED_THREADS
+#: threads (all 13,501 one at a time, 31-37 s, until the federation's
+#: phase needed the room)
+BUS_SEED_TIMED = 2_000
+
+
+def seed_wire(api, objects) -> tuple:
+    """``seed_store`` over the wire: priority classes, nodes, pods and pod
+    groups in the generator's order, the first BUS_SEED_TIMED one at a
+    time, the rest from HA_SEED_THREADS threads, then the queues.
+    (seconds of the timed creates, their count, seconds of all)."""
+    nodes, pods, pod_groups, queues, *rest = objects
+    ordered = list(rest[0] if rest else ()) + list(nodes) + list(pods) + list(pod_groups)
+    t0 = time.perf_counter()
+    timed_s = create_objects(api, ordered[:BUS_SEED_TIMED])
+    create_through_failover(api, ordered[BUS_SEED_TIMED:], HA_SEED_THREADS)
+    create_objects(api, queues)
+    return timed_s, min(BUS_SEED_TIMED, len(ordered)), time.perf_counter() - t0
+
+
 def phase_bus(card: str) -> dict:
     """The deployed topology on the card: ``python -m
     volcano_tpu_torch.cmd.apiserver --port 0 --listen-port 0`` as a child,
-    this process seeding SECOND_CONFIG's cluster through the port's own
+    this process seeding SECOND_CONFIG's cluster (``seed_wire``) through the port's own
     ``RemoteAPIServer``, then two ``python -m
     volcano_tpu_torch.cmd.scheduler --bus tcp://... --leader-elect
     --snapshot-reuse --pipelined-commit --warmup --scheduler-conf ...``
@@ -4632,13 +4669,12 @@ def phase_bus(card: str) -> dict:
         client = RemoteAPIServer(url, timeout=60.0)
         check(client.wait_ready(30), f"{name}: the apiserver's bus did not answer")
         tap = SegmentTap(client)
-        t0 = time.perf_counter()
-        seed_store(client, objects)
-        seed_s = time.perf_counter() - t0
+        timed_s, timed_n, seed_s = seed_wire(client, objects)
         audit = StoreAudit(client)  # binds only: registered before any scheduler starts
         check(client.wait_synced(60), f"{name}: the audit's watch did not sync")
         out.update(codec=client.codec, msgpack=protocol.HAS_BINARY, seed_ms=seed_s * 1e3,
-                   seed_us_per_create=seed_s / n_objects * 1e6)
+                   seed_us_per_create=timed_s / timed_n * 1e6, seed_timed_creates=timed_n,
+                   seed_threads=HA_SEED_THREADS)
         with policy_file(CYCLE_TIERS, ("gpu-allocate",)) as path:
             args = ["--bus", url, "--leader-elect", "--snapshot-reuse", "--pipelined-commit",
                     "--warmup", "--scheduler-conf", path, "--listen-port", "0",
@@ -4693,7 +4729,9 @@ def phase_bus(card: str) -> dict:
                            method="commit_batch"),
                        commit_ms_per_bind=commit_ms / max(frame_binds, 1.0))
             print(f"{name}: seeded {n_objects} objects over the wire in {seed_s * 1e3:.3f} ms "
-                  f"({out['seed_us_per_create']:.1f} µs a create, codec {client.codec}); A "
+                  f"({out['seed_us_per_create']:.1f} µs a create over the first "
+                  f"{out['seed_timed_creates']} one at a time, the rest from "
+                  f"{HA_SEED_THREADS} threads; codec {client.codec}); A "
                   f"synced its informers in {out['a_sync_ms']:.1f} ms and bound {n_pods} pods "
                   f"at store truth {t_settle:.3f} s later, digest == STORE_DIGESTS; commit "
                   f"frames {out['commit_frames']:.0f}, {out['commit_ms_per_bind']:.4f} ms a "
@@ -5365,6 +5403,440 @@ def phase_ha(card: str) -> dict:
 
 # ---- the Job path: admission, the controllers, the scheduler, a kubelet ----
 
+FED_ONE_CELL = "federation_50k_pods_10k_nodes_one_shard"
+FED_TWO_CELL = "federation_10k_pods_1k_nodes_two_shards"
+#: the one-shard member's lease TTL: the scheduler binary's
+#: ``--shard-lease-duration`` default (a renew the store lock holds back
+#: behind the 50k-bind frames lands late, and there is no peer)
+FED_ONE_LEASE_S = 2.0
+#: the two members' lease TTL and retry period.  The members, their
+#: relists and bind frames and the bus server share one process and one
+#: store lock: at 2.0 s both members stepped down turn after turn with
+#: the relist off the lease thread too (a renew's read of the shard map
+#: waited up to 1.6 s behind a relist's lists at half the cell on the
+#: CPU; the store lock past the lease is ROADMAP open work 8)
+FED_LEASE_S = 10.0
+FED_RETRY_S = 0.2
+#: the survivor holds both shards in the shard map within one TTL plus
+#: one retry period of member 1's last renew: the period at its longest
+#: jitter (x1.25), and FED_TICK_S for the survivor's tick in flight at
+#: the expiry and its claiming tick, each a read and a CAS over the wire
+#: (the phase prints the renew latencies this was set against)
+FED_TICK_S = 0.1
+FED_TAKEOVER_S = FED_LEASE_S + 1.25 * FED_RETRY_S + FED_TICK_S
+#: a gang task and a burst pod ask for just over half a node's cpu, so
+#: at most one fits a node; the gang's minMember is the larger shard's
+#: fitting nodes plus FED_GANG_FOREIGN, each foreign claim from the
+#: other member's sketch (its 8 freest nodes)
+FED_TASK_CPU_MILLI = 33_000
+FED_GANG_FOREIGN = 4
+FED_BURST = 4
+#: rounds (each member's ``run_once`` in turn) a step may take
+FED_ROUNDS = 8
+
+
+def fed_conf(path: str):
+    """``FederatedScheduler`` of the port with the cycle cells' policy."""
+    from volcano_tpu_torch.federation import FederatedScheduler
+
+    return lambda api, ident, n, **kw: FederatedScheduler(api, ident, n,
+                                                          scheduler_conf_path=path, **kw)
+
+
+def fed_cycle(member) -> dict:
+    """One ``run_once`` of a federation member, its session kernel
+    launches counted (set to 0 just before, read just after) and
+    gpu-allocate's executor."""
+    import torch
+
+    from volcano_tpu_torch.ops import session_kernel
+    from volcano_tpu_torch.ops.executor import last_allocate_executor
+
+    torch.cuda.synchronize()
+    session_kernel.LAUNCHES = session_kernel.WIDE_LAUNCHES = 0
+    t0 = time.perf_counter()
+    member.scheduler.run_once()
+    ms = (time.perf_counter() - t0) * 1e3
+    return dict(launches=session_kernel.LAUNCHES + session_kernel.WIDE_LAUNCHES,
+                executor=last_allocate_executor(), run_once_ms=ms)
+
+
+def fed_cached(member, names) -> bool:
+    """Are all of ``names`` (pod names) pending tasks in ``member``'s
+    cache, each in a job with its PodGroup (what its next cycle places)?"""
+    want = set(names)
+    seen = {t.name for e in member.cache.pending_spill_view() for t in e["tasks"]}
+    return want <= seen
+
+
+def fed_free(api) -> dict:
+    """node → free cpu milli and pod slots, from the store's pods."""
+    from volcano_tpu_torch.api.job_info import pod_request_resource
+    from volcano_tpu_torch.api.resource import Resource
+
+    free = {}
+    for n in api.list("Node"):
+        alloc = Resource.from_resource_list(n.status.allocatable)
+        free[n.metadata.name] = [alloc.get("cpu"), alloc.max_task_num]
+    for p in api.list("Pod"):
+        if p.spec.node_name and p.status.phase not in ("Succeeded", "Failed"):
+            f = free[p.spec.node_name]
+            f[0] -= pod_request_resource(p).get("cpu")
+            f[1] -= 1
+    return free
+
+
+def fed_job(name: str, replicas: int, min_member: int) -> list:
+    """A gang of ``replicas`` FED_TASK_CPU_MILLI pods in namespace bench,
+    queue default, its PodGroup Inqueue (the cycle cells' policy has no
+    enqueue): the PodGroup, then the pods."""
+    from volcano_tpu_torch.apis import core, scheduling
+
+    pg = scheduling.PodGroup(
+        metadata=core.ObjectMeta(name=name, namespace="bench", uid=f"pg-{name}"),
+        spec=scheduling.PodGroupSpec(min_member=min_member, queue="default", min_resources={}),
+        status=scheduling.PodGroupStatus(phase=scheduling.POD_GROUP_INQUEUE))
+    pods = [core.Pod(
+        metadata=core.ObjectMeta(name=f"{name}-t{i}", namespace="bench", uid=f"pod-{name}-{i}",
+                                 annotations={scheduling.GROUP_NAME_ANNOTATION_KEY: name}),
+        spec=core.PodSpec(containers=[core.Container(name="main", resources={"requests": {
+            "cpu": f"{FED_TASK_CPU_MILLI}m", "memory": "1024Mi"}})], node_name=""),
+        status=core.PodStatus(phase="Pending")) for i in range(replicas)]
+    return [pg] + pods
+
+
+def fed_rounds(members, done, what: str) -> list:
+    """Rounds of every live member's ``fed_cycle`` until ``done()``; the
+    rounds' records (FED_ROUNDS at most, else the run fails), each
+    printed."""
+    rounds = []
+    for k in range(FED_ROUNDS):
+        rounds.append({m.identity: fed_cycle(m) for m in members if not m._crashed})
+        print(f"{what}: round {k}: " + "; ".join(
+            f"{ident} run_once {r['run_once_ms']:.1f} ms, {r['launches']} launches"
+            for ident, r in rounds[-1].items()))
+        if done():
+            return rounds
+    check(False, f"{what}: not done in {FED_ROUNDS} rounds")
+    return rounds
+
+
+def phase_federation_one_shard(card: str) -> dict:
+    """(a) ``FederatedScheduler(api, "fed-solo", 1)`` over an in-process
+    ``APIServer`` holding MAIN_CONFIG's cluster (50k pods x 10k nodes),
+    the store cell's policy, pipelined commit: its first cycle launches
+    the session kernel 3 times on ``cuda`` and leaves the store at
+    STORE_DIGESTS' digest (a one-shard federation is the plain
+    scheduler), no rebind, no commit failure, no resync."""
+    import gc
+
+    from volcano_tpu_torch.client import APIServer
+
+    t_phase = time.perf_counter()
+    objects = loop_objects(MAIN_CONFIG)
+    n_pods = len(objects[1])
+    api = APIServer()
+    audit = StoreAudit(api)
+    t0 = time.perf_counter()
+    seed_store(api, objects)
+    seed_s = time.perf_counter() - t0
+    del objects
+    commit0, failures0 = commit_failures(), kernel_failures()
+    with policy_file(CYCLE_TIERS, ("gpu-allocate",)) as path:
+        member = fed_conf(path)(api, "fed-solo", 1, lease_duration=FED_ONE_LEASE_S,
+                                lease_retry_period=FED_RETRY_S, pipelined_commit=True,
+                                snapshot_reuse=True)
+        try:
+            t0 = time.perf_counter()
+            member.start()
+            check(member.wait_owned(60.0), f"{FED_ONE_CELL}: the member owns no shard")
+            sync_s = time.perf_counter() - t0
+            check(len(member.cache.nodes) == 10_000,
+                  f"{FED_ONE_CELL}: {len(member.cache.nodes)} nodes in the member's cache")
+            rec = fed_cycle(member)
+            t0 = time.perf_counter()
+            member.cache.flush()
+            flush_s = time.perf_counter() - t0
+            digest = audit.digest()
+            what = f"{FED_ONE_CELL}: the member's first cycle"
+            check(rec["executor"] == "cuda" and rec["launches"] == 3,
+                  f"{what}: executor {rec['executor']!r}, {rec['launches']} launches")
+            check(len(audit.bound) == n_pods and digest == STORE_DIGESTS[MAIN_CONFIG],
+                  f"{what}: {len(audit.bound)} bound, store digest {digest} != the JAX "
+                  f"package's {STORE_DIGESTS[MAIN_CONFIG]}")
+            check(not audit.rebinds and commit_failures() == commit0
+                  and kernel_failures() == failures0 and not member.cache.err_tasks
+                  and not member.cache.quarantined_tasks,
+                  f"{what}: {len(audit.rebinds)} rebinds, {commit_failures() - commit0:.0f} "
+                  f"commit failures, {len(member.cache.err_tasks)} resync entries")
+        finally:
+            member.stop()
+    out = dict(cell=FED_ONE_CELL, config=MAIN_CONFIG, card=card, seed_ms=seed_s * 1e3,
+               start_ms=sync_s * 1e3, launches=rec["launches"], run_once_ms=rec["run_once_ms"],
+               flush_ms=flush_s * 1e3, digest=digest, phase_ms=(time.perf_counter() - t_phase) * 1e3)
+    print(f"{FED_ONE_CELL}: one member over the in-process store bound {n_pods} pods in its "
+          f"first cycle ({rec['run_once_ms']:.3f} ms, the commit landed {flush_s * 1e3:.3f} ms "
+          f"later), store digest == STORE_DIGESTS, {rec['launches']} session kernel launches "
+          f"on cuda; card {card}")
+    del member, audit, api
+    gc.collect()
+    return out
+
+
+def phase_federation_two_shards(card: str) -> dict:
+    """(b) SECOND_CONFIG's cluster (10k pods x 1k nodes) in an in-process
+    ``APIServer`` behind an in-process ``BusServer``, two
+    ``FederatedScheduler`` members each on a ``RemoteAPIServer`` of its
+    own (the federation tests' topology), driven cycle by cycle, a
+    ``StoreAudit`` on the store.  The members' slices are disjoint and
+    cover all 1,000 nodes; each member's binding cycle launches the
+    session kernel on ``cuda``; every pod binds exactly once.  A gang
+    that no shard can host alone (FED_TASK_CPU_MILLI tasks, minMember
+    the larger shard's fitting nodes + FED_GANG_FOREIGN) binds whole
+    through the broker's ``txn_commit``
+    (``volcano_gang_assemblies_total{result="committed"}``); a burst of
+    FED_BURST such pods homed on the gang's (now full) shard spills
+    through ``cas_bind`` onto the other shard
+    (``volcano_spillover_binds_total{result="bound"}``);
+    ``verify_federation`` is clean.  Then ``shard.kill`` fires in member
+    1's post-cycle (crash mode): member 0 holds both shards in the shard
+    map within FED_TAKEOVER_S of member 1's last renew, and binds the 1,000 arrivals, each once, no rebind,
+    the kernel launched; ``verify_federation`` is clean again."""
+    import gc
+
+    from volcano_tpu_torch import faults, metrics
+    from volcano_tpu_torch.bus import BusServer, RemoteAPIServer
+    from volcano_tpu_torch.client import APIServer
+    from volcano_tpu_torch.federation import read_shard_map, shard_of_node, verify_federation
+    from volcano_tpu_torch.federation.sharding import home_shard
+
+    name = FED_TWO_CELL
+    t_phase = time.perf_counter()
+    objects = loop_objects(SECOND_CONFIG)
+    n_pods = len(objects[1])
+    api = APIServer()
+    audit = StoreAudit(api)
+    seed_store(api, objects)
+    node_names = [n.metadata.name for n in objects[0]]
+    del objects
+    bus = BusServer(api, port=0).start()
+    url = f"tcp://127.0.0.1:{bus.port}"
+    remotes, members = [], []
+    out = dict(cell=name, config=SECOND_CONFIG, card=card, lease_s=FED_LEASE_S,
+               retry_s=FED_RETRY_S)
+
+    def counter(metric: str, result: str) -> float:
+        return metrics.registry.counter(metric, result=result)
+
+    gang0 = counter("volcano_gang_assemblies_total", "committed")
+    spill0 = counter("volcano_spillover_binds_total", "bound")
+    failures0, commit0 = kernel_failures(), commit_failures()
+    try:
+        with policy_file(CYCLE_TIERS, ("gpu-allocate",)) as path:
+            make = fed_conf(path)
+            t0 = time.perf_counter()
+            # both members at once: the first to tick claims both shards,
+            # and releases one when the other joins (release on join)
+            for i in range(2):
+                remote = RemoteAPIServer(url, timeout=60.0)
+                check(remote.wait_ready(30), f"{name}: the bus did not answer")
+                remotes.append(remote)
+                members.append(make(remote, f"fed-{i}", 2, lease_duration=FED_LEASE_S,
+                                    lease_retry_period=FED_RETRY_S, spill_after=0,
+                                    gang_assemble_after=0, kill_mode="crash"))
+            for m in members:
+                m.start()
+
+            def holders() -> dict:
+                rec = read_shard_map(api) or {}
+                return {int(i): e["holder"] for i, e in rec.get("shards", {}).items()}
+
+            wait_for(lambda: sorted(holders().values()) == ["fed-0", "fed-1"], 60.0,
+                     f"{name}: each member holding one shard", interval=0.02)
+            out["form_ms"] = (time.perf_counter() - t0) * 1e3
+            formed = holders()
+
+            # the cluster binds, each member on its own slice
+            t0 = time.perf_counter()
+            rounds = fed_rounds(members, lambda: len(audit.bound) == n_pods,
+                                f"{name}: the cluster's binds")
+            out["bind_ms"] = (time.perf_counter() - t0) * 1e3
+            first = rounds[0]
+            for m in members:
+                r = first[m.identity]
+                check(r["executor"] == "cuda" and r["launches"] > 0,
+                      f"{name}: {m.identity}'s binding cycle: executor {r['executor']!r}, "
+                      f"{r['launches']} launches")
+            out["launches"] = {m.identity: [r[m.identity]["launches"] for r in rounds]
+                               for m in members}
+            out["binding_run_once_ms"] = {m.identity: first[m.identity]["run_once_ms"]
+                                          for m in members}
+            # each cycle waited for its member's slice to be applied
+            slices = [set(m.cache.nodes) for m in members]
+            check(not (slices[0] & slices[1]) and slices[0] | slices[1] == set(node_names),
+                  f"{name}: slices of {len(slices[0])} and {len(slices[1])} nodes, "
+                  f"{len(slices[0] & slices[1])} shared, not covering the 1,000")
+            out["nodes_owned"] = {m.identity: len(s) for m, s in zip(members, slices)}
+            check({m.identity: m.state.owned() for m in members}
+                  == {h: {i} for i, h in holders().items()},
+                  f"{name}: shard map holders {holders()}, members own "
+                  f"{[m.state.owned() for m in members]}")
+            check(not audit.rebinds, f"{name}: rebinds {audit.rebinds[:3]}")
+            by_shard = {}
+            for key, node in audit.binds():
+                s = shard_of_node(node, 2)
+                by_shard[s] = by_shard.get(s, 0) + 1
+            out["binds_by_shard"] = by_shard
+
+            # a gang no shard hosts alone, through the broker's txn_commit
+            free = fed_free(api)
+            fits = {s: sum(1 for n, (cpu, slots) in free.items()
+                           if shard_of_node(n, 2) == s and cpu >= FED_TASK_CPU_MILLI and slots > 0)
+                    for s in (0, 1)}
+            home = max((0, 1), key=lambda s: (fits[s], -s))
+            mm = fits[home] + FED_GANG_FOREIGN
+            check(fits[1 - home] >= FED_GANG_FOREIGN + FED_BURST and mm > fits[1 - home],
+                  f"{name}: shards fit {fits} tasks of {FED_TASK_CPU_MILLI}m")
+            gang = next(f"fedgang{k}" for k in range(64)
+                        if home_shard("bench", f"fedgang{k}", 2) == home)
+            gang_objs = fed_job(gang, mm, mm)
+            create_objects(api, gang_objs)
+            keys = [f"bench/{o.metadata.name}" for o in gang_objs[1:]]
+            homer = next(m for m in members if m.state.owns_shard(home))
+            wait_for(lambda: fed_cached(homer, [o.metadata.name for o in gang_objs[1:]]), 60.0,
+                     f"{name}: the gang in {homer.identity}'s cache", interval=0.02)
+
+            def gang_bound() -> bool:
+                bound = sum(1 for k in keys if k in audit.bound)
+                check(bound in (0, mm), f"{name}: the gang partly bound ({bound}/{mm})")
+                return bound == mm
+
+            t0 = time.perf_counter()
+            rounds = fed_rounds([homer], gang_bound, f"{name}: the gang {gang}")
+            out["gang"] = dict(min_member=mm, fits=fits, home=home, rounds=len(rounds),
+                               ms=(time.perf_counter() - t0) * 1e3,
+                               spans=sorted({shard_of_node(audit.bound[k], 2) for k in keys}))
+            committed = counter("volcano_gang_assemblies_total", "committed") - gang0
+            check(committed >= 1 and out["gang"]["spans"] == [0, 1],
+                  f"{name}: gang assemblies committed {committed:.0f}, the gang on shards "
+                  f"{out['gang']['spans']}")
+            out["gang_assemblies"] = {m.identity: m.broker.counters() for m in members}
+
+            # a burst homed on the gang's shard, now full: spilled through cas_bind
+            burst, k = [], 0
+            while len(burst) < FED_BURST:
+                if home_shard("bench", f"fedburst{k}", 2) == home:
+                    burst.append(f"fedburst{k}")
+                k += 1
+            burst_objs = [o for b in burst for o in fed_job(b, 1, 1)]
+            create_objects(api, burst_objs)
+            bkeys = [f"bench/{b}-t0" for b in burst]
+            wait_for(lambda: fed_cached(homer, [f"{b}-t0" for b in burst]), 60.0,
+                     f"{name}: the burst in {homer.identity}'s cache", interval=0.02)
+            t0 = time.perf_counter()
+            rounds = fed_rounds([homer], lambda: all(k in audit.bound for k in bkeys),
+                                f"{name}: the burst")
+            spilled = counter("volcano_spillover_binds_total", "bound") - spill0
+            check(spilled >= FED_BURST and all(shard_of_node(audit.bound[k], 2) != home
+                                               for k in bkeys),
+                  f"{name}: {spilled:.0f} spillover binds, the burst on shards "
+                  f"{[shard_of_node(audit.bound[k], 2) for k in bkeys]}")
+            out["spill"] = dict(rounds=len(rounds), ms=(time.perf_counter() - t0) * 1e3,
+                                binds=spilled, counters={m.identity: m.spillover.counters()
+                                                         for m in members})
+            report = verify_federation(api, 2, bind_history={k: [v] for k, v in audit.binds()})
+            check(report["ok"] and not audit.rebinds,
+                  f"{name}: verify_federation {report['violations'][:3]}, rebinds "
+                  f"{audit.rebinds[:3]}")
+            out["verify"] = report["checked"]
+
+            check(holders() == formed, f"{name}: the shards moved from {formed} to "
+                                       f"{holders()} before the kill")
+            # shard.kill in member 1's post-cycle: member 0 takes both shards
+            faults.configure("seed=1;shard.kill=1:count=1")
+            try:
+                fed_cycle(members[1])
+            finally:
+                faults.configure(None)
+            t_kill = time.monotonic()
+            check(members[1]._crashed, f"{name}: shard.kill did not fire in fed-1")
+            last_renew = max(e["renewTime"] for e in read_shard_map(api)["shards"].values()
+                             if e["holder"] == "fed-1")
+            wait_for(lambda: set(holders().values()) == {"fed-0"}, FED_TAKEOVER_S,
+                     f"{name}: fed-0 holding both shards after fed-1's crash", interval=0.005)
+            out["takeover_ms"] = (time.time() - last_renew) * 1e3
+            out["takeover_from_kill_ms"] = (time.monotonic() - t_kill) * 1e3
+            check(out["takeover_ms"] <= FED_TAKEOVER_S * 1e3,
+                  f"{name}: fed-0 held both shards {out['takeover_ms']:.1f} ms after fed-1's "
+                  f"last renew (limit {FED_TAKEOVER_S * 1e3:.0f})")
+            count, total = metrics.registry.histogram(
+                "volcano_shard_lease_renew_latency_milliseconds")
+            renew = metrics.registry.histogram_snapshot(
+                "volcano_shard_lease_renew_latency_milliseconds")
+            from volcano_tpu_torch.metrics.scrape import histogram_quantile
+
+            out["renew_ms"] = dict(count=count, mean=total / max(count, 1),
+                                   p99=histogram_quantile(renew, 0.99),
+                                   max_le=next(le for le, c in renew["buckets"] if c == count))
+
+            # the survivor binds the arrivals
+            arrivals = arrival_objects()
+            arrival_pods = [o for o in arrivals if o.kind == "Pod"]
+            before = len(audit.bound)
+            create_s = create_objects(api, arrivals)
+            t0 = time.perf_counter()
+            wait_for(lambda: fed_cached(members[0], [o.metadata.name for o in arrival_pods]),
+                     60.0, f"{name}: the arrivals in fed-0's cache", interval=0.02)
+            t1 = time.perf_counter()
+            rounds = fed_rounds(members, lambda: len(arrival_binds(audit, arrivals))
+                                == len(arrival_pods), f"{name}: the arrivals")
+            out["arrivals"] = dict(
+                pods=len(arrival_pods), create_ms=create_s * 1e3,
+                cached_ms=(t1 - t0) * 1e3, bind_ms=(time.perf_counter() - t1) * 1e3,
+                rounds=len(rounds),
+                launches=[r["fed-0"]["launches"] for r in rounds])
+            check(rounds[0]["fed-0"]["launches"] > 0 and rounds[0]["fed-0"]["executor"] == "cuda",
+                  f"{name}: fed-0's arrivals cycle: {rounds[0]['fed-0']}")
+            check(len(audit.bound) == before + len(arrival_pods) and not audit.rebinds,
+                  f"{name}: {len(audit.bound) - before} arrivals bound, rebinds "
+                  f"{audit.rebinds[:3]}")
+            report = verify_federation(api, 2, bind_history={k: [v] for k, v in audit.binds()})
+            check(report["ok"], f"{name}: verify_federation after the takeover "
+                                f"{report['violations'][:3]}")
+            check(kernel_failures() == failures0 and commit_failures() == commit0,
+                  f"{name}: {kernel_failures() - failures0:.0f} kernel failures, "
+                  f"{commit_failures() - commit0:.0f} commit failures")
+    finally:
+        for m in members:
+            m.stop()
+        for r in remotes:
+            r.close()
+        bus.stop()
+    out["phase_ms"] = (time.perf_counter() - t_phase) * 1e3
+    print(f"{name}: two members over one bus own {out['nodes_owned']} nodes, bound {n_pods} "
+          f"pods once each (launches {out['launches']}); a gang of {mm} ({fits} fitting a task "
+          f"by shard) committed whole through txn_commit across shards {out['gang']['spans']}; "
+          f"{FED_BURST} burst pods spilled through cas_bind; fed-1 killed, fed-0 held both "
+          f"shards {out['takeover_ms']:.1f} ms later (limit {FED_TAKEOVER_S * 1e3:.0f}) and "
+          f"bound the {len(arrival_pods)} arrivals in {out['arrivals']['bind_ms']:.1f} ms; "
+          f"verify_federation clean; card {card}")
+    del members, remotes, audit, api
+    gc.collect()
+    return out
+
+
+def phase_federation(card: str) -> dict:
+    """The sharded scheduler federation on the card: (a)
+    ``phase_federation_one_shard`` and (b) ``phase_federation_two_shards``,
+    each with its ``time:`` line; one ``{"federation": ...}`` line with
+    the card's name and power limit."""
+    one = timed(phase_federation_one_shard, card)
+    two = timed(phase_federation_two_shards, card)
+    out = dict(card=card, one_shard=one, two_shards=two)
+    print(json.dumps({"federation": out}))
+    return out
+
+
 JOB_CELL = "jobs_150x50_1k_nodes_lifecycle"
 #: the Job path's cell: SECOND_CONFIG's 1,000 nodes (64 CPU, 256 GiB, 110
 #: pods), queues ``default`` (weight 1) and ``q1`` (weight 3), wave 1 of
@@ -6008,6 +6480,10 @@ def phase_local_up(card: str) -> dict:
 #: runs in-process after the sidecar is killed, and the seconds the
 #: child has to answer its first health probe (its warmup included)
 SIDECAR_LOOP = LOOP_A
+#: SIDECAR_LOOP's cycles through the child: the cold one (a full frame)
+#: and a warm one (a delta frame); 3 until the federation's phase needed
+#: the room (the third repeated the second's delta frame)
+SIDECAR_CYCLES = 2
 SIDECAR_PREEMPT = PREEMPT_CYCLE_MAIN
 SIDECAR_AFTER_KILL = SECOND_CONFIG
 SIDECAR_START_S = 300.0
@@ -6288,8 +6764,8 @@ def phase_sidecar(card: str, loop_recs: Optional[dict] = None) -> dict:
         in_process = (loop_recs or {}).get(SIDECAR_LOOP, {}).get("cycles", [])
         cycles = []
         with WireTally() as wire:
-            loop = loop_cycles(objects, spec["tiers"], spec["actions"],
-                               spec.get("card_cycles", spec["cycles"]), spec["between"])
+            loop = loop_cycles(objects, spec["tiers"], spec["actions"], SIDECAR_CYCLES,
+                               spec["between"])
             while True:
                 fallbacks = executor_fallbacks()
                 before = sidecar.status()
@@ -6468,10 +6944,11 @@ class Stopwatch:
 #: halves; four a mode until the flight recorder's checks took ~30 s of
 #: the run's time)
 #: (LOOP_A's 4 until the replicated store's phase needed the room: 2
-#: captured and the events-only one since)
-REPLAY_CELLS = {LOOP_A: 3, LOOP_C: 1, LOOP_B: 3}
+#: captured and the events-only one since; LOOP_B's 3 until the
+#: federation's did: its cold and first warm cycle since)
+REPLAY_CELLS = {LOOP_A: 3, LOOP_C: 1, LOOP_B: 2}
 REPLAY_EVENTS_ONLY = (LOOP_A,)
-REPLAY_NATIVE = {LOOP_B: (0, 1, 2)}
+REPLAY_NATIVE = {LOOP_B: (0, 1)}
 RECORDER_COST_ORDER = ("off", "events", "capture", "capture", "events", "off")
 
 
@@ -6948,6 +7425,7 @@ def run_phases(specs: SpecPool) -> int:
     print(json.dumps({"obs": obs_line(card, daemon_rec, bus_rec, t1 - t0,
                                       time.perf_counter() - t1)}))
     ha_rec = timed(phase_ha, card)
+    fed_rec = timed(phase_federation, card)
     jobs_rec = timed(phase_jobs, card)
     local_up_rec = timed(phase_local_up, card)
     sidecar_rec = timed(phase_sidecar, card, loop_recs)
@@ -6999,6 +7477,10 @@ def run_phases(specs: SpecPool) -> int:
             "local_up_launches": local_up_rec["launches"],
             "ha_launches": {"before_kill": ha_rec["launches"],
                             "after_kill": ha_rec["launches_after"]},
+            "federation_launches": {
+                "one_shard": fed_rec["one_shard"]["launches"],
+                "two_shards": fed_rec["two_shards"]["launches"],
+                "after_kill": fed_rec["two_shards"]["arrivals"]["launches"]},
             "library_ms": None,
         },
         {

@@ -13,7 +13,8 @@ the port's ``OP_VERSIONS`` is flagged, the engines refuse to install over
 the JAX package's, the race detector and the lock-order verifier stay
 clean over bounded runs of the port's threaded code (the commit plane's
 two workers, a bus server and its clients with remote admission, two
-electors on one lock, the span channel's flusher), and ``vtctl lint`` and
+electors on one lock, the span channel's flusher, two shard lease
+managers beside a gang broker), and ``vtctl lint`` and
 ``vtctl faults validate`` print what the JAX ``vtctl`` prints.  Every wait
 is bounded.
 """
@@ -288,6 +289,65 @@ def test_span_channel_flusher_race_free(engines):
     finally:
         obs.disable()
     _assert_clean(engines, 100)
+
+
+def test_two_lease_managers_and_a_gang_broker_race_free(engines):
+    """Two shard lease managers on one map, one feeding a member's shard
+    state and filter (relist on acquire) from its thread; that member's
+    gang broker plans on the filter's ledger and commits a gang through
+    ``txn_commit`` meanwhile."""
+    from tests.test_torch_federation_mixed import fed
+    from volcano_tpu_torch.cache import SchedulerCache
+    from volcano_tpu_torch.client import SchedulerClient
+    from volcano_tpu_torch.federation import GangBroker, ShardLeaseManager, ShardState
+    from volcano_tpu_torch.federation.filter import ShardInformerFilter
+    from volcano_tpu_torch.federation.sharding import home_shard
+
+    f = fed("port")
+    api = PORT.APIServer()
+    for i in range(8):  # both shards hold nodes
+        api.create(f.b.build_node(f"n{i:03d}", {"cpu": "16", "memory": "64Gi"}))
+    cache = SchedulerCache(client=SchedulerClient(api), scheduler_name="volcano-tpu")
+    state = ShardState(2)
+    filt = ShardInformerFilter(cache, state, lister=api)
+    cache.set_informer_sink(filt)
+    cache.run()
+
+    def acquire(shard):
+        state.acquire(shard)
+        filt.on_acquire(shard)
+
+    def release(shard):
+        state.release(shard)
+        filt.on_release(shard)
+
+    other = set()
+    mgrs = [ShardLeaseManager(api, "m0", 2, lease_duration=0.5, retry_period=0.02,
+                              on_acquire=acquire, on_release=release,
+                              stats=lambda: {"sketch": filt.capacity_sketch()}),
+            ShardLeaseManager(api, "m1", 2, lease_duration=0.5, retry_period=0.02,
+                              on_acquire=other.add, on_release=other.discard)]
+    try:
+        for m in mgrs:
+            m.start()
+        assert wait(lambda: len(state.owned()) == 1 and len(other) == 1, 10)
+        assert wait(lambda: filt.owned_node_count() > 0, 5)
+        home = next(iter(state.owned()))
+        name = next(f"g{k}" for k in range(64) if home_shard("ns", f"g{k}", 2) == home)
+        api.create(f.b.build_pod_group("ns", name, 2))
+        for i in range(2):
+            api.create(f.b.build_pod("ns", f"{name}-t{i}", "", {"cpu": "2", "memory": "1Gi"},
+                                     group=name))
+        broker = GangBroker(cache, state, filt, api, assemble_after=0)
+        assert broker.run_once() == 1, broker.counters()
+        assert sorted(bool(p.spec.node_name) for p in api.list("Pod")) == [True, True]
+        for _ in range(10):
+            filt.capacity_sketch()
+            time.sleep(0.02)
+    finally:
+        for m in mgrs:
+            m.stop()
+    _assert_clean(engines, 200)
 
 
 # ---- vtctl ----

@@ -238,13 +238,7 @@ def _parsed(monkeypatch, main, argv) -> dict:
 #: each binary's flags the port has and the reference lacks, and those the
 #: reference has and the port leaves out
 PORT_ONLY_FLAGS = {"scheduler": {"device"}, "local_up": {"device", "log_dir"}}
-LEFT_OUT_FLAGS = {
-    "scheduler": {"shards", "shard_identity", "shard_lease_duration", "shard_autoscale",
-                  "autoscale_min", "autoscale_max", "autoscale_up_p99_ms",
-                  "autoscale_up_pending", "autoscale_down_p99_ms", "autoscale_down_pending",
-                  "autoscale_sustain", "autoscale_cooldown_s", "autoscale_period_s",
-                  "gang_broker"},
-}
+LEFT_OUT_FLAGS: dict = {}
 
 
 @pytest.mark.parametrize("binary", ["scheduler", "apiserver", "controllers", "admission",
@@ -264,17 +258,51 @@ def test_kept_flags_have_the_reference_defaults(monkeypatch, binary):
     assert set(ref) - set(port) == LEFT_OUT_FLAGS.get(binary, set())
 
 
-@pytest.mark.parametrize("binary, argv", [
-    ("scheduler", ["--shards", "2"]), ("scheduler", ["--shard-identity", "s0"]),
-    ("scheduler", ["--autoscale-min", "1"]), ("scheduler", ["--gang-broker", "on"]),
+@pytest.mark.parametrize("argv", [
+    ["--shards", "2"], ["--shards", "2", "--shard-identity", "s0"],
+    ["--shards", "3", "--shard-autoscale", "on", "--autoscale-min", "2"],
+    ["--shards", "2", "--gang-broker", "off", "--shard-lease-duration", "1.5"],
 ])
-def test_left_out_flags_are_refused(binary, argv, capsys):
-    import importlib
+def test_scheduler_federation_flags_reach_the_daemon(argv, monkeypatch):
+    """The federation flags (which the parser refused until the
+    federation was ported) build a ``FederatedScheduler`` member: its
+    shard count, identity (also the ``shard`` label), lease TTL, broker
+    and autoscale policy; the daemon starts it (leases and informers)
+    and stops it, with no elector."""
+    from volcano_tpu_torch.cmd import scheduler
+    from volcano_tpu_torch.framework import get_action, register_action
 
-    main = importlib.import_module(f"volcano_tpu_torch.cmd.{binary}").main
-    with pytest.raises(SystemExit) as exc:
-        main(argv)
-    assert exc.value.code == 2 and "unrecognized arguments" in capsys.readouterr().err
+    saved = [get_action(n) for n in ("gpu-allocate", "gpu-preempt", "gpu-reclaim")]
+    built = {}
+
+    def serve(daemon):
+        built["daemon"] = daemon
+        daemon.start()
+        built["owned"] = daemon.federation.wait_owned(10.0)
+        built["port"] = daemon.serving.port
+        daemon.stop()
+        return 0
+
+    monkeypatch.setattr(scheduler, "serve_forever", serve)
+    try:
+        assert scheduler.main(["--device", "cpu", "--listen-port", "0", "--leader-elect",
+                               *argv]) == 0
+    finally:
+        for action in saved:
+            register_action(action)
+    daemon = built["daemon"]
+    fed = daemon.federation
+    assert built["owned"] and daemon.elector is None
+    assert daemon.cache is fed.cache and daemon.scheduler is fed.scheduler
+    assert fed.kill_mode == "exit" and fed.leases.n_shards == int(argv[1])
+    ident = "s0" if "s0" in argv else daemon.identity
+    assert fed.identity == daemon.identity_labels["shard"] == ident
+    assert fed.leases.lease_duration == (1.5 if "1.5" in argv else 2.0)
+    assert (fed.broker is None) == ("off" in argv)
+    assert (fed.autoscaler is not None) == ("--shard-autoscale" in argv)
+    if fed.autoscaler is not None:
+        assert fed.autoscaler.policy.min_shards == 2 and fed.leases.elastic
+    assert fed.metrics_addr == f"127.0.0.1:{built['port']}"
 
 
 class _Reached(Exception):

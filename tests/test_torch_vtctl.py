@@ -202,7 +202,7 @@ def metrics_servers():
     from volcano_tpu.serving.http import ServingServer
     from volcano_tpu_torch.apis import core
     from volcano_tpu_torch.client import APIServer
-    from volcano_tpu_torch.obs.shard_map import NAMESPACE, SHARD_MAP_KEY, SHARD_MAP_NAME
+    from volcano_tpu_torch.federation.leases import NAMESPACE, SHARD_MAP_KEY, SHARD_MAP_NAME
 
     servers = []
     for ident, burn in (("shard-a", 0.4), ("shard-b", 2.5)):

@@ -46,9 +46,10 @@ def _reserved_spawn_group(mod):
     return _spawn_group
 
 
-def load(rel: str, pkg: str):
-    """A fresh copy of ``rel`` for ``pkg`` with the port helpers above."""
-    mod = torch_mirror.load(rel, pkg)
+def load(rel: str, pkg: str, port_edits=()):
+    """A fresh copy of ``rel`` for ``pkg`` with the port helpers above
+    (and ``torch_mirror.load``'s ``port_edits`` in the port's copy)."""
+    mod = torch_mirror.load(rel, pkg, port_edits)
     if hasattr(mod, "_free_port"):
         mod._free_port = reserved_port
     if hasattr(mod, "_spawn_group"):

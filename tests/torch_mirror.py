@@ -58,10 +58,14 @@ def _exec(name: str, path: Path, source: str) -> types.ModuleType:
     return mod
 
 
-def load(rel: str, pkg: str) -> types.ModuleType:
+def load(rel: str, pkg: str, port_edits=()) -> types.ModuleType:
     """A fresh copy of the test file ``rel`` (relative to the repo) for
     ``pkg`` ("port" or "jax"), its stores and vtctl calls recorded in
-    ``mod.STORES`` and ``mod.VTCTL``."""
+    ``mod.STORES`` and ``mod.VTCTL``.  ``port_edits`` are (old, new)
+    text replacements made in the port's copy after its imports are
+    pointed at the port, each of which must match: the names the port
+    gives what the JAX package calls otherwise (an action, a replay
+    executor, a binary's flag)."""
     n = next(_seq)
     path = ROOT / rel
     source = path.read_text()
@@ -71,7 +75,12 @@ def load(rel: str, pkg: str) -> types.ModuleType:
         _exec(f"tests._mirror_builders_{n}", bpath,
               _port_source(btext) if pkg == "port" else btext)
         source = source.replace("tests.builders", f"tests._mirror_builders_{n}")
-    mod = _exec(f"tests._mirror_{n}", path, _port_source(source) if pkg == "port" else source)
+    if pkg == "port":
+        source = _port_source(source)
+        for old, new in port_edits:
+            assert old in source, f"{rel} no longer holds {old!r}"
+            source = source.replace(old, new)
+    mod = _exec(f"tests._mirror_{n}", path, source)
     if pkg == "port":
         leaked = [k for k, v in vars(mod).items()
                   if (getattr(v, "__name__", "") if isinstance(v, types.ModuleType)

@@ -29,9 +29,9 @@ them on the port's own tree:
 Left out: the reference's ``jit_safety`` pass checks jitted functions
 (tracer branches, concretization inside jit, donated buffers), and the
 port has no jit, so the pass has nothing to check.  The reference's
-interleaving explorer (``explore.py``) drives the bus's replication
-elector, federation's leases and the store's ``txn_commit``, none of
-which the port has yet; it comes with them.
+interleaving explorer (``explore.py``), which drives the bus's
+replication elector, federation's leases and the store's
+``txn_commit``, is not ported yet.
 
 Run ``python -m volcano_tpu_torch.analysis`` (or ``vtctl lint``); a
 finding not suppressed in the checked-in ``baseline.json`` fails it.

@@ -37,9 +37,12 @@ event handlers — wired to the store's watch, or called directly (the
 reference's own unit-test pattern, allocate_test.go:155-222); produces
 deep-copied snapshots.  ``scheduler_name`` is kept as the reference
 keeps it, set by the scheduler daemon and read by nothing in the cache.
-Not present in the port yet: the reference's ``sync_side_effects``
-switch (its thread-pool route for the effects; the daemon never sets
-it), and the informer sink, which waits for federation.
+The informer sink (:meth:`SchedulerCache.set_informer_sink`) routes
+the watch deliveries through the federation's shard filter, and
+:meth:`SchedulerCache.pending_spill_view` is the per-job pending view
+its spillover pass and gang broker share.  Not present in the port
+yet: the reference's ``sync_side_effects`` switch (its thread-pool
+route for the effects; the daemon never sets it).
 """
 
 from __future__ import annotations
@@ -305,6 +308,11 @@ class SchedulerCache(Cache):
 
         #: informer registration latch (run() is idempotent)
         self._watch_started = False
+        #: optional informer-facing proxy (federation's shard filter):
+        #: run() registers IT with the client instead of the cache, so
+        #: every watch delivery flows through its forwarding rules.
+        #: Must be set before run(); plain attribute, startup-ordered.
+        self._informer_sink = None
 
         # ---- pipelined commit plane (cache/commit_plane.py) ----
         # Opt-in: bind/evict/status effects are queued and drained by a
@@ -350,7 +358,7 @@ class SchedulerCache(Cache):
         # raised mid-way stays retryable on the next run() instead of
         # poisoning the latch and leaving an informer-less scheduler.
         if self.client is not None and not self._watch_started:
-            self.client.watch(self)
+            self.client.watch(self._informer_sink or self)
             self._watch_started = True
 
     def wait_for_cache_sync(self, timeout: Optional[float] = None) -> bool:
@@ -405,6 +413,39 @@ class SchedulerCache(Cache):
             except Exception as e:  # noqa: BLE001 — a bad listener must
                 # not break event delivery
                 log.error("cache change listener failed: %s", e)
+
+    def set_informer_sink(self, sink) -> None:
+        """Route informer deliveries through ``sink`` (an object with
+        the same handler surface — the federation shard filter).  Must
+        run before :meth:`run` registers the watches."""
+        if self._watch_started:
+            raise RuntimeError(
+                "set_informer_sink must run before the informers start"
+            )
+        self._informer_sink = sink
+
+    def pending_spill_view(self) -> List[dict]:
+        """Per-job view of still-Pending tasks for the federation
+        spillover pass: ``[{job_id, min_member, ready, tasks}]`` taken
+        under one mutex hold.  Task entries are the live TaskInfo
+        references — the consumer reads only stable identity fields
+        (namespace/name/resreq/pod) and re-verifies everything against
+        store truth before acting (the CAS bind)."""
+        out: List[dict] = []
+        with self._mutex:
+            for job in self.jobs.values():
+                if job.pod_group is None:
+                    continue
+                pending = job.task_status_index.get(TaskStatus.Pending)
+                if not pending:
+                    continue
+                out.append({
+                    "job_id": job.uid,
+                    "min_member": job.pod_group.spec.min_member or 0,
+                    "ready": job.ready_task_num(),
+                    "tasks": list(pending.values()),
+                })
+        return out
 
     def has_schedulable_pending(self) -> bool:
         """Is there any pending task a scheduling cycle could act on?

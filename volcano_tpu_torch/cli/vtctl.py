@@ -17,6 +17,9 @@ the port has:
                           the incident bundles the SLO watchdog (or an
                           operator) captures
   vtctl faults validate   parse a fault schedule and print it normalized
+  vtctl shards            the federation's live shard map: lease holders,
+                          member heartbeats, spillover, gang-assembly and
+                          sketch counters
   vtctl bus status|add-replica|remove-replica
                           the durable, replicated store: role, leader,
                           term, WAL and snapshot, follower lag; dynamic
@@ -35,9 +38,8 @@ suspend/resume emit Command CRs consumed by the job controller
 Usage: python -m volcano_tpu_torch.cli.vtctl [--bus URL] job run -N NAME
        python -m volcano_tpu_torch.cli.vtctl [--bus URL] trace pod -N NAME
 
-Not present in the port yet, each waiting for its caller: ``shards``
-(federation) and ``explore`` (the interleaving explorer, whose lease
-machine drives federation's leases).
+Not present in the port yet: ``explore`` (the interleaving explorer,
+whose lease machine drives federation's leases).
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ from volcano_tpu_torch.apis import batch, bus, core, scheduling
 from volcano_tpu_torch.client import ApiError, APIServer, VolcanoClient
 from volcano_tpu_torch.cmd import trace as trace_cmd
 from volcano_tpu_torch.metrics import scrape as _scrape
-from volcano_tpu_torch.obs.shard_map import read_shard_map
+from volcano_tpu_torch.federation.leases import read_shard_map
 
 
 def _parse_resource_list(text: str) -> Dict[str, str]:
@@ -418,6 +420,115 @@ def _describe_podgroup(vc: VolcanoClient, args, out) -> int:
         return name == pg.metadata.name or name.startswith(prefix)
 
     _describe_scheduling(vc, args.namespace, args.name, pg, belongs, out)
+    return 0
+
+
+# ---- shards (the federation observability surface) ----
+
+def _shards(vc: VolcanoClient, args, out) -> int:
+    """Render the live shard map: per-shard lease holders, the member
+    heartbeats, and each member's published stats (nodes owned,
+    spillover counters, rebalances, capacity-sketch freshness and the
+    sketch-vs-truth verification split).  Reads ONLY the shard-map
+    ConfigMap through the API surface — sketch age is computed against
+    the newest renew tick ON the map, never a call-time clock — so the
+    output is byte-identical over the in-process backend and ``--bus``
+    for the same store state."""
+    rec = read_shard_map(vc.api)
+    if rec is None:
+        print("no shard map — the federation has not run "
+              "(start schedulers with --shards N)", file=out)
+        return 1
+    n = int(rec.get("nShards", 0))
+    print(f"Shards:             {n}", file=out)
+    scale = rec.get("autoscale")
+    if scale:
+        # the autoscaler's last committed decision — stored fields
+        # only, so the line stays byte-identical across backends
+        print(
+            f"Autoscale:          target {scale.get('target', n)} "
+            f"({scale.get('direction', '?')}: "
+            f"{scale.get('reason', '')}; "
+            f"decisions {scale.get('decisions', 0)})",
+            file=out,
+        )
+    print(f"  {'SHARD':<7}{'HOLDER':<22}{'LEASE':<8}{'RENEWED':<20}", file=out)
+    for i in range(n):
+        entry = rec.get("shards", {}).get(str(i), {})
+        holder = entry.get("holder") or "<unheld>"
+        lease = entry.get("leaseDurationSeconds", 0)
+        renewed = entry.get("renewTime", 0)
+        print(f"  {i:<7}{holder:<22}{lease:<8g}{renewed:<20}", file=out)
+    members = rec.get("members", {})
+    print("Members:", file=out)
+    if not members:
+        print("  <none>", file=out)
+    for ident in sorted(members):
+        m = members[ident]
+        print(
+            f"  {ident:<22}heartbeat {m.get('heartbeat', 0)}  "
+            f"lease {m.get('leaseDurationSeconds', 0):g}s",
+            file=out,
+        )
+    stats = rec.get("stats", {})
+    if stats:
+        print("Stats:", file=out)
+        for ident in sorted(stats):
+            s = stats[ident]
+            spill = s.get("spillover", {})
+            spill_txt = " ".join(
+                f"{k}={spill[k]}" for k in sorted(spill)
+            ) or "<none>"
+            print(
+                f"  {ident:<22}nodes={s.get('nodesOwned', 0)} "
+                f"rebalances={s.get('rebalances', 0)} "
+                f"spillover: {spill_txt}",
+                file=out,
+            )
+            # cross-shard gang assembly (federation/broker.py) — only
+            # members running the broker publish the blob, so the line
+            # is absent (not zeroed) for --gang-broker off members
+            gang = s.get("gangAssembly")
+            if gang is not None:
+                gang_txt = " ".join(
+                    f"{k}={gang[k]}" for k in sorted(gang)
+                ) or "<none>"
+                print(f"  {'':<22}gang-assembly: {gang_txt}", file=out)
+            # the free-capacity sketch rides the lease heartbeat, so
+            # its age is the member's heartbeat measured against the
+            # NEWEST renew tick on the map (stored fields only — a
+            # call-time clock would break cross-backend byte-identity);
+            # a sketch older than the member's lease TTL is the signal
+            # foreign solicitation is flying blind on this member
+            sketch = s.get("sketch")
+            if sketch is not None:
+                latest = max(
+                    [e.get("renewTime", 0)
+                     for e in rec.get("shards", {}).values()]
+                    + [m.get("heartbeat", 0) for m in members.values()]
+                    + [0]
+                )
+                m = members.get(ident, {})
+                hb = m.get("heartbeat", 0)
+                ttl = m.get("leaseDurationSeconds", 0)
+                age = max(0.0, float(latest) - float(hb))
+                fresh = "fresh" if age <= ttl else "STALE"
+                print(
+                    f"  {'':<22}sketch: slots={sketch.get('freeSlots', 0)} "
+                    f"topNodes={len(sketch.get('topNodes') or ())} "
+                    f"age={age:g}s/ttl={ttl:g}s ({fresh})",
+                    file=out,
+                )
+            # sketch-vs-truth: how often a sketch-solicited candidate
+            # survived (verified) or failed (stale) the bind-time
+            # per-node truth check — the observable cost of trading
+            # the O(cluster) mirror for O(shards·K) sketches
+            checks = s.get("sketchChecks")
+            if checks is not None:
+                checks_txt = " ".join(
+                    f"{k}={checks[k]}" for k in sorted(checks)
+                ) or "<none>"
+                print(f"  {'':<22}sketch-checks: {checks_txt}", file=out)
     return 0
 
 
@@ -949,6 +1060,13 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--name", "-N", required=True)
         p.add_argument("--namespace", "-n", default="default")
 
+    shards = sub.add_parser(
+        "shards",
+        description="live shard map: lease holders, member heartbeats, "
+        "spillover counters (sharded scheduler federation)",
+    )
+    shards.set_defaults(cmd=None)
+
     bus_p = sub.add_parser(
         "bus",
         description="replicated persistent bus (WAL + leader/follower "
@@ -1111,6 +1229,7 @@ _HANDLERS = {
     ("queue", "delete"): _queue_delete,
     ("describe", "job"): _describe_job,
     ("describe", "podgroup"): _describe_podgroup,
+    ("shards", None): _shards,
     ("top", None): _top,
     **{("trace", name): _journal for name in trace_cmd.COMMANDS},
     ("trace", "pod"): _trace_pod,

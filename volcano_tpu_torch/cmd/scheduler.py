@@ -10,6 +10,8 @@ Usage: python -m volcano_tpu_torch.cmd.scheduler [--bus tcp://host:port]
        [--leader-elect --leader-elect-id ID] [--scheduler-conf FILE]
        [--pipelined-commit] [--snapshot-reuse] [--warmup] [--device cuda|cpu]
        [--flight-recorder] [--watchdog] [--incident-dir DIR]
+       [--shards N --shard-identity ID --shard-lease-duration S
+        --gang-broker on|off --shard-autoscale on|off --autoscale-...]
 
 ``--device`` defaults to ``cuda``, where gpu-allocate, gpu-preempt and
 gpu-reclaim run their kernels, and the process exits at start when
@@ -26,9 +28,13 @@ daemon's spans (cycles, kernel phases, commit flushes, bus requests,
 landed binds) to the bus, where ``python -m volcano_tpu_torch.cli.vtctl
 --bus URL trace pod -N NAME`` renders them; ``--watchdog`` runs the SLO
 burn-rate watchdog, whose breaches degrade /healthz and write incident
-bundles under ``--incident-dir``.  Not present in the port yet: the
-federation flags (``--shards`` … ``--gang-broker``, federation); the
-parser refuses them.
+bundles under ``--incident-dir``.  ``--shards N`` makes the daemon one
+member of the sharded scheduler federation (``federation/``): it leases
+node shards of the shard map over the store, schedules its slice, spills
+over through ``cas_bind`` and assembles cross-shard gangs through
+``txn_commit``; ``--leader-elect`` is then ignored (each member is
+active over its own slice), the ``shard`` identity label is set, and the
+``shard.kill`` fault point hard-exits the process.
 """
 
 from __future__ import annotations
@@ -76,6 +82,11 @@ class SchedulerDaemon(BaseDaemon):
         micro_cycles: bool = False,
         micro_debounce_ms: float = 5.0,
         restricted_sessions: bool = False,
+        shards: int = 0,
+        shard_identity: str = "",
+        shard_lease_duration: float = 2.0,
+        gang_broker: bool = True,
+        shard_autoscale=None,
         **daemon_kw,
     ):
         # /explain reads self.cache lazily (set right below) — the
@@ -89,6 +100,41 @@ class SchedulerDaemon(BaseDaemon):
             explain_source=lambda ns, job: _explain_source(self, ns, job),
             **daemon_kw,
         )
+        self.federation = None
+        if shards >= 1:
+            self.identity_labels["shard"] = shard_identity or self.identity
+            # sharded federation: the shard-assignment leases replace
+            # the leader-elected standby pattern (each member is active
+            # over its own slice), so --leader-elect is ignored here
+            from volcano_tpu_torch.federation import FederatedScheduler
+
+            self.federation = FederatedScheduler(
+                api,
+                identity=shard_identity or self.identity,
+                n_shards=shards,
+                scheduler_conf_path=scheduler_conf,
+                period=schedule_period,
+                micro_cycles=micro_cycles,
+                micro_debounce_ms=micro_debounce_ms,
+                lease_duration=shard_lease_duration,
+                pipelined_commit=pipelined_commit,
+                snapshot_reuse=snapshot_reuse,
+                scheduler_name=scheduler_name,
+                gang_broker=gang_broker,
+                kill_mode="exit",  # shard.kill hard-exits the process
+                autoscale=shard_autoscale,
+                restricted_sessions=restricted_sessions,
+            )
+            self.elector = None
+            self.cache = self.federation.cache
+            self.scheduler = self.federation.scheduler
+            if cycle_deadline_ms is not None:
+                from volcano_tpu_torch.faults import watchdog
+
+                watchdog.configure_deadline(cycle_deadline_ms)
+            if gc_quiesce_period:
+                self.scheduler.gc_quiesce_period = gc_quiesce_period
+            return
         self.cache = SchedulerCache(
             client=SchedulerClient(api),
             scheduler_name=scheduler_name,
@@ -109,7 +155,13 @@ class SchedulerDaemon(BaseDaemon):
         # loop starts (over the bus the lists arrive on the client's
         # dispatch thread; the reference scheduler's WaitForCacheSync)
         t0 = time.perf_counter()
-        self.cache.run()
+        if self.federation is not None:
+            # published on the lease-map stats blob so `vtctl top`
+            # discovers this member's /metrics without configuration
+            self.federation.metrics_addr = f"{self.serving.host}:{self.serving.port}"
+            self.federation.start()  # cache.run() + the lease loop
+        else:
+            self.cache.run()
         self.cache.wait_for_cache_sync()
         log.info("%s %s: informers synced in %.1f ms", self.NAME, self.identity,
                  (time.perf_counter() - t0) * 1e3)
@@ -130,6 +182,11 @@ class SchedulerDaemon(BaseDaemon):
         # wake the scheduler's condition wait first, or the loop join
         # would wait out the in-flight window
         self.scheduler.stop()
+        if self.federation is not None:
+            if crash:
+                self.federation.crash()
+            else:
+                self.federation.stop()
         super().stop(crash=crash)
 
 
@@ -257,6 +314,82 @@ def build_parser() -> argparse.ArgumentParser:
         "Requires --micro-cycles",
     )
     parser.add_argument(
+        "--shards", type=int, default=0,
+        help="sharded scheduler federation: run as one of N scheduler "
+        "processes each owning a disjoint node shard via bus-backed "
+        "shard-assignment leases, with cross-shard spillover binds for "
+        "jobs that fail to place on their home shard (0 = off; 1 = "
+        "single-shard federation, bit-identical to the plain scheduler)",
+    )
+    parser.add_argument(
+        "--shard-identity", default="",
+        help="stable identity in the shard map (defaults to the daemon "
+        "identity); distinct per federation member",
+    )
+    parser.add_argument(
+        "--shard-lease-duration", type=float, default=2.0,
+        help="shard lease TTL, seconds: a crashed member's slices are "
+        "absorbed by survivors within one TTL",
+    )
+    parser.add_argument(
+        "--shard-autoscale", choices=("on", "off"), default="off",
+        help="SLO-driven shard autoscaling: the member holding shard "
+        "0's lease grows/shrinks the map's shard count one step at a "
+        "time from sustained fleet p99 / queue-depth signals "
+        "(hysteresis + cooldown); every member then ADOPTS the map's "
+        "count instead of refusing a mismatch.  The controller moves "
+        "the target only — the deploy layer scales the member fleet "
+        "to follow it",
+    )
+    parser.add_argument(
+        "--autoscale-min", type=int, default=1,
+        help="shard-count floor the autoscaler never shrinks below",
+    )
+    parser.add_argument(
+        "--autoscale-max", type=int, default=8,
+        help="shard-count ceiling the autoscaler never grows past",
+    )
+    parser.add_argument(
+        "--autoscale-up-p99-ms", type=float, default=500.0,
+        help="scale up when the fleet's windowed submit→bind p99 "
+        "sustains above this",
+    )
+    parser.add_argument(
+        "--autoscale-up-pending", type=int, default=64,
+        help="scale up when schedulable-pending tasks per shard "
+        "sustain above this",
+    )
+    parser.add_argument(
+        "--autoscale-down-p99-ms", type=float, default=50.0,
+        help="scale down only when p99 sustains below this (AND the "
+        "pending bar) — the hysteresis gap against flapping",
+    )
+    parser.add_argument(
+        "--autoscale-down-pending", type=int, default=8,
+        help="scale down only when pending per shard sustains below "
+        "this (AND the p99 bar)",
+    )
+    parser.add_argument(
+        "--autoscale-sustain", type=int, default=3,
+        help="consecutive breaching evaluations before a decision",
+    )
+    parser.add_argument(
+        "--autoscale-cooldown-s", type=float, default=30.0,
+        help="minimum seconds between committed shard-count changes",
+    )
+    parser.add_argument(
+        "--autoscale-period-s", type=float, default=2.0,
+        help="evaluation cadence of the autoscale controller",
+    )
+    parser.add_argument(
+        "--gang-broker", choices=("on", "off"), default="on",
+        help="cross-shard gang assembly: a home-owned gang below "
+        "minMember solicits foreign capacity and commits a full-gang "
+        "placement via one atomic txn_commit (VBUS v6).  'off' keeps "
+        "the pre-v6 refusal semantics: such a gang stays Pending at "
+        "home, never partially placed",
+    )
+    parser.add_argument(
         "--warmup", action="store_true",
         help="build the kernel library and launch the session kernel "
         "once before the first cycle (same flag as vtpu-compute-plane)",
@@ -292,6 +425,26 @@ def build_parser() -> argparse.ArgumentParser:
     )
     add_common_args(parser)
     return parser
+
+
+def _autoscale_policy(args):
+    """``--shard-autoscale on`` → the controller's policy from the
+    ``--autoscale-*`` flags; None when off."""
+    if args.shard_autoscale != "on":
+        return None
+    from volcano_tpu_torch.federation.autoscale import AutoscalePolicy
+
+    return AutoscalePolicy(
+        min_shards=args.autoscale_min,
+        max_shards=args.autoscale_max,
+        up_p99_ms=args.autoscale_up_p99_ms,
+        up_pending=args.autoscale_up_pending,
+        down_p99_ms=args.autoscale_down_p99_ms,
+        down_pending=args.autoscale_down_pending,
+        sustain=args.autoscale_sustain,
+        cooldown_s=args.autoscale_cooldown_s,
+        eval_period_s=args.autoscale_period_s,
+    )
 
 
 def main(argv=None) -> int:
@@ -341,6 +494,11 @@ def main(argv=None) -> int:
         micro_cycles=args.micro_cycles,
         micro_debounce_ms=args.micro_debounce_ms,
         restricted_sessions=args.restricted_sessions,
+        shards=args.shards,
+        shard_identity=args.shard_identity,
+        shard_lease_duration=args.shard_lease_duration,
+        gang_broker=args.gang_broker == "on",
+        shard_autoscale=_autoscale_policy(args),
         listen_host=args.listen_host,
         listen_port=args.listen_port,
         leader_elect=args.leader_elect,

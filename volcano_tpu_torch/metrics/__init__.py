@@ -34,6 +34,10 @@ rendered series, and ``volcano_build_info{version}`` is set.  The bus
 (``bus/``) writes the reference's bus series: the client's requests,
 reconnects, relists, watch events and lag, codec fallbacks; the
 server's requests, watchers, codecs, frame bytes and watch-batch sizes.
+The sharded scheduler federation (``federation/``) writes the
+reference's federation series: nodes owned, spillover binds, shard
+rebalances, lease renew latency, sketch solicitations, gang assemblies,
+the ``txn_commit`` round trip and autoscale decisions.
 The durable, replicated store (``bus/wal.py``, ``bus/replication.py``)
 writes the reference's durability series: fsync latency, WAL size,
 quorum wait, replication lag, role, membership epoch and recoveries.
@@ -141,6 +145,26 @@ class Registry:
         with self._lock:
             h = self._hists.get(self._key(name, labels))
             return (0, 0.0) if h is None else (h.total, h.sum)
+
+    def histogram_snapshot(self, name: str, labels=None):
+        """Cumulative scrape-shaped snapshot of one histogram —
+        ``{"buckets": [(le, cumulative)...], "sum", "count"}``, the
+        shape ``metrics/scrape.py`` parses from /metrics text, so the
+        shard autoscaler's windowed quantiles reuse
+        ``merge_histograms``/``histogram_quantile`` unchanged.  None
+        when the series was never observed."""
+        key = self._key(name, labels or {})
+        with self._lock:
+            h = self._hists.get(key)
+            if h is None:
+                return None
+            cumulative = 0
+            buckets = []
+            for bound, c in zip(h.buckets, h.counts):
+                cumulative += c
+                buckets.append((str(bound), float(cumulative)))
+            buckets.append(("+Inf", float(h.total)))
+            return {"buckets": buckets, "sum": h.sum, "count": float(h.total)}
 
     def set_identity(self, **labels: str) -> None:
         """Install the uniform identity labels (non-empty values only);
@@ -517,6 +541,83 @@ def observe_watch_batch(size: int) -> None:
     """Watch events one coalesced T_WATCH_BATCH frame carried."""
     registry.observe(f"{_NAMESPACE}_bus_watch_batch_size", {}, size,
                      buckets=_COALESCE_BUCKETS)
+
+
+# ---- sharded scheduler federation (federation/) ----
+# N scheduler processes each own a disjoint node shard via CAS leases;
+# jobs that fail to place on their home shard spill over via optimistic
+# CAS binds, and gangs below minMember assemble across shards through
+# one txn_commit.  These are the federation's vital signs: slice size,
+# spillover pressure (the shard-hash-skew signal), ownership churn, the
+# lease plane's health, sketch staleness, gang assemblies and the
+# transaction's round trip.
+
+
+def update_shard_nodes_owned(count: int) -> None:
+    """volcano_shard_nodes_owned: nodes this scheduler currently owns
+    through its shard leases (the slice the cache and pack planes cover)."""
+    registry.set_gauge(f"{_NAMESPACE}_shard_nodes_owned", {}, count)
+
+
+def register_spillover_bind(result: str) -> None:
+    """volcano_spillover_binds_total{result}: cross-shard optimistic
+    CAS bind outcomes.  result ∈ {bound, conflict, exhausted, no-fit,
+    lost-race, error} — conflicts are the Omega model working as
+    intended; a high no-fit/exhausted rate means the cluster (not just
+    the home shard) is full or the shard hash is skewed."""
+    registry.inc(f"{_NAMESPACE}_spillover_binds_total", {"result": result})
+
+
+def register_shard_rebalance(cause: str) -> None:
+    """volcano_shard_rebalances_total{cause}: shard ownership moved.
+    cause ∈ {expiry (absorbed a dead member's slice), join (claimed a
+    free slice), release (shed a slice for a joining member)}."""
+    registry.inc(f"{_NAMESPACE}_shard_rebalances_total", {"cause": cause})
+
+
+def observe_shard_lease_renew(seconds: float) -> None:
+    """volcano_shard_lease_renew_latency_milliseconds: read-modify-CAS
+    round trip of one successful shard-map renew tick — creeping toward
+    the lease duration is the early warning before ownership flaps."""
+    registry.observe(f"{_NAMESPACE}_shard_lease_renew_latency_milliseconds", {},
+                     seconds * 1e3)
+
+
+def register_sketch_solicitation(result: str) -> None:
+    """volcano_sketch_solicitations_total{result}: per-node outcomes of
+    sketch-solicited foreign candidates (federation/sketches.py).
+    result ∈ {verified (node truth read-back confirmed the sketch
+    entry), stale (the sketch advertised a node the store says is gone
+    or unschedulable — pruning signal, never a correctness event)}."""
+    # label-vocab: result ∈ {verified, stale}, a static set
+    registry.inc(f"{_NAMESPACE}_sketch_solicitations_total", {"result": result})
+
+
+def register_gang_assembly(result: str) -> None:
+    """volcano_gang_assemblies_total{result}: cross-shard gang assembly
+    outcomes (federation/broker.py).  result ∈ {committed (one
+    txn_commit bound the gang whole), conflict (a claim went stale —
+    assembly discarded whole, retried with backoff), aborted
+    (transport/unsupported — incl. the pre-v6 old-peer refusal mode),
+    infeasible (no full-gang placement exists in the ledger's view —
+    the honest Pending outcome)}."""
+    registry.inc(f"{_NAMESPACE}_gang_assemblies_total", {"result": result})
+
+
+def observe_txn_commit(seconds: float) -> None:
+    """volcano_txn_commit_latency_milliseconds: the atomic multi-object
+    transaction's round trip (VBUS v6) as the gang broker sees it —
+    precondition sweep + N binds + one WAL fsync + quorum ack, over
+    whichever backend the member holds."""
+    registry.observe(f"{_NAMESPACE}_txn_commit_latency_milliseconds", {}, seconds * 1e3)
+
+
+def register_autoscale_decision(direction: str) -> None:
+    """volcano_shard_autoscale_decisions_total{direction}: one count
+    per shard-count change the autoscale controller committed to the
+    shard map."""
+    # label-vocab: direction ∈ {up, down}
+    registry.inc(f"{_NAMESPACE}_shard_autoscale_decisions_total", {"direction": direction})
 
 
 # ---- the durable, replicated store (bus/wal.py, bus/replication.py) ----

@@ -1,8 +1,8 @@
 """Incident bundles — the cluster's black box, written at the breach.
 
 A copy of ``volcano_tpu/obs/incident.py``; the shard map comes from
-:mod:`volcano_tpu_torch.obs.shard_map` and the journal tail from the
-port's :class:`volcano_tpu_torch.trace.Journal`.
+:func:`volcano_tpu_torch.federation.leases.read_shard_map` and the
+journal tail from the port's :class:`volcano_tpu_torch.trace.Journal`.
 
 When the burn-rate watchdog (obs/slo.py) edge-triggers a breach — or a
 human runs ``vtctl incidents capture`` — two things must happen fast:
@@ -265,7 +265,7 @@ class IncidentManager:
         return path
 
     def _shard_map(self) -> Optional[dict]:
-        from volcano_tpu_torch.obs.shard_map import read_shard_map
+        from volcano_tpu_torch.federation.leases import read_shard_map
 
         return read_shard_map(self.api)
 

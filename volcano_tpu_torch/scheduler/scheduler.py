@@ -72,7 +72,7 @@ from __future__ import annotations
 import os
 import threading
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, ContextManager, Dict, List, Optional
 
 from volcano_tpu_torch import actions as _actions  # noqa: F401 — registers actions
 from volcano_tpu_torch import metrics
@@ -154,6 +154,10 @@ class Scheduler:
         #: concurrently with a session).  Exceptions are logged, never
         #: kill the loop.
         self.post_cycle: Optional[Callable[[], None]] = None
+        #: cycle guard: a context manager factory entered around every
+        #: run_once, post-cycle hook included (a federation member keeps
+        #: its ownership transitions out of a cycle with it)
+        self.cycle_guard: Optional[Callable[[], ContextManager]] = None
         # ---- restricted-subgraph sessions (incremental/subgraph.py) ----
         #: opt-in: micro-cycles whose conf is entirely within
         #: RESTRICTABLE_ACTIONS open over only the jobs with schedulable
@@ -314,7 +318,14 @@ class Scheduler:
         ``volcano_micro_cycles_total`` label).  A micro-cycle opens a
         restricted session when ``restricted_sessions`` is on and the
         policy is restrictable, else the same full session a full cycle
-        opens."""
+        opens.  Runs inside ``cycle_guard`` where one is set."""
+        if self.cycle_guard is None:
+            self._run_cycle(trigger)
+            return
+        with self.cycle_guard():
+            self._run_cycle(trigger)
+
+    def _run_cycle(self, trigger: str) -> None:
         micro = trigger != "full"
         # consumed by gpu-allocate to attribute pack-level cold fallbacks
         # (registry overflow etc.) during a micro-triggered cycle; plain
